@@ -1,0 +1,88 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel source under ``csrc/`` has a plain ``extern "C"`` interface and
+is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds).  Libraries go to
+``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused.  The first use in a process builds or finds
+the library; nothing happens at import time.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``, so
+``tanhf``/``logf``/``expf``/``sqrtf`` and division stay IEEE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from PATH, else from ``$CUDA_HOME`` (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "need the CUDA toolkit"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return the
+    library's path.  The compiler's report (registers, shared memory,
+    spills) is kept beside it as ``<library>.log``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name and rename, so a process building at the
+    # same time never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu`` once per
+    process."""
+    return ctypes.CDLL(str(build(name)))

@@ -1,0 +1,71 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+This file imports neither JAX nor the JAX package, so it runs on a GPU
+machine without JAX (``tests/conftest.py`` imports JAX, hence
+``--noconftest``):
+
+    python -m pytest tests/test_torch_kernel_cuda.py -q -m cuda --noconftest
+
+Without a CUDA device every test here skips.  Tolerances: latents atol 1e-4
+and scalars rtol 1e-5 on these short chains (the kernel sums in another
+order than cuBLAS; measured differences are ~2e-6).
+"""
+
+import importlib
+
+import pytest
+import torch
+
+import montecarlopredictivecoding_tpu_torch as mt
+
+chain_mod = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(dims, B, device, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    model = mt.make_mlp_model(*dims)
+    params = model.init(gen, device=device)
+    latents = model.init_latents(params, torch.zeros(B, dims[0], device=device), gen)
+    target = (torch.rand(B, dims[3], generator=gen) > 0.5).float().to(device)
+    return params, latents, target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,B,kw", [
+    ((20, 128, 128, 784), 64, dict(T=21, warm_T=5, loss="bernoulli")),
+    ((20, 128, 128, 784), 40, dict(T=20, loss="gaussian", batch_tile=20)),
+    ((10, 256, 256, 784), 32, dict(T=11, warm_T=3, loss="none")),
+    ((4, 8, 8, 16), 5, dict(T=7, noise_var=None, loss="bernoulli")),
+])
+def test_kernel_matches_plain_version(cuda_device, dims, B, kw):
+    params, latents, target = _case(dims, B, cuda_device)
+    before = chain_mod.mcpc_chain.launches
+    a = chain_mod.mcpc_chain(params, latents, target, 9, lr=0.03,
+                             return_scalars=True, **kw)
+    torch.cuda.synchronize()
+    assert chain_mod.mcpc_chain.launches == before + 1
+    b = chain_mod.mcpc_chain_reference(params, latents, target, 9, lr=0.03,
+                                       return_scalars=True, **kw)
+    for u, v in zip(a[0], b[0]):
+        assert u.is_cuda and u.shape == v.shape
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+    for k in ("loss", "energy"):
+        torch.testing.assert_close(a[2][k], b[2][k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take(cuda_device):
+    params, latents, target = _case((4, 8, 8, 16), 4, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        chain_mod.mcpc_chain(params, tuple(x.double() for x in latents),
+                             target, 0, T=2, lr=0.1)
+    with pytest.raises(ValueError, match="one device"):
+        chain_mod.mcpc_chain(params, latents, target.cpu(), 0, T=2, lr=0.1)
