@@ -1,0 +1,217 @@
+"""MNIST training entry point: MCPC through the fused chain kernel.
+
+Per batch: latents are sampled, one chain call runs the Adam MAP warm start
+on the latents (``T_pc`` steps), the Langevin chain (``mixing + sampling``
+steps) and the Hebbian gradient sums over the sampling steps, and one Adam
+step updates the parameters with the gradients divided by ``sampling·B``.
+On a CUDA device the chain is one launch of the hand-written kernel plus the
+pass that sums its blocks' partial gradients; there is no other path on the
+card.
+
+Usage:
+    python3 -m montecarlopredictivecoding_tpu_torch.experiments.train_mnist \\
+        --model mcpc --epochs 10 --out models/mcpc_fid_1.msgpack
+    python3 -m ...train_mnist --model mcpc --snapshot-epochs 0 5 10 \\
+        --out models/epoch_save/mcpc_aging_0
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): ``--model pc`` and the engine path ``fused=False`` (queue 1 item 6),
+``--model dlgm`` (item 10), ``--model resnet9`` (item 5), ``--mesh`` (item
+8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+import typing as tp
+
+import torch
+
+from ..core.losses import bernoulli_fn
+from ..core.optim import AdamState, adam_init, adam_step
+from ..data import get_mnist_data
+from ..models.factory import get_model
+from ..ops.mcpc_chain import mcpc_chain
+from ..utils.checkpoint import save_checkpoint
+
+_WAITING = {
+    "pc": "queue 1 item 6 (the general engine and PCTrainer)",
+    "dlgm": "queue 1 item 10 (the DLGM baselines)",
+    "resnet9": "queue 1 item 5 (ResNet-9, with sample and score)",
+    "resnet9_mask": "queue 1 item 5 (ResNet-9, with sample and score)",
+}
+
+
+def apply_preset(config: dict, preset: str, model: str) -> dict:
+    """Per-metric architecture presets matching the reference checkpoints:
+    'fid'/'ml' use the standard 20-128-128-784 stack; 'mse' uses the
+    reconstruction architectures (MCPC 10-256-256-784 relu, PC
+    30-256-256-784 tanh)."""
+    if preset == "mse":
+        if model == "mcpc":
+            config.update(input_size=10, hidden_size=256, hidden2_size=256)
+        elif model == "pc":
+            config.update(
+                input_size=30, hidden_size=256, hidden2_size=256,
+                activation_fn="tanh",
+            )
+    elif preset == "ml":
+        if model == "pc":
+            config.update(input_size=25, activation_fn="tanh")
+    return config
+
+
+def mcpc_training_config() -> dict:
+    return {
+        "batch_size_train": 256,
+        "batch_size_val": 1024,
+        "batch_size_test": 1024,
+        "input_size": 20,
+        "hidden_size": 128,
+        "hidden2_size": 128,
+        "output_size": 784,
+        "loss_fn": bernoulli_fn,
+        "activation_fn": "relu",
+        "input_var": None,
+        "T_pc": 250,
+        "optimizer_x_fn_pc": "adam",
+        "optimizer_x_kwargs_pc": {"lr": 0.7},
+        "mixing": 50,
+        "sampling": 100,
+        "optimizer_x_kwargs_mcpc": {"lr": 0.1},
+        "optimizer_p_fn_mcpc": "adam",
+        "optimizer_p_kwargs_mcpc": {"lr": 0.01},
+    }
+
+
+def chain_options(config: dict, langevin_var: tp.Optional[float] = 2.0) -> dict:
+    """The keywords of the one chain call a training batch makes."""
+    return dict(
+        T=config["mixing"] + config["sampling"],
+        lr=config["optimizer_x_kwargs_mcpc"]["lr"],
+        noise_var=langevin_var, loss="bernoulli",
+        mixing=config["mixing"], with_pgrads=True,
+        warm_T=config["T_pc"],
+        warm_lr=config["optimizer_x_kwargs_pc"]["lr"],
+    )
+
+
+def one_batch(params, opt_state: AdamState, latents, seed: int, data, *,
+              config: dict, langevin_var: tp.Optional[float] = 2.0):
+    """One training batch, pure: the fused warm + chain call with parameter
+    gradients from ``latents`` (a tuple ``(x0, x1, x2)``) and the noise seed
+    ``seed``, then the Monte-Carlo Adam update.  Returns ``(params',
+    opt_state')``."""
+    _, pgrads = mcpc_chain(params, latents, data, seed,
+                           **chain_options(config, langevin_var))
+    scale = config["sampling"] * data.shape[0]
+    grads = tuple({k: v / scale for k, v in g.items()} for g in pgrads)
+    return adam_step(params, grads, opt_state,
+                     config["optimizer_p_kwargs_mcpc"]["lr"])
+
+
+def train_mcpc(
+    epochs: int,
+    out: str,
+    seed: int = 0,
+    snapshot_epochs=(),
+    batches_per_epoch=None,
+    log: bool = True,
+    fused: tp.Optional[bool] = None,
+    preset: str = "fid",
+    mesh: tp.Optional[int] = None,
+    langevin_var: tp.Optional[float] = 2.0,
+    device="cuda",
+):
+    """MCPC MNIST training: per batch a PC warm start, then an MCPC chain
+    with the Monte-Carlo-accumulated weight update, all in :func:`one_batch`.
+
+    Each batch's latents and its chain seed are drawn from the model's
+    ``torch.Generator``, made from ``seed``.  The last, smaller batch of an
+    epoch runs like any other.  ``langevin_var`` is the Langevin noise
+    variance; ``None`` makes the chain deterministic.  ``snapshot_epochs``
+    saves ``<out>_epoch<N>.msgpack`` after those epochs (0: before
+    training); without it the final parameters go to ``<out>``.  Returns the
+    :class:`GenerativeModel`.
+
+    ``fused`` may be None or True: the engine path (``fused=False``) and
+    ``mesh`` are not ported yet.
+    """
+    if fused is not None and not fused:
+        raise NotImplementedError(
+            "train_mcpc(fused=False), the engine path, is not ported yet: "
+            "ROADMAP.md " + _WAITING["pc"])
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_mcpc(mesh=N), data-parallel training, is not ported yet: "
+            "ROADMAP.md queue 1 item 8 (parallelism)")
+    device = torch.device(device)
+    config = apply_preset(mcpc_training_config(), preset, "mcpc")
+    train, _, _ = get_mnist_data(config, seed=seed, device=device)
+    gen = get_model(config, seed, device=device)
+    opt_state = adam_init(gen.params)
+
+    def snap(tag):
+        path = out + (f"_epoch{tag}" if tag is not None else "")
+        save_checkpoint(path if path.endswith(".msgpack") else path + ".msgpack",
+                        gen.params)
+
+    if 0 in snapshot_epochs:
+        snap("_init")
+    for epoch in range(1, epochs + 1):
+        t0 = time.time()
+        for i, (data, _) in enumerate(train):
+            if batches_per_epoch is not None and i >= batches_per_epoch:
+                break
+            pseudo = torch.zeros((data.shape[0], config["input_size"]),
+                                 device=device)
+            latents = gen.model.init_latents(gen.params, pseudo, gen.generator)
+            chain_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen.generator))
+            gen.params, opt_state = one_batch(
+                gen.params, opt_state, latents, chain_seed, data,
+                config=config, langevin_var=langevin_var)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # so the epoch's time is honest
+        if log:
+            print(f"epoch {epoch}: {time.time() - t0:.1f}s")
+        if epoch in snapshot_epochs:
+            snap(epoch)
+    if not snapshot_epochs:
+        snap(None)
+    return gen
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", choices=["mcpc", *_WAITING], required=True)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--out", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batches-per-epoch", type=int, default=None)
+    p.add_argument("--snapshot-epochs", type=int, nargs="*", default=[])
+    p.add_argument("--preset", choices=["fid", "ml", "mse"], default="fid",
+                   help="architecture preset matching the reference checkpoint families")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="data-parallel training over N devices (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the kernel) or 'cpu' (the plain version)")
+    args = p.parse_args(argv)
+    if args.model != "mcpc":
+        raise NotImplementedError(
+            f"--model {args.model} is not ported yet: ROADMAP.md {_WAITING[args.model]}")
+    train_mcpc(
+        args.epochs,
+        args.out,
+        seed=args.seed,
+        snapshot_epochs=tuple(args.snapshot_epochs),
+        batches_per_epoch=args.batches_per_epoch,
+        preset=args.preset,
+        mesh=args.mesh,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """Model factory for the canonical experiment configurations.
 
 ``get_model`` builds the 4-Linear generative MLP with uniform(-10, 10)
-latent init from a reference-style config dict.  The trainer factories
-(``get_pc_trainer``, ``get_mcpc_trainer``, ...) wait for the port of
-``PCTrainer`` (ROADMAP.md queue 1 item 6).
+latent init from a reference-style config dict.  Training goes through
+``experiments/train_mnist.py``, which needs no trainer object; the trainer
+factories of the JAX package (``get_pc_trainer``, ``get_mcpc_trainer``) come
+with ``PCTrainer`` itself (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations

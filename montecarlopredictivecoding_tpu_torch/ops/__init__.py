@@ -3,6 +3,8 @@ from .mcpc_chain import (
     mcpc_chain,
     mcpc_chain_reference,
     model_activation,
+    sum_block_partials,
+    sum_block_partials_reference,
     supports_model,
 )
 
@@ -11,5 +13,7 @@ __all__ = [
     "mcpc_chain",
     "mcpc_chain_reference",
     "model_activation",
+    "sum_block_partials",
+    "sum_block_partials_reference",
     "supports_model",
 ]

@@ -4,8 +4,8 @@ Each kernel source under ``csrc/`` has a plain ``extern "C"`` interface and
 is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  The first use in a process builds or finds
+named by a hash of the source, the shared headers and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  The first use in a process builds or finds
 the library; nothing happens at import time.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``, so
@@ -21,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import typing as tp
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,8 +49,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  The name
+    carries a hash of the source, of every header under ``csrc/`` (a source
+    may include any of them) and of the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -79,6 +85,13 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(names: tp.Sequence[str]) -> tp.List[Path]:
+    """Build several sources at once, one ``nvcc`` each, all started
+    together; returns their libraries' paths in order."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,8 +3,10 @@
 // Replaces: the JAX package's ops/pallas_mcpc.py::_make_packed_kernel
 // (launched by mcpc_chain_pallas(packed=True) at its pl.pallas_call), the
 // warm phase (warm_step: Adam MAP steps on the latents), the Langevin phase
-// (step -> eval_grads, box_muller) and the final-step scalars (scal_sums).
-// Activation relu; sensory loss bernoulli, gaussian or none.
+// (step -> eval_grads, box_muller), the final-step scalars (scal_sums) and
+// the Hebbian parameter gradients (accum_pgrads, with_pgrads / warm_pgrads,
+// summed across batch tiles).  Activation relu; sensory loss bernoulli,
+// gaussian or none.
 //
 // What it computes, per batch row (rows never read each other on this path):
 //
@@ -13,6 +15,10 @@
 //   G = [err0 | err1 | err2] - relu'(x) * [err1 W1^T | err2 W2^T | -S W3^T]
 //   warm step:     Adam, optax operation order, bias powers carried in f32
 //   Langevin step: x <- x - lr G + sqrt(lr var) z
+//   sampling step (Langevin t >= mixing, or the last warm step), from the
+//   state BEFORE the update, summed over the batch:
+//     gW1 += -relu(x0)^T err1   gW2 += -relu(x1)^T err2   gW3 += relu(x2)^T S
+//     gb0 += -err0   gb1 += -err1   gb2 += -err2   gb3 += S
 //
 // The noise z is the counter hash of the JAX package (_fmix32, _mock_bits,
 // _uniforms, _sincos_2pi) evaluated per element at (seed + batch tile,
@@ -41,15 +47,36 @@
 //    W3's columns over a thread-block cluster, or tensor cores at full f32
 //    precision, is later work (ROADMAP.md, "Hopper design constraint").
 //  * No --use_fast_math: tanhf, logf, log1pf, expf and sqrtf stay IEEE.
+//
+// Parameter gradients.  The TPU kernel keeps one gW accumulator resident in
+// fast memory and walks the batch tiles in order.  Here the blocks run in
+// parallel and never talk, and gW1+gW2+gW3 (119,296 floats, 477 KB at width
+// 20-128-128-784) fit neither a block's registers nor its shared memory.
+// So every block keeps a partial accumulator of its own in device memory
+// (16 blocks x 481 KB at B=256, resident in L2).  On a sampling step, after
+// the forward pass has left relu(X), the errors and S of the pre-update
+// state in shared memory and before the backward pass overwrites relu(X),
+// each thread read-modify-writes the elements of the partial it owns
+// (mcpc_common.cuh, hebbian_accumulate).  A second kernel,
+// sum_partials_kernel, then adds the partials over blocks in block order.
+// No atomics anywhere: the order of every sum is fixed, so two runs on the
+// same inputs give the same bits.  Rows that only pad the last block evolve
+// like real rows (their latents start at 0), so every sum skips them.
+// Steps that do not sample run the code they ran without gradients, plus
+// one uniform branch.  A sampling step adds one product of the size of the
+// forward pass (61 MFLOP at B=256) and one read and one write of the
+// block's partial through L2.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mcpc_common.cuh"
+
 namespace {
 
-constexpr int NT = 256;           // threads per block
-constexpr int NWARP = NT / 32;
+using namespace mcpc;
+
 constexpr int KS = 2;             // split of the K=D sum in S W3^T
 
 struct ChainArgs {
@@ -60,106 +87,20 @@ struct ChainArgs {
   const float* w1; const float* w2; const float* w3;   // [in, out]
   const float* w1t; const float* w2t; const float* w3t;  // [out, in]
   double* scal;                                        // [n_blocks, 2]
+  float* partials;                                     // [n_blocks, partial_floats] or null
   int B, d0, d1, d2, D;
   int T, warm_T, loss, want_scalars;                   // loss: 0 none, 1 bernoulli, 2 gaussian
+  int mixing, pg_warm;         // with partials: sample Langevin steps t >= mixing,
+                               // and with pg_warm the last warm step
   float inv_var, lr, noise_std;
   float warm_lr, wb1, wb2, one_m_b1, one_m_b2, weps;
   int seed, tile_B, XW, O1, O2;                        // noise indexing
 };
 
-// ---------------------------------------------------------------- noise
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t draw,
-                                                 uint32_t idx) {
-  const uint32_t h = seed * 0x9E3779B1u + draw * 0x6C62272Eu;
-  return fmix32(fmix32(h + idx) ^ 0xA511E9B3u);
-}
-
-// (bits >> 9) | 0x3F800000 read as a float lies in [1, 2)
-__device__ __forceinline__ float unit_from_bits(uint32_t b) {
-  return __uint_as_float((b >> 9) | 0x3F800000u);
-}
-
-// (cos 2 pi u, sin 2 pi u) for u in [0, 1): quadrant reduction and the same
-// Taylor polynomials as the JAX package's _sincos_2pi (constants rounded
-// from double to float as JAX rounds them).
-__device__ __forceinline__ void sincos_2pi(float u, float& c_out, float& s_out) {
-  const float t = 4.0f * u;
-  const float q = floorf(t);
-  const float x = (float)1.5707963267948966 * (t - q);
-  const float x2 = x * x;
-  const float s = x * (1.0f + x2 * ((float)-1.66666667e-1 + x2 * ((float)8.33333333e-3
-      + x2 * ((float)-1.98412698e-4 + x2 * ((float)2.75573192e-6
-      + x2 * ((float)-2.50521084e-8))))));
-  const float c = 1.0f + x2 * (-0.5f + x2 * ((float)4.16666667e-2
-      + x2 * ((float)-1.38888889e-3 + x2 * ((float)2.48015873e-5
-      + x2 * ((float)-2.75573192e-7 + x2 * (float)2.08767570e-9)))));
-  const int qi = ((int)q) & 3;
-  const bool swap = (qi & 1) == 1;
-  const float s1 = swap ? c : s;
-  const float c1 = swap ? s : c;
-  c_out = (qi == 1 || qi == 2) ? -c1 : c1;
-  s_out = (qi >= 2) ? -s1 : s1;
-}
-
 // Standard normal of Langevin step t at element index idx: Box-Muller over
 // draws 2p, 2p+1 of pair p = t/2; even steps take the cos branch, odd the sin.
 __device__ __forceinline__ float langevin_normal(uint32_t seed, int t, uint32_t idx) {
-  const uint32_t draw = (uint32_t)(t >> 1) * 2u;
-  const float u1 = 2.0f - unit_from_bits(counter_bits(seed, draw, idx));
-  const float u2 = unit_from_bits(counter_bits(seed, draw + 1u, idx)) - 1.0f;
-  const float r = sqrtf(-2.0f * logf(u1));
-  float c, s;
-  sincos_2pi(u2, c, s);
-  return (t & 1) ? r * s : r * c;
-}
-
-// ------------------------------------------------------------ products
-
-// acc[r] += a[r] * w for the R rows of one feature (a is [R], 16B aligned
-// when R % 4 == 0)
-template <int R>
-__device__ __forceinline__ void row_fma(float (&acc)[R], const float* a, float w) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < R / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(a)[q];
-      acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r], w, acc[r]);
-  }
-}
-
-// acc[r] += sum_{k0 <= k < k1} A[k][r] * W[k * ldw + col]; A is shared
-// [K][R], W a row-major matrix in device memory read through L2.
-template <int R>
-__device__ __forceinline__ void rows_dot(float (&acc)[R], const float* A,
-                                         const float* __restrict__ W, int k0,
-                                         int k1, int ldw, int col) {
-  constexpr int U = 8;
-  int k = k0;
-  for (; k + U <= k1; k += U) {
-    float w[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) w[u] = __ldg(W + (size_t)(k + u) * ldw + col);
-#pragma unroll
-    for (int u = 0; u < U; ++u) row_fma<R>(acc, A + (k + u) * R, w[u]);
-  }
-  for (; k < k1; ++k) row_fma<R>(acc, A + k * R, __ldg(W + (size_t)k * ldw + col));
+  return box_muller(seed, (uint32_t)(t >> 1) * 2u, idx, (t & 1) != 0);
 }
 
 // -------------------------------------------------------------- kernel
@@ -205,6 +146,14 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       M[c * R + r] = 0.f;
       V[c * R + r] = 0.f;
     }
+  }
+  const int nvalid = min(R, a.B - row0);   // rows of this block inside the batch
+  PartialLayout pg = {};
+  if (a.partials != nullptr) {
+    const size_t np = partial_floats(a.d0, a.d1, a.d2, a.D);
+    float* mine = a.partials + (size_t)blockIdx.x * np;
+    for (size_t e = tid; e < np; e += NT) mine[e] = 0.f;
+    pg = partial_layout(mine, a.d0, a.d1, a.d2, a.D);
   }
   __syncthreads();
 
@@ -293,6 +242,18 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     }
     __syncthreads();
 
+    // ---- sampling step: Hebbian gradients from H, E and S of the state
+    // before the update; the barrier keeps the backward pass off H
+    if (a.partials != nullptr &&
+        (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
+      prior_bias_accumulate<R>(pg.gb0, E, a.d0, nvalid, tid);
+      hebbian_accumulate<R>(pg.gw1, pg.gb1, H, E + c1 * R, a.d0, a.d1, -1.f, nvalid, tid);
+      hebbian_accumulate<R>(pg.gw2, pg.gb2, H + c1 * R, E + c2 * R, a.d1, a.d2, -1.f, nvalid, tid);
+      if (has_s)
+        hebbian_accumulate<R>(pg.gw3, pg.gb3, H + c2 * R, S, a.d2, a.D, 1.f, nvalid, tid);
+      __syncthreads();
+    }
+
     // ---- backward: x0 and x1 columns update now; x2 columns get KS
     // partial sums of S W3^T
     const int nb = c2 + (has_s ? KS * a.d2 : 0);
@@ -367,6 +328,16 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   }
 }
 
+// out[e] = partials[0][e] + partials[1][e] + ..., blocks taken in order
+__global__ void sum_partials_kernel(const float* __restrict__ partials,
+                                    float* __restrict__ out, int nblocks, size_t n) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = partials[e];
+  for (int b = 1; b < nblocks; ++b) s += partials[(size_t)b * n + e];
+  out[e] = s;
+}
+
 template <int R>
 cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -421,7 +392,12 @@ const char* mcpc_chain_error_string(int err) {
 
 // Runs warm_T Adam steps then T Langevin steps for every batch row.  All
 // pointers are device pointers; scal receives [n_blocks, 2] (loss, energy)
-// partial sums when want_scalars.  Returns a cudaError_t (0 on success).
+// partial sums when want_scalars.  With partials not null (room for
+// [n_blocks, d0 d1 + d1 d2 + d2 D + d0 + d1 + d2 + D] floats, n_blocks =
+// ceil(B / rows)) every block leaves there its share of the parameter
+// gradients, [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3], taken on Langevin
+// steps t >= mixing and, with pg_warm, on the last warm step.  Returns a
+// cudaError_t (0 on success).
 int mcpc_chain_launch(
     const float* x0, const float* x1, const float* x2,
     float* o0, float* o1, float* o2,
@@ -429,9 +405,10 @@ int mcpc_chain_launch(
     const float* b0, const float* b1, const float* b2, const float* b3,
     const float* w1, const float* w2, const float* w3,
     const float* w1t, const float* w2t, const float* w3t,
-    double* scal,
+    double* scal, float* partials,
     int B, int d0, int d1, int d2, int D,
-    int T, int warm_T, int loss, int want_scalars, int rows,
+    int T, int warm_T, int loss, int want_scalars, int mixing, int pg_warm,
+    int rows,
     float inv_var, float lr, float noise_std,
     float warm_lr, float wb1, float wb2, float one_m_b1, float one_m_b2,
     float weps, int seed, int tile_B, void* stream) {
@@ -446,6 +423,8 @@ int mcpc_chain_launch(
   a.w1 = w1; a.w2 = w2; a.w3 = w3;
   a.w1t = w1t; a.w2t = w2t; a.w3t = w3t;
   a.scal = scal;
+  a.partials = partials;
+  a.mixing = mixing; a.pg_warm = pg_warm;
   a.B = B; a.d0 = d0; a.d1 = d1; a.d2 = d2; a.D = D;
   a.T = T; a.warm_T = warm_T; a.loss = loss; a.want_scalars = want_scalars;
   a.inv_var = inv_var; a.lr = lr; a.noise_std = noise_std;
@@ -465,6 +444,15 @@ int mcpc_chain_launch(
     case 1: return (int)launch_rows<1>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// out[n] = the sum over blocks, in block order, of partials[nblocks, n]
+int mcpc_sum_partials_launch(const float* partials, float* out, int nblocks,
+                             size_t n, void* stream) {
+  if (nblocks <= 0 || n == 0) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((n + NT - 1) / NT);
+  sum_partials_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(partials, out, nblocks, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

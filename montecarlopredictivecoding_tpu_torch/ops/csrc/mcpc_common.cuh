@@ -1,0 +1,221 @@
+// Device code shared by the MCPC chain kernels (mcpc_chain.cu,
+// mcpc_chain_unpacked.cu): the counter-hash noise, the small matrix products
+// over a block's rows, and the Hebbian parameter-gradient accumulation.
+//
+// Every block of NT threads owns R batch rows and keeps its state in shared
+// memory feature-major ([feature][row]), so one float4 load feeds 4 rows.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace mcpc {
+
+constexpr int NT = 256;           // threads per block
+constexpr int NWARP = NT / 32;
+
+// ---------------------------------------------------------------- noise
+//
+// The stateless counter hash of the JAX package (_fmix32, _mock_bits,
+// _uniforms, _sincos_2pi): a draw is a pure function of (seed, draw number,
+// element index).
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t draw,
+                                                 uint32_t idx) {
+  const uint32_t h = seed * 0x9E3779B1u + draw * 0x6C62272Eu;
+  return fmix32(fmix32(h + idx) ^ 0xA511E9B3u);
+}
+
+// (bits >> 9) | 0x3F800000 read as a float lies in [1, 2)
+__device__ __forceinline__ float unit_from_bits(uint32_t b) {
+  return __uint_as_float((b >> 9) | 0x3F800000u);
+}
+
+// (cos 2 pi u, sin 2 pi u) for u in [0, 1): quadrant reduction and the same
+// Taylor polynomials as the JAX package's _sincos_2pi (constants rounded
+// from double to float as JAX rounds them).
+__device__ __forceinline__ void sincos_2pi(float u, float& c_out, float& s_out) {
+  const float t = 4.0f * u;
+  const float q = floorf(t);
+  const float x = (float)1.5707963267948966 * (t - q);
+  const float x2 = x * x;
+  const float s = x * (1.0f + x2 * ((float)-1.66666667e-1 + x2 * ((float)8.33333333e-3
+      + x2 * ((float)-1.98412698e-4 + x2 * ((float)2.75573192e-6
+      + x2 * ((float)-2.50521084e-8))))));
+  const float c = 1.0f + x2 * (-0.5f + x2 * ((float)4.16666667e-2
+      + x2 * ((float)-1.38888889e-3 + x2 * ((float)2.48015873e-5
+      + x2 * ((float)-2.75573192e-7 + x2 * (float)2.08767570e-9)))));
+  const int qi = ((int)q) & 3;
+  const bool swap = (qi & 1) == 1;
+  const float s1 = swap ? c : s;
+  const float c1 = swap ? s : c;
+  c_out = (qi == 1 || qi == 2) ? -c1 : c1;
+  s_out = (qi >= 2) ? -s1 : s1;
+}
+
+// One Box-Muller normal from draws `draw` and `draw + 1` at element `idx`:
+// r*sin when take_sin, else r*cos.
+__device__ __forceinline__ float box_muller(uint32_t seed, uint32_t draw,
+                                            uint32_t idx, bool take_sin) {
+  const float u1 = 2.0f - unit_from_bits(counter_bits(seed, draw, idx));
+  const float u2 = unit_from_bits(counter_bits(seed, draw + 1u, idx)) - 1.0f;
+  const float r = sqrtf(-2.0f * logf(u1));
+  float c, s;
+  sincos_2pi(u2, c, s);
+  return take_sin ? r * s : r * c;
+}
+
+// ------------------------------------------------------------ products
+
+// acc[r] += a[r] * w for the R rows of one feature (a is [R], 16B aligned
+// when R % 4 == 0)
+template <int R>
+__device__ __forceinline__ void row_fma(float (&acc)[R], const float* a, float w) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(a)[q];
+      acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r], w, acc[r]);
+  }
+}
+
+// acc[r] += sum_{k0 <= k < k1} A[k][r] * W[k * ldw + col]; A is shared
+// [K][R], W a row-major matrix in device memory read through L2.
+template <int R>
+__device__ __forceinline__ void rows_dot(float (&acc)[R], const float* A,
+                                         const float* __restrict__ W, int k0,
+                                         int k1, int ldw, int col) {
+  constexpr int U = 8;
+  int k = k0;
+  for (; k + U <= k1; k += U) {
+    float w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = __ldg(W + (size_t)(k + u) * ldw + col);
+#pragma unroll
+    for (int u = 0; u < U; ++u) row_fma<R>(acc, A + (k + u) * R, w[u]);
+  }
+  for (; k < k1; ++k) row_fma<R>(acc, A + k * R, __ldg(W + (size_t)k * ldw + col));
+}
+
+// sum_r a[r] * v[r], rows taken in ascending order (a is [R] in shared memory)
+template <int R>
+__device__ __forceinline__ float row_dot(const float* a, const float (&v)[R]) {
+  float s = 0.f;
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(a)[q];
+      s = fmaf(x.x, v[4 * q + 0], s);
+      s = fmaf(x.y, v[4 * q + 1], s);
+      s = fmaf(x.z, v[4 * q + 2], s);
+      s = fmaf(x.w, v[4 * q + 3], s);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s = fmaf(a[r], v[r], s);
+  }
+  return s;
+}
+
+// ------------------------------------------------- parameter gradients
+//
+// A block's share of the Hebbian gradients lives in device memory, one
+// "partial" per block, laid out [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3].
+// Only the block's own threads touch it, each thread always the same
+// elements, so a read-modify-write needs no atomics and no fence, and the
+// order of every sum is fixed.  A second pass sums the partials over blocks.
+
+struct PartialLayout {
+  float* gw1; float* gw2; float* gw3;
+  float* gb0; float* gb1; float* gb2; float* gb3;
+};
+
+__host__ __device__ inline size_t partial_floats(int d0, int d1, int d2, int D) {
+  return (size_t)d0 * d1 + (size_t)d1 * d2 + (size_t)d2 * D + d0 + d1 + d2 + D;
+}
+
+__device__ __forceinline__ PartialLayout partial_layout(float* p, int d0, int d1,
+                                                        int d2, int D) {
+  PartialLayout l;
+  l.gw1 = p;
+  l.gw2 = l.gw1 + (size_t)d0 * d1;
+  l.gw3 = l.gw2 + (size_t)d1 * d2;
+  l.gb0 = l.gw3 + (size_t)d2 * D;
+  l.gb1 = l.gb0 + d0;
+  l.gb2 = l.gb1 + d1;
+  l.gb3 = l.gb2 + d2;
+  return l;
+}
+
+constexpr int PG_CHUNK = 32;  // rows of gW one job covers
+constexpr int PG_U = 8;       // elements of gW in flight per thread
+
+// One layer's step of the accumulation, over the block's first `nvalid`
+// rows (the rest pad the batch):
+//   gW[k][col] += sum_r A[k][r] * (sign * V[col][r])     k < K, col < N
+//   gb[col]    += sum_r sign * V[col][r]
+// A is [K][R] and V is [N][R] in shared memory.  A job is one column and
+// PG_CHUNK rows of gW: neighbouring threads take neighbouring columns, so
+// gW is read and written coalesced, and V[col] stays in registers.
+template <int R>
+__device__ __forceinline__ void hebbian_accumulate(float* gw, float* gb,
+                                                   const float* A, const float* V,
+                                                   int K, int N, float sign,
+                                                   int nvalid, int tid) {
+  const int nchunk = (K + PG_CHUNK - 1) / PG_CHUNK;
+  for (int job = tid; job < N * nchunk; job += NT) {
+    const int chunk = job / N, col = job - chunk * N;
+    float v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = r < nvalid ? sign * V[col * R + r] : 0.f;
+    if (chunk == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) s += v[r];
+      gb[col] += s;
+    }
+    const int k1 = min(K, (chunk + 1) * PG_CHUNK);
+    int k = chunk * PG_CHUNK;
+    for (; k + PG_U <= k1; k += PG_U) {
+      float g[PG_U];
+#pragma unroll
+      for (int u = 0; u < PG_U; ++u) g[u] = gw[(size_t)(k + u) * N + col];
+#pragma unroll
+      for (int u = 0; u < PG_U; ++u)
+        gw[(size_t)(k + u) * N + col] = g[u] + row_dot<R>(A + (k + u) * R, v);
+    }
+    for (; k < k1; ++k) gw[(size_t)k * N + col] += row_dot<R>(A + k * R, v);
+  }
+}
+
+// gb0[j] += sum_r -err0[j][r] over the block's first `nvalid` rows
+template <int R>
+__device__ __forceinline__ void prior_bias_accumulate(float* gb0, const float* E0,
+                                                      int d0, int nvalid, int tid) {
+  for (int j = tid; j < d0; j += NT) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) s += r < nvalid ? -E0[j * R + r] : 0.f;
+    gb0[j] += s;
+  }
+}
+
+}  // namespace mcpc

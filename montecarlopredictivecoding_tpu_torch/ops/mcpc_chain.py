@@ -1,8 +1,10 @@
-"""Fused whole-chain MCPC: the Hopper kernel's wrapper, its plain PyTorch
-version, and the counter-hash noise both of them use.
+"""Fused whole-chain MCPC: the Hopper kernels' wrapper, their plain PyTorch
+version, and the counter-hash noise all of them use.
 
 ``mcpc_chain`` runs (optionally) ``warm_T`` Adam MAP steps on the latents,
-then ``T`` Langevin steps, over the canonical generative MLP
+then ``T`` Langevin steps, and (optionally) accumulates the Hebbian
+parameter gradients over the sampling steps, over the canonical generative
+MLP
 
     zeros -> Linear(d0,d0) -> PC(x0) -> relu -> Linear(d0,d1) -> PC(x1)
           -> relu -> Linear(d1,d2) -> PC(x2) -> relu -> Linear(d2,D) -> loss
@@ -13,11 +15,20 @@ with the closed-form energy gradient
     S    = sigmoid(logits) - y | (logits - y)/input_var | 0
     G    = [err0 | err1 | err2] - relu'(x) * [err1 W1ᵀ | err2 W2ᵀ | -S W3ᵀ]
 
-On CUDA tensors it launches the hand-written kernel
-(``csrc/mcpc_chain.cu``), which replaces the JAX package's Pallas kernel
-``ops/pallas_mcpc.py::_make_packed_kernel``; on CPU tensors it runs
-:func:`mcpc_chain_reference`, the same arithmetic in plain PyTorch.  There is
-no fallback from one to the other.
+and, on a sampling step, from the state before the update,
+
+    gW1 += -relu(x0)ᵀ err1   gW2 += -relu(x1)ᵀ err2   gW3 += relu(x2)ᵀ S
+    gb0 += Σ -err0   gb1 += Σ -err1   gb2 += Σ -err2   gb3 += Σ S
+
+On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
+which replaces the JAX package's Pallas kernel
+``ops/pallas_mcpc.py::_make_packed_kernel``, or with ``packed=False``
+``csrc/mcpc_chain_unpacked.cu``, which replaces ``_make_kernel``, the
+readable baseline.  With parameter gradients every block of either kernel
+leaves a partial sum, and :func:`sum_block_partials` (a second kernel) adds
+them in block order.  On CPU tensors it runs :func:`mcpc_chain_reference`,
+the same arithmetic in plain PyTorch.  There is no fallback from one to the
+other.
 
 Noise.  Both versions draw the Langevin noise from the stateless counter
 hash of the JAX package's interpret mode (``_fmix32``, ``_mock_bits``,
@@ -28,6 +39,7 @@ step pair ``p`` reads draws ``2p`` and ``2p+1`` (step ``2p`` takes ``r·cos``,
 step ``2p+1`` ``r·sin``).  So the port's chain equals
 ``mcpc_chain_pallas(..., interpret=True)`` element by element, up to f32
 rounding.  Nothing is stored padded: the padding enters only the index.
+The unpacked baseline has its own indexing (:func:`_unpacked_normals`).
 
 The hash is 32-bit unsigned arithmetic.  ``torch.uint32`` lacks the needed
 ops, so the PyTorch version keeps the values in int64 and reduces mod 2**32,
@@ -198,17 +210,14 @@ def box_muller(bits1: Tensor, bits2: Tensor) -> tp.Tuple[Tensor, Tensor]:
 
 # keyword -> (value that means "off", the ROADMAP.md item that ports it)
 _UNPORTED = {
-    "with_pgrads": (False, "queue 2 item a (Hebbian pgrads, the training slice)"),
     "capture_stride": (0, "queue 2 item d (captures)"),
     "scalar_stride": (0, "queue 2 item c (per-step scalars)"),
     "output_var": (None, "queue 2 item e (output-PC site)"),
     "mask_perc": (None, "queue 2 item e (masked losses)"),
     "bf16_matmul": (False, "queue 2, the bf16 opt-in"),
-    "packed": (True, "queue 2 item g (the unpacked kernel)"),
     "warm_mu": (None, "queue 2 item b (warm continuation)"),
     "warm_nu": (None, "queue 2 item b (warm continuation)"),
     "warm_count": (None, "queue 2 item b (warm continuation)"),
-    "warm_pgrads": (False, "queue 2 item b (warm_pgrads, the training slice)"),
     "emit_warm_opt_state": (False, "queue 2 item b (emit_warm_opt_state)"),
 }
 
@@ -233,16 +242,39 @@ class _Chain:
     return_scalars: bool
     tile: int
     seed: int
+    mixing: int
+    with_pgrads: bool
+    warm_pgrads: bool
+    packed: bool
 
 
 def _chain_args(params, latents, target, seed, *, T: int, lr: float,
                 noise_var: tp.Optional[float] = 2.0, loss: str = "bernoulli",
                 input_var: float = 1.0,
-                mixing: int = 0,  # read only with parameter gradients
+                mixing: int = 0,  # with_pgrads sums over steps t >= mixing
+                with_pgrads: bool = False, packed: bool = True,
                 warm_T: int = 0, warm_lr: float = 0.1, warm_b1: float = 0.9,
                 warm_b2: float = 0.999, warm_eps: float = 1e-8,
-                activation: str = "relu", return_scalars: bool = False,
+                activation: str = "relu", warm_pgrads: bool = False,
+                return_scalars: bool = False,
                 batch_tile: tp.Optional[int] = None, **unported) -> _Chain:
+    # what the JAX wrapper refuses comes first, in its words
+    if warm_T and not packed:
+        raise ValueError("the Adam warm-start phase requires packed=True")
+    if warm_pgrads and not warm_T:
+        raise ValueError("warm_pgrads requires warm_T > 0")
+    if warm_pgrads and not with_pgrads:
+        # the JAX kernel has no accumulators to add to without with_pgrads
+        raise ValueError("warm_pgrads requires with_pgrads")
+    if not packed:
+        if activation != "relu":
+            raise ValueError("packed=False supports relu only")
+        if loss.endswith("_mask"):
+            raise ValueError("masked losses require packed=True")
+        if return_scalars or batch_tile is not None:
+            raise ValueError(
+                "return_scalars/warm_pgrads/batch_tile require packed=True"
+            )
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"mcpc_chain got an unexpected keyword {name!r}")
@@ -287,10 +319,13 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
     if T < 0 or warm_T < 0:
         raise ValueError("T and warm_T must be >= 0")
 
-    tile = _pick_batch_tile(B) if batch_tile is None else int(batch_tile)
+    if not packed:
+        tile = B  # one tile, the seed unshifted
+    else:
+        tile = _pick_batch_tile(B) if batch_tile is None else int(batch_tile)
     if B % tile != 0:
         raise ValueError(f"batch {B} not divisible by batch_tile {tile}")
-    if batch_tile is None and B > tile and tile < 128:
+    if packed and batch_tile is None and B > tile and tile < 128:
         raise ValueError(
             f"batch {B} has no tile divisor >= 128 (best: {tile}); pad the "
             "batch to a multiple of 128 or pass batch_tile explicitly"
@@ -306,11 +341,33 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         return_scalars=bool(return_scalars), tile=tile,
         # the JAX wrapper passes the seed as int32
         seed=((seed + 2**31) % 2**32) - 2**31,
+        mixing=int(mixing), with_pgrads=bool(with_pgrads),
+        warm_pgrads=bool(warm_pgrads), packed=bool(packed),
     )
 
 
-def _result(latents, scalars, return_scalars: bool):
-    return (latents, None, scalars) if return_scalars else (latents, None)
+def _result(latents, pgrads, scalars, return_scalars: bool):
+    return (latents, pgrads, scalars) if return_scalars else (latents, pgrads)
+
+
+def _partial_sizes(dims) -> tp.Tuple[int, ...]:
+    """Lengths of the blocks of one flat gradient vector, in the kernels'
+    order: gW1, gW2, gW3, gb0, gb1, gb2, gb3."""
+    d0, d1, d2, D = dims
+    return (d0 * d1, d1 * d2, d2 * D, d0, d1, d2, D)
+
+
+def _pgrads_from_flat(flat: Tensor, params, dims):
+    """The params-shaped tuple of gradient dicts from one flat vector (views
+    of it); ``pgrads[0]["w"]`` is zeros, its input being zeros."""
+    d0, d1, d2, D = dims
+    gw1, gw2, gw3, gb0, gb1, gb2, gb3 = flat.split(_partial_sizes(dims))
+    return (
+        {"w": torch.zeros_like(params[0]["w"]), "b": gb0},
+        {"w": gw1.view(d0, d1), "b": gb1},
+        {"w": gw2.view(d1, d2), "b": gb2},
+        {"w": gw3.view(d2, D), "b": gb3},
+    )
 
 
 # ------------------------------------------------------- plain version
@@ -331,6 +388,23 @@ def _noise_index(c: _Chain, B: int, device) -> tp.Tuple[Tensor, Tensor]:
     return idx, seeds
 
 
+def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
+    """Step ``t``'s normals ``[B, d0+d1+d2]`` of the unpacked baseline: per
+    latent the JAX package's ``_normals`` over a ``[B, half]`` grid
+    (``half = (d+1)//2``, ``r·cos`` in the first ``half`` columns, ``r·sin``
+    in the rest), draws ``6t+{0,1}``, ``6t+{2,3}``, ``6t+{4,5}``."""
+    rows = torch.arange(B, dtype=torch.int64, device=device)
+    parts = []
+    for l, d in enumerate(c.dims[:3]):
+        half = (d + 1) // 2
+        idx = rows[:, None] * half + torch.arange(
+            half, dtype=torch.int64, device=device)[None, :]
+        zc, zs = box_muller(counter_bits_at(idx, c.seed, 6 * t + 2 * l),
+                            counter_bits_at(idx, c.seed, 6 * t + 2 * l + 1))
+        parts.append(torch.cat([zc, zs], dim=1)[:, :d])
+    return torch.cat(parts, dim=1)
+
+
 @torch.no_grad()
 def _reference(c: _Chain, params, latents, target):
     d0, d1, d2, D = c.dims
@@ -342,7 +416,12 @@ def _reference(c: _Chain, params, latents, target):
     y = target if target is not None else torch.zeros(
         (B, D), dtype=X.dtype, device=X.device)
 
-    def grads(X, want_scalars: bool):
+    flat = None
+    if c.with_pgrads:
+        flat = torch.zeros(sum(_partial_sizes(c.dims)), dtype=X.dtype,
+                           device=X.device)
+
+    def grads(X, want_scalars: bool, sample: bool = False):
         x0, x1, x2 = X.split((d0, d1, d2), dim=1)
         h0, h1, h2 = torch.relu(x0), torch.relu(x1), torch.relu(x2)
         err0 = x0 - b0
@@ -361,6 +440,17 @@ def _reference(c: _Chain, params, latents, target):
         back = torch.cat([e1 @ w1.T, e2 @ w2.T, back2], dim=1)
         dH = (X > 0).to(X.dtype)
         G = torch.cat([err0, e1, e2], dim=1) - dH * back
+        if sample:
+            # Hebbian gradients from this (pre-update) state, over the batch
+            gw1, gw2, gw3, gb0, gb1, gb2, gb3 = flat.split(_partial_sizes(c.dims))
+            gw1 += (-(h0.T @ e1)).reshape(-1)
+            gw2 += (-(h1.T @ e2)).reshape(-1)
+            gb0 += (-err0).sum(dim=0)
+            gb1 += (-e1).sum(dim=0)
+            gb2 += (-e2).sum(dim=0)
+            if S is not None:
+                gw3 += (h2.T @ S).reshape(-1)
+                gb3 += S.sum(dim=0)
         if not want_scalars:
             return G, None
         energy = 0.5 * (torch.sum(err0 * err0) + torch.sum(e1 * e1)
@@ -384,7 +474,7 @@ def _reference(c: _Chain, params, latents, target):
         b1p, b2p = np.float32(c.warm_b1), np.float32(c.warm_b2)
         for s in range(c.warm_T):
             last = c.return_scalars and c.T == 0 and s == c.warm_T - 1
-            G, sc = grads(X, last)
+            G, sc = grads(X, last, c.warm_pgrads and s == c.warm_T - 1)
             scalars = sc if last else scalars
             c1 = float(np.float32(1.0) - b1p)
             c2 = float(np.float32(1.0) - b2p)
@@ -395,28 +485,32 @@ def _reference(c: _Chain, params, latents, target):
             b1p = np.float32(b1p * np.float32(c.warm_b1))
             b2p = np.float32(b2p * np.float32(c.warm_b2))
 
-    if c.noise_std > 0.0 and c.T > 0:
+    noisy = c.noise_std > 0.0
+    if noisy and c.packed and c.T > 0:
         idx, seeds = _noise_index(c, B, X.device)
     z_cos = z_sin = None
     for t in range(c.T):
-        if c.noise_std > 0.0 and t % 2 == 0:
+        if noisy and c.packed and t % 2 == 0:
             p = t // 2
             z_cos, z_sin = box_muller(
                 counter_bits_at(idx, seeds, 2 * p),
                 counter_bits_at(idx, seeds, 2 * p + 1),
             )
         last = c.return_scalars and t == c.T - 1
-        G, sc = grads(X, last)
+        G, sc = grads(X, last, c.with_pgrads and t >= c.mixing)
         scalars = sc if last else scalars
         X = X - c.lr * G
-        if c.noise_std > 0.0:
+        if noisy and c.packed:
             X = X + c.noise_std * (z_cos if t % 2 == 0 else z_sin)
+        elif noisy:
+            X = X + c.noise_std * _unpacked_normals(c, B, t, X.device)
 
     if c.return_scalars and scalars is None:  # no steps at all
         zero = torch.zeros(1, dtype=X.dtype, device=X.device)
         scalars = {"loss": zero, "energy": zero.clone()}
     new = tuple(x.contiguous() for x in X.split((d0, d1, d2), dim=1))
-    return _result(new, scalars, c.return_scalars)
+    pgrads = None if flat is None else _pgrads_from_flat(flat, params, c.dims)
+    return _result(new, pgrads, scalars, c.return_scalars)
 
 
 def mcpc_chain_reference(params, latents, target, seed, **options):
@@ -427,48 +521,113 @@ def mcpc_chain_reference(params, latents, target, seed, **options):
                       params, latents, target)
 
 
-# --------------------------------------------------------------- kernel
+# -------------------------------------------------------------- kernels
 
 _KERNEL_ROWS = (16, 8, 4, 2, 1)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_Z = ctypes.c_size_t
+
+
+def _prefix(packed: bool) -> str:
+    """Source name and C-symbol prefix of the packed or unpacked kernel."""
+    return "mcpc_chain" if packed else "mcpc_chain_unpacked"
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
+def _library(packed: bool = True) -> ctypes.CDLL:
+    """The packed or unpacked kernel's library, built at first use, with its
+    C signatures.  The packed library also holds the pass that sums the
+    blocks' partial gradients."""
     from . import _build
 
-    lib = _build.load("mcpc_chain")
-    lib.mcpc_chain_launch.restype = _I
-    lib.mcpc_chain_launch.argtypes = (
-        [_P] * 18 + [_I] * 10 + [_F] * 9 + [_I, _I, _P]
-    )
-    lib.mcpc_chain_smem_bytes.restype = ctypes.c_size_t
-    lib.mcpc_chain_smem_bytes.argtypes = [_I] * 6
-    lib.mcpc_chain_smem_budget.restype = _I
-    lib.mcpc_chain_smem_budget.argtypes = [_I, _I]
-    lib.mcpc_chain_error_string.restype = ctypes.c_char_p
-    lib.mcpc_chain_error_string.argtypes = [_I]
+    name = _prefix(packed)
+    lib = _build.load(name)
+    launch = getattr(lib, name + "_launch")
+    launch.restype = _I
+    smem_bytes = getattr(lib, name + "_smem_bytes")
+    smem_bytes.restype = _Z
+    if packed:
+        launch.argtypes = [_P] * 19 + [_I] * 12 + [_F] * 9 + [_I, _I, _P]
+        smem_bytes.argtypes = [_I] * 6
+        lib.mcpc_sum_partials_launch.restype = _I
+        lib.mcpc_sum_partials_launch.argtypes = [_P, _P, _I, _Z, _P]
+    else:
+        launch.argtypes = [_P] * 18 + [_I] * 9 + [_F] * 3 + [_I, _P]
+        smem_bytes.argtypes = [_I] * 5
+    budget = getattr(lib, name + "_smem_budget")
+    budget.restype = _I
+    budget.argtypes = [_I, _I]
+    error_string = getattr(lib, name + "_error_string")
+    error_string.restype = ctypes.c_char_p
+    error_string.argtypes = [_I]
     return lib
 
 
-def kernel_rows(dims, warm: bool, device) -> int:
+def _check_launch(err: int, packed: bool = True) -> None:
+    if err != 0:
+        name = _prefix(packed)
+        msg = getattr(_library(packed), name + "_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def kernel_rows(dims, warm: bool, device, packed: bool = True) -> int:
     """Rows per block: the largest of 16, 8, 4, 2, 1 whose shared memory
     fits one block on ``device``."""
-    lib = _library()
+    lib, name = _library(packed), _prefix(packed)
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    d0, d1, d2, D = dims
+    extra = (int(warm),) if packed else ()
     for rows in _KERNEL_ROWS:
-        need = lib.mcpc_chain_smem_bytes(d0, d1, d2, D, rows, int(warm))
-        budget = lib.mcpc_chain_smem_budget(index, rows)
+        need = getattr(lib, name + "_smem_bytes")(*dims, rows, *extra)
+        budget = getattr(lib, name + "_smem_budget")(index, rows)
         if budget < 0:
             raise RuntimeError("could not query the device's shared memory")
         if need <= budget:
             return rows
     raise ValueError(f"dims {dims} need more shared memory than one block has")
+
+
+def sum_block_partials_reference(partials: Tensor) -> Tensor:
+    """Plain version of :func:`sum_block_partials`: the same additions in
+    the same order, so the two agree bit for bit."""
+    out = partials[0].clone()
+    for b in range(1, partials.shape[0]):
+        out += partials[b]
+    return out
+
+
+def sum_block_partials(partials: Tensor) -> Tensor:
+    """Sum ``[n_blocks, n]`` per-block partial gradients over the blocks, in
+    block order: the second pass of the parameter gradients, which takes the
+    place of the TPU kernel's accumulators carried across batch tiles
+    (``pallas_mcpc.py``, ``pl.when(tile_i == 0)``).  CUDA tensors launch
+    ``sum_partials_kernel`` (``csrc/mcpc_chain.cu``) or raise; CPU tensors
+    run the plain version.  ``sum_block_partials.launches`` counts launches.
+    """
+    if partials.dim() != 2 or partials.shape[0] < 1 or partials.shape[1] < 1:
+        raise ValueError("sum_block_partials takes a [n_blocks, n] tensor")
+    if partials.device.type == "cpu":
+        return sum_block_partials_reference(partials)
+    if partials.device.type != "cuda":
+        raise ValueError(
+            f"sum_block_partials runs on cpu or cuda, not {partials.device.type}")
+    if partials.dtype != torch.float32:
+        raise TypeError(f"sum_block_partials takes float32, got {partials.dtype}")
+    partials = partials.contiguous()
+    nblocks, n = partials.shape
+    out = torch.empty(n, dtype=torch.float32, device=partials.device)
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream(partials.device).cuda_stream
+        err = _library().mcpc_sum_partials_launch(
+            partials.data_ptr(), out.data_ptr(), nblocks, n, stream)
+    _check_launch(err)
+    sum_block_partials.launches += 1
+    return out
+
+
+sum_block_partials.launches = 0
 
 
 def _kernel(c: _Chain, params, latents, target):
@@ -492,35 +651,50 @@ def _kernel(c: _Chain, params, latents, target):
     y = (target.contiguous() if target is not None
          else torch.zeros((B, D), dtype=torch.float32, device=device))
     outs = [torch.empty_like(x) for x in (x0, x1, x2)]
-    rows = kernel_rows(c.dims, c.warm_T > 0, device)
-    scal = torch.zeros((-(-B // rows), 2), dtype=torch.float64, device=device)
-    lib = _library()
+    rows = kernel_rows(c.dims, c.warm_T > 0, device, c.packed)
+    blocks = -(-B // rows)
+    # every block zeroes and fills its own partial gradients
+    partials = None
+    if c.with_pgrads:
+        partials = torch.empty((blocks, sum(_partial_sizes(c.dims))),
+                               dtype=torch.float32, device=device)
+    partials_ptr = None if partials is None else partials.data_ptr()
+    pointers = [t.data_ptr() for t in (
+        x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3, w1t, w2t, w3t)]
+    lib = _library(c.packed)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mcpc_chain_launch(
-            x0.data_ptr(), x1.data_ptr(), x2.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            y.data_ptr(),
-            b0.data_ptr(), b1.data_ptr(), b2.data_ptr(), b3.data_ptr(),
-            w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-            w1t.data_ptr(), w2t.data_ptr(), w3t.data_ptr(),
-            scal.data_ptr(),
-            B, d0, d1, d2, D,
-            c.T, c.warm_T, _LOSS_CODES[c.loss], int(c.return_scalars), rows,
-            c.inv_var, c.lr, c.noise_std,
-            c.warm_lr, c.warm_b1, c.warm_b2,
-            1.0 - c.warm_b1, 1.0 - c.warm_b2, c.warm_eps,
-            c.seed, c.tile, stream,
-        )
-    if err != 0:
-        msg = lib.mcpc_chain_error_string(err).decode()
-        raise RuntimeError(f"mcpc_chain kernel launch failed: {msg} ({err})")
-    mcpc_chain.launches += 1
+        if c.packed:
+            scal = torch.zeros((blocks, 2), dtype=torch.float64, device=device)
+            err = lib.mcpc_chain_launch(
+                *pointers, scal.data_ptr(), partials_ptr,
+                B, d0, d1, d2, D,
+                c.T, c.warm_T, _LOSS_CODES[c.loss], int(c.return_scalars),
+                c.mixing, int(c.warm_pgrads), rows,
+                c.inv_var, c.lr, c.noise_std,
+                c.warm_lr, c.warm_b1, c.warm_b2,
+                1.0 - c.warm_b1, 1.0 - c.warm_b2, c.warm_eps,
+                c.seed, c.tile, stream,
+            )
+        else:
+            err = lib.mcpc_chain_unpacked_launch(
+                *pointers, partials_ptr,
+                B, d0, d1, d2, D, c.T, _LOSS_CODES[c.loss], c.mixing, rows,
+                c.inv_var, c.lr, c.noise_std, c.seed, stream,
+            )
+    _check_launch(err, c.packed)
+    if c.packed:
+        mcpc_chain.launches += 1
+    else:
+        mcpc_chain.launches_unpacked += 1
     scalars = None
     if c.return_scalars:
         sums = scal.sum(dim=0).to(torch.float32)
         scalars = {"loss": sums[0:1], "energy": sums[1:2]}
-    return _result(tuple(outs), scalars, c.return_scalars)
+    pgrads = None
+    if partials is not None:
+        pgrads = _pgrads_from_flat(sum_block_partials(partials), params, c.dims)
+    return _result(tuple(outs), pgrads, scalars, c.return_scalars)
 
 
 def mcpc_chain(params, latents, target, seed, **options):
@@ -535,19 +709,31 @@ def mcpc_chain(params, latents, target, seed, **options):
 
     Keyword options, as ``mcpc_chain_pallas``: ``T``, ``lr``,
     ``noise_var=2.0`` (None or 0: no noise), ``loss`` in ``"bernoulli"``,
-    ``"gaussian"``, ``"none"``, ``input_var=1.0``, ``mixing`` (used only
-    with parameter gradients), ``warm_T=0``, ``warm_lr=0.1``,
-    ``warm_b1=0.9``, ``warm_b2=0.999``, ``warm_eps=1e-8``,
+    ``"gaussian"``, ``"none"``, ``input_var=1.0``, ``warm_T=0``,
+    ``warm_lr=0.1``, ``warm_b1=0.9``, ``warm_b2=0.999``, ``warm_eps=1e-8``,
     ``activation="relu"``, ``return_scalars=False``, ``batch_tile=None``
-    (keys the per-tile noise seeds).  The options that are not ported yet
-    raise ``NotImplementedError`` naming their ROADMAP.md item.
+    (keys the per-tile noise seeds), and
+    ``with_pgrads=False``: also sum the Hebbian parameter gradients over the
+    Langevin steps ``t >= mixing`` (``mixing=0``);
+    ``warm_pgrads=False``: also take them on the last warm step (needs
+    ``with_pgrads`` and ``warm_T > 0``; with ``T=0`` that is one PC training
+    step);
+    ``packed=True``: False runs the unpacked baseline, which has relu, no
+    warm phase, no scalars, one batch tile and a noise stream of its own.
+    The options that are not ported yet raise ``NotImplementedError`` naming
+    their ROADMAP.md item.
 
-    Returns ``(latents', None)``, or ``(latents', None, scalars)`` with
-    ``return_scalars``: ``{"loss": [1], "energy": [1]}``, the batch sums
-    before the final step's update.
+    Returns ``(latents', pgrads)``, or ``(latents', pgrads, scalars)`` with
+    ``return_scalars``.  ``pgrads`` is None unless ``with_pgrads``; else a
+    tuple of four ``{"w", "b"}`` dicts shaped like
+    ``params``, sums over the whole batch and the sampling steps (not
+    divided by either), ``pgrads[0]["w"]`` zeros.  ``scalars`` is
+    ``{"loss": [1], "energy": [1]}``, the batch sums before the final
+    step's update.
 
     CPU tensors run :func:`mcpc_chain_reference`; CUDA tensors launch the
-    kernel or raise.  ``mcpc_chain.launches`` counts kernel launches.
+    kernel or raise.  ``mcpc_chain.launches`` counts launches of the packed
+    kernel, ``mcpc_chain.launches_unpacked`` those of the unpacked one.
     """
     c = _chain_args(params, latents, target, seed, **options)
     device = latents[0].device
@@ -559,3 +745,4 @@ def mcpc_chain(params, latents, target, seed, **options):
 
 
 mcpc_chain.launches = 0
+mcpc_chain.launches_unpacked = 0

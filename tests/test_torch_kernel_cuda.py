@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without JAX (``tests/conftest.py`` imports JAX, hence
@@ -8,7 +8,9 @@ machine without JAX (``tests/conftest.py`` imports JAX, hence
 
 Without a CUDA device every test here skips.  Tolerances: latents atol 1e-4
 and scalars rtol 1e-5 on these short chains (the kernel sums in another
-order than cuBLAS; measured differences are ~2e-6).
+order than cuBLAS; measured differences are ~2e-6).  Parameter gradients
+are batch sums with entries up to ~1e5, so each tensor is held to 1e-5 of its
+largest entry.
 """
 
 import importlib
@@ -59,6 +61,75 @@ def test_kernel_matches_plain_version(cuda_device, dims, B, kw):
         torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
     for k in ("loss", "energy"):
         torch.testing.assert_close(a[2][k], b[2][k], rtol=1e-5, atol=1e-5)
+
+
+def _assert_pgrads_close(got, want, rel=1e-5):
+    for g, w in zip(got, want):
+        for k in ("w", "b"):
+            assert g[k].is_cuda and g[k].shape == w[k].shape
+            scale = max(float(w[k].abs().max()), 1e-30)
+            torch.testing.assert_close(g[k], w[k], rtol=0, atol=rel * scale)
+    assert not got[0]["w"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,B,kw", [
+    ((20, 128, 128, 784), 64, dict(T=30, mixing=10, warm_T=5, loss="bernoulli")),
+    # B not a multiple of the rows of a block: the last block has pad rows
+    ((20, 128, 128, 784), 37, dict(T=20, mixing=5, loss="bernoulli")),
+    ((20, 128, 128, 784), 40, dict(T=20, mixing=0, loss="gaussian", batch_tile=20)),
+    ((10, 256, 256, 784), 30, dict(T=11, mixing=3, warm_T=3, loss="none")),
+    ((20, 128, 128, 784), 21, dict(T=0, warm_T=8, warm_pgrads=True)),
+    ((4, 8, 8, 16), 5, dict(T=7, mixing=2, noise_var=None)),
+    ((20, 128, 128, 784), 37, dict(T=20, mixing=5, packed=False)),
+    ((5, 7, 9, 16), 19, dict(T=9, mixing=0, packed=False, loss="gaussian")),
+])
+def test_kernel_pgrads_match_plain_version(cuda_device, dims, B, kw):
+    params, latents, target = _case(dims, B, cuda_device)
+    packed = kw.get("packed", True)
+    count = "launches" if packed else "launches_unpacked"
+    before = getattr(chain_mod.mcpc_chain, count)
+    before_sum = chain_mod.sum_block_partials.launches
+    kw = dict(kw, lr=0.03, with_pgrads=True)
+    a = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    torch.cuda.synchronize()
+    assert getattr(chain_mod.mcpc_chain, count) == before + 1
+    assert chain_mod.sum_block_partials.launches == before_sum + 1
+    b = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    for u, v in zip(a[0], b[0]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+    _assert_pgrads_close(a[1], b[1])
+    # no atomics: a second run gives the same bits
+    again = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    for g, h in zip(a[1], again[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+
+
+@pytest.mark.cuda
+def test_unpacked_kernel_matches_plain_version(cuda_device):
+    params, latents, target = _case((20, 128, 128, 784), 48, cuda_device)
+    before = chain_mod.mcpc_chain.launches_unpacked
+    a = chain_mod.mcpc_chain(params, latents, target, 4, T=25, lr=0.03, packed=False)
+    torch.cuda.synchronize()
+    assert chain_mod.mcpc_chain.launches_unpacked == before + 1
+    assert a[1] is None
+    b = chain_mod.mcpc_chain_reference(params, latents, target, 4, T=25, lr=0.03,
+                                       packed=False)
+    for u, v in zip(a[0], b[0]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sum_block_partials_kernel_is_the_ordered_sum(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    partials = (torch.randn(16, 120356, generator=gen) * 1e3).to(cuda_device)
+    before = chain_mod.sum_block_partials.launches
+    got = chain_mod.sum_block_partials(partials)
+    torch.cuda.synchronize()
+    assert chain_mod.sum_block_partials.launches == before + 1
+    assert torch.equal(got, chain_mod.sum_block_partials_reference(partials))
+    with pytest.raises(TypeError, match="float32"):
+        chain_mod.sum_block_partials(partials.double())
 
 
 @pytest.mark.cuda

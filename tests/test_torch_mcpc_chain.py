@@ -4,7 +4,10 @@ Pallas kernel run in interpret mode, on the same numpy inputs.
 Tolerances: latents atol 1e-5 (both sides run the same f32 arithmetic with
 sums taken in another order; measured max |dx| ~2e-6 at these sizes),
 scalars rtol 1e-5 (f32 batch sums of ~1e3-1e5).  The noise is the same
-counter hash on both sides, so it is compared bit for bit.
+counter hash on both sides, so it is compared bit for bit.  Parameter
+gradients are sums over the batch and the sampling steps with entries up to
+~1e4, taken in another order on the two sides: each tensor is held to 2e-6
+of its largest entry (measured: at most ~3e-7).
 """
 
 import importlib
@@ -131,9 +134,23 @@ def _run_both(params_np, latents, target, seed, **kw):
     return jout, tout
 
 
-def _assert_chain_close(jout, tout, scalars):
+def _assert_pgrads_close(tp_, jp, params_np):
+    """Each gradient tensor within 2e-6 of its largest entry."""
+    assert len(tp_) == len(jp) == 4
+    for i, (tg, jg) in enumerate(zip(tp_, jp)):
+        assert set(tg) == {"w", "b"}
+        for k in ("w", "b"):
+            ref = np.asarray(jg[k])
+            assert tuple(tg[k].shape) == ref.shape == params_np[i][k].shape
+            assert tg[k].dtype == torch.float32
+            scale = max(float(np.abs(ref).max()), 1e-30)
+            np.testing.assert_allclose(tg[k].numpy(), ref, rtol=0, atol=2e-6 * scale)
+    assert not tp_[0]["w"].any()
+
+
+def _assert_chain_close(jout, tout, scalars, pgrads=False):
     assert len(jout) == len(tout)
-    assert tout[1] is None
+    assert (tout[1] is not None) == pgrads
     for a, b in zip(tout[0], jout[0]):
         assert a.shape == b.shape and a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
@@ -195,18 +212,119 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     assert float((c[0][1] - a[0][1]).abs().max()) > 1e-2
 
 
+PGRAD_CASES = {
+    "bernoulli": dict(T=20, lr=0.03, mixing=5, with_pgrads=True),
+    "gaussian": dict(T=20, lr=0.03, mixing=5, with_pgrads=True, loss="gaussian",
+                     input_var=0.5),
+    "none": dict(T=20, lr=0.03, mixing=5, with_pgrads=True, loss="none"),
+    "two_tiles": dict(T=20, lr=0.03, mixing=5, with_pgrads=True, batch_tile=8),
+    "odd_T": dict(T=21, lr=0.03, mixing=6, with_pgrads=True),
+    "mixing_0": dict(T=9, lr=0.03, mixing=0, with_pgrads=True),
+    "mixing_T": dict(T=9, lr=0.03, mixing=9, with_pgrads=True),
+    "warm": dict(T=20, lr=0.03, mixing=5, with_pgrads=True, warm_T=5, warm_lr=0.1),
+    "warm_pgrads_T0": dict(T=0, lr=0.03, warm_T=6, warm_lr=0.1, with_pgrads=True,
+                           warm_pgrads=True),
+    "warm_and_chain": dict(T=10, lr=0.03, mixing=4, with_pgrads=True, warm_T=4,
+                           warm_pgrads=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PGRAD_CASES))
+def test_pgrads_match_interpret_kernel(case):
+    """Hebbian parameter gradients with the noise on."""
+    kw = dict(PGRAD_CASES[case], return_scalars=True)
+    params_np, latents, target = _inputs(
+        B=16, seed=3, gaussian_target=kw.get("loss") == "gaussian")
+    jout, tout = _run_both(params_np, latents, target, 11, **kw)
+    _assert_chain_close(jout, tout, scalars=True, pgrads=True)
+    _assert_pgrads_close(tout[1], jout[1], params_np)
+    if case == "mixing_T":  # no step samples
+        assert all(not g[k].any() for g in tout[1] for k in g)
+    elif case == "none":  # S is zero: the sensory layer gets no gradient
+        assert not tout[1][3]["w"].any() and not tout[1][3]["b"].any()
+        assert tout[1][2]["w"].any()
+    else:
+        assert all(tout[1][i]["w"].any() for i in (1, 2, 3))
+
+
+UNPACKED_CASES = {
+    "noise_pgrads": dict(T=11, lr=0.03, mixing=3, with_pgrads=True),
+    "noise_odd_dims": dict(T=6, lr=0.03, dims=(5, 7, 9, 16)),
+    "gaussian_pgrads": dict(T=8, lr=0.03, mixing=0, with_pgrads=True,
+                            loss="gaussian", input_var=0.5),
+    "none_no_noise": dict(T=8, lr=0.03, loss="none", noise_var=None,
+                          with_pgrads=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPACKED_CASES))
+def test_unpacked_chain_matches_interpret_kernel(case):
+    """packed=False: the baseline kernel, with its own noise indexing (odd
+    latent widths split cos | sin unevenly)."""
+    kw = dict(UNPACKED_CASES[case], packed=False)
+    dims = kw.pop("dims", (4, 8, 8, 16))
+    params_np, latents, target = _inputs(
+        dims=dims, B=8, seed=2, gaussian_target=kw.get("loss") == "gaussian")
+    jout, tout = _run_both(params_np, latents, target, 5, **kw)
+    pg = kw.get("with_pgrads", False)
+    _assert_chain_close(jout, tout, scalars=False, pgrads=pg)
+    if pg:
+        _assert_pgrads_close(tout[1], jout[1], params_np)
+    # the packed chain draws other noise from the same seed
+    if kw.get("noise_var", 2.0):
+        packed = chain_mod.mcpc_chain(
+            params_from_numpy(params_np, "cpu"), latents_from_numpy(latents, "cpu"),
+            torch.from_numpy(target), 5, **dict(kw, packed=True))
+        assert float((packed[0][1] - tout[0][1]).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(packed=False, warm_T=2), "warm-start"),
+    (dict(packed=False, activation="tanh"), "relu only"),
+    (dict(packed=False, return_scalars=True), "packed=True"),
+    (dict(packed=False, with_pgrads=True, warm_pgrads=True), "warm_T"),
+    (dict(packed=False, batch_tile=4), "packed=True"),
+    (dict(packed=False, loss="bernoulli_mask", mask_perc=0.5), "packed=True"),
+    (dict(with_pgrads=True, warm_pgrads=True), "warm_T"),
+    # the JAX kernel dies on its missing accumulators (a NameError)
+    (dict(warm_pgrads=True, warm_T=2), "with_pgrads"),
+])
+def test_unpacked_and_pgrad_options_refused_as_in_jax(kw, match):
+    params_np, latents, target = _inputs()
+    p, x, y = (params_from_numpy(params_np, "cpu"),
+               latents_from_numpy(latents, "cpu"), torch.from_numpy(target))
+    with pytest.raises(ValueError, match=match):
+        chain_mod.mcpc_chain(p, x, y, 0, T=2, lr=0.1, **kw)
+    with pytest.raises((ValueError, NameError)):
+        mcpc_chain_pallas(params_np, tuple(jnp.asarray(v) for v in latents),
+                          jnp.asarray(target), jnp.int32(0), T=2, lr=0.1,
+                          interpret=True, **kw)
+
+
+def test_sum_block_partials_cpu_is_the_ordered_sum():
+    rng = np.random.default_rng(0)
+    partials = torch.from_numpy(rng.normal(size=(5, 37)).astype(np.float32) * 1e3)
+    before = chain_mod.sum_block_partials.launches
+    got = chain_mod.sum_block_partials(partials)
+    assert chain_mod.sum_block_partials.launches == before
+    want = partials[0].clone()
+    for b in range(1, 5):
+        want = want + partials[b]
+    assert torch.equal(got, want)
+    assert torch.equal(got, chain_mod.sum_block_partials_reference(partials))
+    with pytest.raises(ValueError, match="n_blocks"):
+        chain_mod.sum_block_partials(partials[0])
+
+
 UNPORTED = {
-    "with_pgrads": True,
     "capture_stride": 2,
     "scalar_stride": 2,
     "output_var": 1.0,
     "mask_perc": 0.5,
     "bf16_matmul": True,
-    "packed": False,
     "warm_mu": (),
     "warm_nu": (),
     "warm_count": 1,
-    "warm_pgrads": True,
     "emit_warm_opt_state": True,
     "activation": "tanh",
     "loss": "bernoulli_mask",
@@ -246,5 +364,22 @@ def test_build_paths_are_keyed_by_source():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("mcpc_chain-") and path.suffix == ".so"
     assert path == _build.library_path("mcpc_chain")
+    assert _build.library_path("mcpc_chain_unpacked").name.startswith(
+        "mcpc_chain_unpacked-")
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_path_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """Both sources include csrc/mcpc_common.cuh: an edited header must not
+    load a stale library."""
+    import shutil
+
+    shutil.copytree(_build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    before = [_build.library_path(n) for n in ("mcpc_chain", "mcpc_chain_unpacked")]
+    assert before == [_build.library_path(n) for n in ("mcpc_chain", "mcpc_chain_unpacked")]
+    with open(tmp_path / "csrc" / "mcpc_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = [_build.library_path(n) for n in ("mcpc_chain", "mcpc_chain_unpacked")]
+    assert all(a != b for a, b in zip(after, before))

@@ -1,0 +1,198 @@
+"""The port's training path (``experiments/train_mnist.py``) against the
+same thing built from the JAX package's parts: ``mcpc_chain_pallas`` in
+interpret mode, division by ``sampling·B``, ``optax.adam``.  Latents, data
+and chain seeds are numpy's, handed to both sides."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import montecarlopredictivecoding_tpu as mcpc
+from montecarlopredictivecoding_tpu.experiments import train_mnist as jtrain
+from montecarlopredictivecoding_tpu.ops import mcpc_chain_pallas
+from montecarlopredictivecoding_tpu_torch.core import optim
+from montecarlopredictivecoding_tpu_torch.data import mnist as tmnist
+from montecarlopredictivecoding_tpu_torch.experiments import train_mnist as ttrain
+from montecarlopredictivecoding_tpu_torch.models import get_model
+from montecarlopredictivecoding_tpu_torch.ops import mcpc_chain
+from montecarlopredictivecoding_tpu_torch.utils import (
+    latents_from_numpy,
+    load_checkpoint,
+    params_from_numpy,
+)
+
+torch.set_num_threads(1)
+
+DIMS = (20, 128, 128, 784)
+B = 16
+
+
+def test_configs_and_presets_match_jax():
+    jc, tc = jtrain.mcpc_training_config(), ttrain.mcpc_training_config()
+    assert set(jc) == set(tc)
+    for k in jc:
+        if k != "loss_fn":  # each package's own bernoulli_fn
+            assert jc[k] == tc[k], k
+    assert tc["loss_fn"].__name__ == jc["loss_fn"].__name__ == "bernoulli_fn"
+    for preset in ("fid", "ml", "mse"):
+        for model in ("mcpc", "pc"):
+            a = jtrain.apply_preset({"input_size": 20, "activation_fn": "relu"}, preset, model)
+            b = ttrain.apply_preset({"input_size": 20, "activation_fn": "relu"}, preset, model)
+            assert a == b
+    opts = ttrain.chain_options(tc, None)
+    assert opts == dict(T=150, lr=0.1, noise_var=None, loss="bernoulli", mixing=50,
+                        with_pgrads=True, warm_T=250, warm_lr=0.7)
+
+
+def test_one_batch_matches_jax_over_three_batches():
+    """Full width, B=16, the full schedule (250 Adam MAP steps at lr 0.7,
+    then 50 + 100 Langevin steps at lr 0.1 with noise), 3 batches.
+
+    Gradients of the first batch, where both sides start from the same
+    parameters: each tensor within 2e-6 of its largest entry (measured
+    3e-7).  From the second batch on the parameters differ in their last
+    bits and the 400-step chain amplifies that (measured up to 2e-4 of the
+    largest entry), so later gradients are held to 1e-3.
+
+    Parameters after 3 Adam steps: ALL entries within atol 1e-4 (measured
+    1.2e-5).  Adam's first steps are about lr·sign(g) = 0.01 each, so an
+    entry whose gradient were only rounding noise could flip sign between
+    the two sides and differ by 0.02, 200 times the tolerance.  No entry
+    does here: ``gW0`` is exactly zero on both sides (update exactly 0), and
+    every other entry's gradient is a sum of 1600 terms far above its
+    rounding error.
+    """
+    config = ttrain.mcpc_training_config()
+    scale = config["sampling"] * B
+    kw = ttrain.chain_options(config)
+    params_np = jax.device_get(mcpc.make_mlp_model(*DIMS).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+
+    opt = optax.adam(config["optimizer_p_kwargs_mcpc"]["lr"])
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
+    jstate = opt.init(jparams)
+    tparams = params_from_numpy(params_np, "cpu")
+    tstate = optim.adam_init(tparams)
+    for batch in range(3):
+        lat = tuple(rng.uniform(-10, 10, (B, d)).astype(np.float32) for d in DIMS[:3])
+        data = (rng.random((B, DIMS[3])) > 0.5).astype(np.float32)
+        seed = int(rng.integers(0, 2**31 - 1))
+
+        _, jg = mcpc_chain_pallas(jparams, tuple(jnp.asarray(x) for x in lat),
+                                  jnp.asarray(data), jnp.int32(seed),
+                                  interpret=True, **kw)
+        jg = jax.tree_util.tree_map(lambda x: x / scale, jg)
+        updates, jstate = opt.update(jg, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+
+        tlat, tdata = latents_from_numpy(lat, "cpu"), torch.from_numpy(data)
+        _, tg = mcpc_chain(tparams, tlat, tdata, seed, **kw)
+        rel = 2e-6 if batch == 0 else 1e-3
+        for i in range(4):
+            for k in ("w", "b"):
+                ref = np.asarray(jg[i][k])
+                np.testing.assert_allclose(
+                    tg[i][k].numpy() / scale, ref, rtol=0,
+                    atol=rel * max(float(np.abs(ref).max()), 1e-30))
+        before = tparams
+        tparams, tstate = ttrain.one_batch(tparams, tstate, tlat, seed, tdata,
+                                           config=config)
+        assert tstate.count == batch + 1
+        assert torch.equal(before[0]["w"], tparams[0]["w"])  # gW0 is zero
+        assert not torch.equal(before[3]["w"], tparams[3]["w"])
+    for i in range(4):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(tparams[i][k].numpy(), np.asarray(jparams[i][k]),
+                                       rtol=0, atol=1e-4)
+    # three steps of about lr each really moved the parameters
+    assert float((tparams[3]["w"] - torch.from_numpy(params_np[3]["w"])).abs().max()) > 0.02
+
+
+@pytest.fixture
+def small_synthetic(monkeypatch):
+    """A 600-image synthetic train split (B=256: two full batches and one of
+    88)."""
+    orig = tmnist._synthetic_mnist
+    monkeypatch.setattr(
+        tmnist, "_synthetic_mnist",
+        lambda n_train, n_test, seed=0: orig(600, 100, seed),
+    )
+
+
+def test_train_mcpc_writes_a_checkpoint_that_loads(small_synthetic, tmp_path, monkeypatch):
+    # the entry point at its real width and batch, with a short schedule
+    short = dict(ttrain.mcpc_training_config(), T_pc=6, mixing=2, sampling=4)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    out = str(tmp_path / "run" / "mcpc")
+    gen = ttrain.train_mcpc(1, out, seed=3, batches_per_epoch=2, log=False, device="cpu")
+    like = get_model(short, 0, device="cpu").params
+    loaded = load_checkpoint(out + ".msgpack", like, device="cpu")
+    init = get_model(short, 3, device="cpu").params
+    for p, q, p0 in zip(loaded, gen.params, init):
+        for k in ("w", "b"):
+            assert torch.equal(p[k], q[k]) and torch.isfinite(p[k]).all()
+        assert not torch.equal(p["b"], p0["b"])  # training moved them
+    assert torch.equal(loaded[0]["w"], init[0]["w"])
+
+    # the same seed gives the same run; snapshots take the place of <out>
+    out2 = str(tmp_path / "again")
+    gen2 = ttrain.train_mcpc(1, out2, seed=3, batches_per_epoch=2, log=False,
+                             snapshot_epochs=(0, 1), device="cpu")
+    assert torch.equal(gen2.params[3]["w"], gen.params[3]["w"])
+    first = load_checkpoint(out2 + "_epoch_init.msgpack", like, device="cpu")
+    assert torch.equal(first[3]["w"], init[3]["w"])
+    last = load_checkpoint(out2 + "_epoch1.msgpack", like, device="cpu")
+    assert torch.equal(last[3]["w"], gen.params[3]["w"])
+    assert not (tmp_path / "again.msgpack").exists()
+
+
+def test_train_mcpc_runs_the_last_smaller_batch(small_synthetic, tmp_path, monkeypatch):
+    short = dict(ttrain.mcpc_training_config(), T_pc=3, mixing=1, sampling=2)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    sizes = []
+    real = ttrain.one_batch
+
+    def spy(params, opt_state, latents, seed, data, **kw):
+        sizes.append((data.shape[0], latents[1].shape, seed))
+        return real(params, opt_state, latents, seed, data, **kw)
+
+    monkeypatch.setattr(ttrain, "one_batch", spy)
+    ttrain.train_mcpc(1, str(tmp_path / "m.msgpack"), log=False, device="cpu",
+                      langevin_var=None)
+    assert [s[0] for s in sizes] == [256, 256, 88]
+    assert sizes[2][1] == (88, 128)
+    assert len({s[2] for s in sizes}) == 3 and all(0 <= s[2] < 2**31 - 1 for s in sizes)
+    assert (tmp_path / "m.msgpack").exists()
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(fused=False), "queue 1 item 6"),
+    (dict(mesh=2), "queue 1 item 8"),
+])
+def test_train_mcpc_unported_paths_name_their_item(kwargs, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        ttrain.train_mcpc(1, str(tmp_path / "x"), log=False, device="cpu", **kwargs)
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("model,item", [
+    ("pc", "item 6"), ("dlgm", "item 10"), ("resnet9", "item 5"),
+])
+def test_main_refuses_unported_models(model, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        ttrain.main(["--model", model, "--out", str(tmp_path / "x"), "--device", "cpu"])
+
+
+def test_main_trains_mcpc_on_the_cpu(small_synthetic, tmp_path, monkeypatch):
+    short = dict(ttrain.mcpc_training_config(), T_pc=3, mixing=1, sampling=2)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    out = tmp_path / "cli" / "mcpc_mse.msgpack"
+    ttrain.main(["--model", "mcpc", "--epochs", "1", "--batches-per-epoch", "1",
+                 "--preset", "mse", "--out", str(out), "--device", "cpu"])
+    like = get_model(dict(short, input_size=10, hidden_size=256, hidden2_size=256),
+                     0, device="cpu").params
+    loaded = load_checkpoint(str(out), like, device="cpu")
+    assert tuple(loaded[1]["w"].shape) == (10, 256)
