@@ -9,10 +9,15 @@ Phase 0  prints the card and its power limit, turns TF32 off (so every f32
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
          main paths give it: the chain with and without parameter gradients
-         (``with_pgrads``, ``warm_pgrads``, a batch that leaves pad rows in
-         the last block, both widths, both losses), the unpacked baseline
-         (``packed=False``), and the pass that sums the blocks' partial
-         gradients.
+         (``with_pgrads``, ``warm_pgrads``, batches that leave pad rows in
+         the last cluster or fill only part of one, both widths, both
+         losses), the unpacked baseline (``packed=False``), and the pass
+         that sums the partial gradients (timed paced by the host, one call
+         between two events, which is what the ``kernels`` line reports as
+         ``ms``, and on the device alone, behind a spinning kernel:
+         ``device_ms``).  Each line prints the
+         packed kernel's plan: cluster size, rows a cluster, clusters, SMs
+         at work, shared memory a block, gradient slice resident or not.
 Phase 2  drives the serving path at full width through the entry points a
          user calls: ``get_model`` -> ``get_mnist_data`` -> ``init_latents``
          -> ``mcpc_chain``, for (a) the bench chain (B=256, T=10000,
@@ -35,7 +40,9 @@ Phase 3  drives the training path at full width: ``get_model`` ->
          batch's gradients and updated parameters against the plain version,
          bit-identical gradients from two runs, and that the test batch's
          Bernoulli loss fell.  It prints ms per batch (CUDA events, median),
-         images/s and the bound.
+         images/s, the bound and the split by switching parts off.  (The
+         split inside the kernel, by its own clocks, is
+         ``scripts/chain_clocks.py``.)
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -127,6 +134,25 @@ def cuda_ms(torch, fn, reps: int = 3, warm_up: bool = True):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def queued_ms(torch, fn, reps: int = 20):
+    """(median device ms of ``fn`` over ``reps`` calls; the last output).  The
+    calls are enqueued behind a kernel that spins for some 25 ms, so each
+    pair of events brackets the work on the device and not the host's time to
+    launch it, which for a pass of a few microseconds is most of a
+    host-paced timing."""
+    out = fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for start, end in pairs:
+        start.record()
+        out = fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs), out
 
 
 def step_flops(dims, B: int) -> int:
@@ -237,6 +263,16 @@ def main() -> int:
         target = (torch.rand(B, dims[3], generator=gen) > 0.5).float().to(dev)
         return params, latents, target
 
+    def chain_plan(dims, B, kw):
+        return chain.chain_plan(dims, B, warm=kw.get("warm_T", 0) > 0,
+                                with_pgrads=kw.get("with_pgrads", False),
+                                budget=chain.smem_budget(dev),
+                                max_clusters=chain.max_active_clusters(dev))
+
+    def plan_text(dims, B, kw):
+        plan = chain_plan(dims, B, kw)
+        return plan.describe(chain.max_active_clusters(dev, plan))
+
     warm = dict(warm_T=50, warm_lr=0.1, lr=0.03, return_scalars=True)
     pg = dict(warm, T=60, mixing=20, with_pgrads=True)
     cases = [
@@ -250,6 +286,8 @@ def main() -> int:
          dict(warm, T=21, loss="bernoulli", batch_tile=128)),
         ("fid bernoulli warm50+T60 mixing20 pgrads", FID, BATCH, dict(pg)),
         ("fid bernoulli pgrads B=250 (pad rows)", FID, 250, dict(pg)),
+        ("fid bernoulli pgrads B=8", FID, 8, dict(pg)),
+        ("fid bernoulli pgrads B=1 (one cluster, one pad row)", FID, 1, dict(pg)),
         ("mse bernoulli warm50+T60 mixing20 pgrads", MSE, BATCH, dict(pg)),
         ("fid bernoulli warm50 T=0 warm_pgrads", FID, BATCH,
          dict(warm, T=0, with_pgrads=True, warm_pgrads=True)),
@@ -269,11 +307,11 @@ def main() -> int:
         # both f32 versions are measured against
         ref64 = chain.mcpc_chain_reference(*to_double(params, latents, target),
                                            SEED, **kw)
-        packed = kw.get("packed", True)
-        rows = chain.kernel_rows(dims, kw.get("warm_T", 0) > 0, dev, packed)
+        mapping = (plan_text(dims, B, kw) if kw.get("packed", True)
+                   else f"rows/block={chain.unpacked_rows(dims, dev)}")
         dx, dx64, p_dx64 = (max_abs(got[0], ref[0]), max_abs(got[0], ref64[0]),
                             max_abs(ref[0], ref64[0]))
-        line = (f"phase 1: {name}: B={B} rows/block={rows} max|dx| kernel-plain "
+        line = (f"phase 1: {name}: B={B} [{mapping}] max|dx| kernel-plain "
                 f"{dx:.3e}, kernel-plain64 {dx64:.3e}, plain-plain64 {p_dx64:.3e} "
                 f"(atol {P1_ATOL})")
         check(dx64 <= p_dx64 + P1_ATOL,
@@ -298,21 +336,31 @@ def main() -> int:
             check(got[1] is None, f"phase 1 {name}: pgrads without with_pgrads")
         print(line)
 
-    # the summing pass at the training path's shape: 16 blocks' partials
+    # the summing pass at the training path's shape: one partial a cluster
     n_partial = sum(chain._partial_sizes(FID))
-    blocks = -(-BATCH // chain.kernel_rows(FID, True, dev))
+    blocks = chain_plan(FID, BATCH, dict(warm_T=1, with_pgrads=True)).clusters
     partials = (torch.randn(blocks, n_partial, generator=gen) * 1e3).to(dev)
+    # ms / plain_ms / library_ms of the kernels line: one call between two
+    # events, the host waiting in between (the measure since the pass exists)
     sum_ms, summed = cuda_ms(torch, lambda: chain.sum_block_partials(partials), reps=20)
     sum_plain_ms, summed_plain = cuda_ms(
         torch, lambda: chain.sum_block_partials_reference(partials), reps=20)
     sum_lib_ms, summed_lib = cuda_ms(torch, lambda: partials.sum(dim=0), reps=20)
+    # the same three on the device alone
+    sum_dev_ms, _ = queued_ms(torch, lambda: chain.sum_block_partials(partials))
+    sum_plain_dev_ms, _ = queued_ms(
+        torch, lambda: chain.sum_block_partials_reference(partials))
+    sum_lib_dev_ms, _ = queued_ms(torch, lambda: partials.sum(dim=0))
     sum_err = float((summed - summed_plain).abs().max())
     sum_bound = 1e3 * 4 * (blocks + 1) * n_partial / PEAK_BYTES_PER_S
     print(f"phase 1: sum_block_partials [{blocks}, {n_partial}]: max|d| kernel-plain "
           f"{sum_err:.1e} (must be 0: the same additions in the same order), "
-          f"kernel-torch.sum {float((summed - summed_lib).abs().max()):.3e}; kernel "
-          f"{sum_ms:.4f} ms, plain {sum_plain_ms:.4f} ms, torch.sum {sum_lib_ms:.4f} ms, "
-          f"bound {sum_bound:.5f} ms (bytes) {tag}")
+          f"kernel-torch.sum {float((summed - summed_lib).abs().max()):.3e}; paced by the "
+          f"host (median of 20, one call between two events) kernel {sum_ms:.4f} ms, "
+          f"plain {sum_plain_ms:.4f} ms, torch.sum {sum_lib_ms:.4f} ms; on the device "
+          f"(median of 20 calls queued behind a spinning kernel) kernel {sum_dev_ms:.4f} ms, "
+          f"plain {sum_plain_dev_ms:.4f} ms, torch.sum {sum_lib_dev_ms:.4f} ms; bound "
+          f"{sum_bound:.5f} ms (bytes) {tag}")
     check(sum_err == 0.0, f"phase 1: sum_block_partials differs by {sum_err}")
 
     # ---------------------------------------------------------- phase 2
@@ -532,6 +580,8 @@ def main() -> int:
             "replaces": pallas + ":531", "launches": launches[2],
             "max_abs_err": sum_err, "ms": sum_ms, "plain_ms": sum_plain_ms,
             "bound_ms": sum_bound, "bound_by": "bytes", "library_ms": sum_lib_ms,
+            "device_ms": sum_dev_ms, "plain_device_ms": sum_plain_dev_ms,
+            "library_device_ms": sum_lib_dev_ms,
         },
         {
             "name": "mcpc_chain_unpacked", "route": "cuda",
@@ -541,8 +591,8 @@ def main() -> int:
             "bound_ms": bound_c, "bound_by": "operations", "library_ms": None,
         },
     ]}))
-    rows = chain.kernel_rows(FID, False, dev)
-    print(f"chain (a): rows/block={rows}, blocks={-(-BATCH // rows)} {tag}")
+    print(f"chain (a): {plan_text(FID, BATCH, CHAIN_A)} {tag}")
+    print(f"training chain: {plan_text(FID, BATCH, opts)} {tag}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

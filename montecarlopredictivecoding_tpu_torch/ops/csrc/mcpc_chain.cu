@@ -25,48 +25,69 @@
 // draw, local_row * XW + 128-padded packed column), so this kernel can be
 // held element by element against mcpc_chain_pallas(..., interpret=True).
 // Step pair p reads draws 2p and 2p+1; step 2p takes r*cos, step 2p+1 r*sin.
+// A draw depends on the global row and column only, never on which block
+// computes it.
 //
-// Bound on an H100: compute.  One step at width 20-128-128-784 is
+// Bound on an H100: operations.  One step at width 20-128-128-784 is
 // 4*B*(20*128 + 128*128 + 128*784) FLOP = 122 MFLOP at B=256, so a
 // T=10000 chain is 1.22 TFLOP: 18 ms at the published 67 TFLOP/s f32 of an
 // H100 SXM at 700 W.  Bytes (weights 477 KB, latents and target) are
-// negligible next to that.
+// negligible next to that.  Products are f32 FMAs on the CUDA cores: no
+// TF32, no tensor cores, no --use_fast_math (tanhf, logf, log1pf, expf and
+// sqrtf stay IEEE).
 //
-// Design (simple and right first):
-//  * One block of NT threads runs the WHOLE chain (warm_T + T steps) for
-//    ROWS batch rows, in one launch, with no communication between blocks.
-//  * Shared memory holds the block's latents X, relu(X), errors, S, the
-//    split-K partials of S W3^T and, for the warm phase, the Adam moments,
-//    all feature-major ([feature][row]) so one float4 load feeds 4 rows.
-//  * Weights stay in device memory and are read through L2 (477 KB in f32
-//    does not fit in 227 KB of shared memory).  Each weight a thread loads
-//    serves all ROWS rows from registers.  The wrapper stages W^T once, so
-//    the backward products read coalesced too.
-//  * The wrapper picks the largest ROWS in {16, 8, 4, 2, 1} whose shared
-//    memory fits.  At B=256 that is 16 blocks: 16 of the 132 SMs.  Spreading
-//    W3's columns over a thread-block cluster, or tensor cores at full f32
-//    precision, is later work (ROADMAP.md, "Hopper design constraint").
-//  * No --use_fast_math: tanhf, logf, log1pf, expf and sqrtf stay IEEE.
+// Design.  The chain is thousands of small dependent steps, so what it needs
+// from the card is every SM at work and no trip to L2 inside a step.
+//  * A thread-block cluster of CS = 8 blocks (the portable maximum) runs the
+//    WHOLE chain (warm_T + T steps) for R batch rows in one launch.  An H100
+//    SXM runs 15 such clusters at once (its 132 SMs come in groups, and one
+//    group holds fewer than 16), so the wrapper's plan gives a cluster
+//    R = 18 rows at B=256: 15 clusters, 120 SMs, one wave (and 10, 4 or 2
+//    rows at smaller batches: MCPC_CLUSTER_ROWS).  Clusters never talk to
+//    each other.
+//  * The cluster's blocks split every layer by OUTPUT column: block k owns
+//    the contiguous slice k of x0, x1, x2 and of the D output columns (the
+//    plan cuts the slices and passes their bounds, ChainArgs::lo), and
+//    keeps W_l[:, slice k] of every layer in its shared memory for the whole
+//    chain (119,296 floats / 8 at 20-128-128-784: 66 KB with the padding of
+//    slice_stride; 146 KB at 10-256-256-784).  Weights are read from device
+//    memory once, in the prologue.
+//  * Every block holds the full relu(X) of the cluster's rows, H [n][rows],
+//    feature-major.  Forward is one phase with no exchange: block k computes
+//    err_l[:, slice k] and S[:, slice k] of all layers from H and its own
+//    weights.
+//  * Backward: err_{l+1} W_{l+1}^T splits over the out-columns.  Block k
+//    computes the partial sum over its own columns for ALL latent columns
+//    and writes it into the shared memory of the block that owns each latent
+//    column (distributed shared memory, map_shared_rank).  After a cluster
+//    barrier the owner adds the 8 partials in rank order (a fixed order: two
+//    runs give the same bits), takes the Adam or Langevin step on its own
+//    columns of X (the Box-Muller work and the Adam moments split 8 ways
+//    too) and writes its slice of the new relu(X) into every block's H.  A
+//    second cluster barrier ends the step.  Per step: two cluster barriers
+//    and one __syncthreads (between forward and backward).
+//  * A cluster barrier costs over a thousand clocks (its release is a
+//    device-wide fence), and the noise needs no memory: each barrier is split
+//    into arrive and wait, and the step's normals are drawn in between.
+//  * Both products are bound by the 128 bytes a clock that go from shared
+//    memory to registers, not by the FMA pipe, so a thread keeps a register
+//    tile of 4 columns x half of the rows, and 4 lanes share a tile and split
+//    its k ("products" below).
+//  * Every block of a cluster reaches every barrier: pad rows (beyond B)
+//    evolve like real rows and are skipped only in sums and stores.
 //
-// Parameter gradients.  The TPU kernel keeps one gW accumulator resident in
-// fast memory and walks the batch tiles in order.  Here the blocks run in
-// parallel and never talk, and gW1+gW2+gW3 (119,296 floats, 477 KB at width
-// 20-128-128-784) fit neither a block's registers nor its shared memory.
-// So every block keeps a partial accumulator of its own in device memory
-// (16 blocks x 481 KB at B=256, resident in L2).  On a sampling step, after
-// the forward pass has left relu(X), the errors and S of the pre-update
-// state in shared memory and before the backward pass overwrites relu(X),
-// each thread read-modify-writes the elements of the partial it owns
-// (mcpc_common.cuh, hebbian_accumulate).  A second kernel,
-// sum_partials_kernel, then adds the partials over blocks in block order.
-// No atomics anywhere: the order of every sum is fixed, so two runs on the
-// same inputs give the same bits.  Rows that only pad the last block evolve
-// like real rows (their latents start at 0), so every sum skips them.
-// Steps that do not sample run the code they ran without gradients, plus
-// one uniform branch.  A sampling step adds one product of the size of the
-// forward pass (61 MFLOP at B=256) and one read and one write of the
-// block's partial through L2.
+// Parameter gradients.  gW_l[:, slice k] = H_{l-1}^T err_l[:, slice k] needs
+// the full H and the block's own error slice, both already in the block: no
+// exchange, no atomics, and each block owns a fixed slice of its cluster's
+// partial [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3].  Where it fits (the
+// wrapper's plan decides; it does at 20-128-128-784) the slice stays in
+// shared memory for the whole chain and is written once at the end;
+// otherwise each thread read-modify-writes its own elements of the partial
+// in device memory.  A second kernel, sum_partials_kernel, adds the
+// clusters' partials in cluster order.  Rows that only pad the last cluster
+// are skipped in every sum.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -75,9 +96,22 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace mcpc;
 
-constexpr int KS = 2;             // split of the K=D sum in S W3^T
+constexpr int CS = 8;             // blocks a cluster
+
+// Rows a cluster for which the kernel is built (CLUSTER_ROWS of the wrapper,
+// whose plan picks among them): each is one instantiation of 200 to 255
+// registers a thread, so the list is kept to what the plan's rule needs.
+#define MCPC_CLUSTER_ROWS(X) X(18) X(10) X(4) X(2)
+constexpr int PG_ROWS = 16;       // rows of gW one gradient job covers
+
+// With ChainArgs::clocks, thread 0 of every block adds up the SM clocks it
+// spends in each part of a step, waits at the barriers included: forward up
+// to its barrier, gradient jobs, backward jobs, the wait for the peers'
+// partials, the update, the wait for the peers' new relu(x).
+constexpr int N_PHASE = 6;
 
 struct ChainArgs {
   const float* x0; const float* x1; const float* x2;   // [B, d_l]
@@ -85,17 +119,113 @@ struct ChainArgs {
   const float* y;                                      // [B, D]
   const float* b0; const float* b1; const float* b2; const float* b3;
   const float* w1; const float* w2; const float* w3;   // [in, out]
-  const float* w1t; const float* w2t; const float* w3t;  // [out, in]
   double* scal;                                        // [n_blocks, 2]
-  float* partials;                                     // [n_blocks, partial_floats] or null
+  float* partials;                                     // [n_clusters, partial_floats] or null
+  long long* clocks;                                   // [n_blocks, N_PHASE] or null
   int B, d0, d1, d2, D;
   int T, warm_T, loss, want_scalars;                   // loss: 0 none, 1 bernoulli, 2 gaussian
   int mixing, pg_warm;         // with partials: sample Langevin steps t >= mixing,
                                // and with pg_warm the last warm step
+  int grads_resident;          // the block's gradient slice lives in shared memory
   float inv_var, lr, noise_std;
   float warm_lr, wb1, wb2, one_m_b1, one_m_b2, weps;
   int seed, tile_B, XW, O1, O2;                        // noise indexing
+  int lo[4][CS + 1];           // the plan's slices of x0, x1, x2 and the output:
+                               // rank k owns columns [lo[l][k], lo[l][k + 1])
 };
+
+// ------------------------------------------------------------- slices
+//
+// The wrapper's plan cuts a layer of d columns into CS contiguous slices, as
+// even as possible, and passes their bounds (ChainArgs::lo).  A layer
+// narrower than the cluster leaves the last ranks an empty slice.  No slice
+// is wider than ceil(d / CS), which sizes the shared memory.
+
+__host__ __device__ inline int widest_slice(int d) { return (d + CS - 1) / CS; }
+
+// Row stride, in words, of a weight slice of `width` columns: the least
+// 8 * odd that holds it.  In the forward product a warp reads 4 rows
+// k..k+3 at 8 neighbouring columns each: with rows 8 * odd words apart the
+// 32 words lie in 32 different banks.  The backward product reads 8 rows at
+// 4 neighbouring words each, two rows to a bank.
+__host__ __device__ inline int slice_stride(int width) {
+  const int m = (width + 7) / 8;
+  return 8 * (m | 1);
+}
+
+// The R = 2 * RG rows of a cluster within one feature of a [..][rows] array.
+// A job reads one half of the rows (RG of them): the first RG / 4 * 4 as
+// float4, the rest one by one.  So that the float4s are aligned, a feature
+// holds the float4 parts of both halves first, then the leftovers of both,
+// and its pitch is a multiple of 4 words (18 rows: 8 + 8 + 1 + 1, pitch 20).
+__host__ __device__ constexpr int row_pitch(int R) {
+  return R / 2 / 4 > 0 ? (R + 3) / 4 * 4 : R;
+}
+
+template <int RG>
+struct Rows {
+  static constexpr int R = 2 * RG;
+  static constexpr int MAIN = RG / 4 * 4;   // rows of a half read as float4
+  static constexpr int REST = RG - MAIN;
+  static constexpr int PITCH = row_pitch(R);
+  // where row `lr` of half `g` lies
+  __device__ static constexpr int pos(int g, int lr) {
+    return lr < MAIN ? g * MAIN + lr : 2 * MAIN + g * REST + lr - MAIN;
+  }
+  __device__ static constexpr int pos(int row) { return pos(row / RG, row % RG); }
+  // the row that lies at position p < R
+  __device__ static constexpr int row_at(int p) {
+    constexpr int M1 = MAIN > 0 ? MAIN : 1, R1 = REST > 0 ? REST : 1;   // no x / 0
+    return p < 2 * MAIN ? p / M1 * RG + p % M1
+                        : (p - 2 * MAIN) / R1 * RG + MAIN + (p - 2 * MAIN) % R1;
+  }
+};
+
+// Shared memory of one block, in floats.  Every block of a cluster uses the
+// same offsets (sized by the widest slice), so an offset means the same
+// place in a peer's shared memory.
+struct Layout {
+  int N0, N1, N2, ND;      // widest slice of x0, x1, x2 and the output
+  int J1, J2, OWN;         // where the x1 and x2 slices start among a block's
+                           // own latent columns, and how many those are
+  int LD1, LD2, LD3;       // row strides of the weight slices (8 * odd)
+  size_t H, X, E, S, P, M, V;   // [..][row_pitch(R)] arrays
+  size_t W1, W2, W3, BI;        // weight slices, own biases [OWN + ND]
+  size_t OT;                    // owner and own-column index of every latent column [n]
+  size_t G1, G2, G3, GB;        // gradient slices, own bias gradients
+  size_t total;
+};
+
+// grads: 0 none, 1 bias gradients only (weights' in device memory), 2 all
+__host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
+                                              int R, int warm, int grads) {
+  Layout L;
+  L.N0 = widest_slice(d0); L.N1 = widest_slice(d1);
+  L.N2 = widest_slice(d2); L.ND = widest_slice(D);
+  L.J1 = L.N0; L.J2 = L.N0 + L.N1; L.OWN = L.N0 + L.N1 + L.N2;
+  L.LD1 = slice_stride(L.N1); L.LD2 = slice_stride(L.N2); L.LD3 = slice_stride(L.ND);
+  const size_t n = (size_t)d0 + d1 + d2;
+  const size_t RP = row_pitch(R);
+  size_t o = 0;
+  L.H = o; o += n * RP;
+  L.X = o; o += (size_t)L.OWN * RP;
+  L.E = o; o += (size_t)L.OWN * RP;
+  L.S = o; o += (size_t)L.ND * RP;
+  L.P = o; o += (size_t)CS * L.OWN * RP;
+  L.M = o; o += warm ? (size_t)L.OWN * RP : 0;
+  L.V = o; o += warm ? (size_t)L.OWN * RP : 0;
+  L.W1 = o; o += (size_t)d0 * L.LD1;
+  L.W2 = o; o += (size_t)d1 * L.LD2;
+  L.W3 = o; o += (size_t)d2 * L.LD3;
+  L.BI = o; o += (size_t)L.OWN + L.ND;
+  L.OT = o; o += n;
+  L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
+  L.G2 = o; o += grads == 2 ? (size_t)d1 * L.LD2 : 0;
+  L.G3 = o; o += grads == 2 ? (size_t)d2 * L.LD3 : 0;
+  L.GB = o; o += grads != 0 ? (size_t)L.OWN + L.ND : 0;
+  L.total = o;
+  return L;
+}
 
 // Standard normal of Langevin step t at element index idx: Box-Muller over
 // draws 2p, 2p+1 of pair p = t/2; even steps take the cos branch, odd the sin.
@@ -103,90 +233,299 @@ __device__ __forceinline__ float langevin_normal(uint32_t seed, int t, uint32_t 
   return box_muller(seed, (uint32_t)(t >> 1) * 2u, idx, (t & 1) != 0);
 }
 
+// The two halves of a cluster barrier.  Writes made before the arrive (a
+// peer's shared memory included) are visible to every thread of the cluster
+// after its wait; what lies between touches registers only.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// ------------------------------------------------------------ products
+//
+// Both products of a step are small matrix products out[col][row] =
+// sum_k A[k][row] * W(k, col) whose operands lie in shared memory.  What
+// bounds them is the 128 bytes a clock that an SM can move from shared
+// memory into registers, so a thread keeps a register tile: a QUAD of 4
+// columns (col = q + u * NQ, u < 4, a stride of NQ apart so that neighbouring
+// lanes read neighbouring words) times RG rows, 13 loads for 36 FMAs at 9
+// rows.  To give all 8 warps work although a block has few columns, KSPLIT
+// lanes of a warp share one quad and take every KSPLIT-th k; a shuffle
+// butterfly adds their sums in a fixed order and leaves lane part u with the
+// total of column u.  Lane = quad within the warp + QUADS * part.
+
+constexpr int KSPLIT = 4;           // lanes that share a quad
+constexpr int QUADS = 32 / KSPLIT;  // quads a warp takes at once
+
+// v = the rows of half g of the feature at `feature`
+template <int RG>
+__device__ __forceinline__ void load_rows(float (&v)[RG], const float* feature, int g) {
+  using RW = Rows<RG>;
+#pragma unroll
+  for (int i = 0; i < RW::MAIN / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(feature + g * RW::MAIN)[i];
+    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int r = RW::MAIN; r < RG; ++r) v[r] = feature[RW::pos(g, r)];
+}
+
+// the rows of half g of the feature at `feature` = v (it may lie in a
+// peer's shared memory)
+template <int RG>
+__device__ __forceinline__ void store_rows(float* feature, int g, const float (&v)[RG]) {
+  using RW = Rows<RG>;
+#pragma unroll
+  for (int i = 0; i < RW::MAIN / 4; ++i)
+    reinterpret_cast<float4*>(feature + g * RW::MAIN)[i] =
+        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+#pragma unroll
+  for (int r = RW::MAIN; r < RG; ++r) feature[RW::pos(g, r)] = v[r];
+}
+
+// v[p] = what lies at position p of the feature, all R rows
+template <int RG>
+__device__ __forceinline__ void load_feature(float (&v)[2 * RG], const float* feature) {
+  using RW = Rows<RG>;
+#pragma unroll
+  for (int i = 0; i < 2 * RW::MAIN / 4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(feature)[i];
+    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int p = 2 * RW::MAIN; p < 2 * RG; ++p) v[p] = feature[p];
+}
+
+// acc[u][r] += sum over k = part, part + KSPLIT, ... < K of
+//              A[k][row r of half g] * W[k * ldk + off[u]]
+template <int RG>
+__device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, int g,
+                                         const float* W, int ldk, const int (&off)[4],
+                                         int part, int K) {
+#pragma unroll 4
+  for (int k = part; k < K; k += KSPLIT) {
+    float av[RG], w[4];
+    load_rows<RG>(av, A + k * Rows<RG>::PITCH, g);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = W[k * ldk + off[u]];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < RG; ++r) acc[u][r] = fmaf(av[r], w[u], acc[u][r]);
+  }
+}
+
+// Adds the KSPLIT lanes' sums of one quad.  Afterwards out[] of the lane
+// with part u holds the total of column u of its quad.  Every lane of the
+// warp must call it.
+template <int RG>
+__device__ __forceinline__ void quad_reduce(float (&out)[RG], const float (&acc)[4][RG],
+                                            int lane) {
+  static_assert(KSPLIT == 4, "lane bits 16 and 8 are the part and pick the column");
+  const bool hi = (lane & 16) != 0, mid = (lane & 8) != 0;
+  float half[2][RG];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+      half[u][r] = (hi ? acc[u + 2][r] : acc[u][r]) +
+                   __shfl_xor_sync(0xffffffffu, hi ? acc[u][r] : acc[u + 2][r], 16);
+#pragma unroll
+  for (int r = 0; r < RG; ++r) {
+    out[r] = (mid ? half[1][r] : half[0][r]) +
+             __shfl_xor_sync(0xffffffffu, mid ? half[0][r] : half[1][r], 8);
+  }
+}
+
+constexpr int NOISE_SLOTS = 4; // own elements a thread draws noise for ahead
+constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
+
 // -------------------------------------------------------------- kernel
 
-template <int R>
+template <int RG>
 __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
+  using RW = Rows<RG>;
+  constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
+  constexpr int RP = RW::PITCH;
   extern __shared__ __align__(16) float smem[];
   __shared__ double red[2][NWARP];
-  __shared__ uint32_t row_seed[R];   // seed + batch tile of each row
-  __shared__ uint32_t row_base[R];   // local_row * XW of each row
 
-  const int n = a.d0 + a.d1 + a.d2;  // packed latent width (unpadded)
-  const int c1 = a.d0;               // packed column where x1 starts
-  const int c2 = a.d0 + a.d1;        // packed column where x2 starts
-  float* X = smem;                   // [n][R] latents
-  float* H = X + n * R;              // [n][R] relu(latents)
-  float* E = H + n * R;              // [n][R] err0 | err1 | err2
-  float* S = E + n * R;              // [D][R] dLoss/dlogits
-  float* P = S + a.D * R;            // [KS][d2][R] partials of S W3^T
-  float* M = P + KS * a.d2 * R;      // [n][R] Adam first moment (warm only)
-  float* V = M + n * R;              // [n][R] Adam second moment (warm only)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row0 = (int)(blockIdx.x / CS) * R;   // first row of this cluster
+  const int nvalid = min(R, a.B - row0);         // its rows inside the batch
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
+  const int d0 = a.d0, d1 = a.d1, d2 = a.d2, D = a.D;
+  const int n = d0 + d1 + d2;        // packed latent width (unpadded)
+  const int c1 = d0, c2 = d0 + d1;   // packed columns where x1 and x2 start
+  const bool with_pg = a.partials != nullptr;
+  const Layout L = make_layout(d0, d1, d2, D, R, a.warm_T > 0,
+                               with_pg ? (a.grads_resident ? 2 : 1) : 0);
+  float* H = smem + L.H;     // [n][RP] relu(latents), all columns
+  float* X = smem + L.X;     // [OWN][RP] own latent columns
+  float* E = smem + L.E;     // [OWN][RP] their errors
+  float* S = smem + L.S;     // [ND][RP] dLoss/dlogits of the own output columns
+  float* P = smem + L.P;     // [CS][OWN][RP] the ranks' partial backward products
+  float* M = smem + L.M;     // [OWN][RP] Adam moments (warm only)
+  float* V = smem + L.V;
+  float* W1 = smem + L.W1;   // [d0][LD1] W1[:, own x1 columns]
+  float* W2 = smem + L.W2;   // [d1][LD2] W2[:, own x2 columns]
+  float* W3 = smem + L.W3;   // [d2][LD3] W3[:, own output columns]
+  float* BI = smem + L.BI;   // own b0 | b1 | b2 (at 0, J1, J2) | b3 (at OWN)
+  float* GB = smem + L.GB;   // own bias gradients, laid out as BI
+  int* OT = reinterpret_cast<int*>(smem + L.OT);   // [n] owner << 16 | own-column index
 
-  if (tid < R) {
-    const int row = row0 + tid;
-    row_seed[tid] = (uint32_t)a.seed + (uint32_t)(row / a.tile_B);
-    row_base[tid] = (uint32_t)(row % a.tile_B) * (uint32_t)a.XW;
+  // own slices: first column and width, per layer
+  const int lo0 = a.lo[0][rank], n0 = a.lo[0][rank + 1] - lo0;
+  const int lo1 = a.lo[1][rank], n1 = a.lo[1][rank + 1] - lo1;
+  const int lo2 = a.lo[2][rank], n2 = a.lo[2][rank + 1] - lo2;
+  const int loD = a.lo[3][rank], nD = a.lo[3][rank + 1] - loD;
+
+  // own gradient slices: in shared memory (laid out as the weights) or in
+  // this cluster's partial in device memory
+  PartialLayout pg = {};
+  float* G1 = nullptr; float* G2 = nullptr; float* G3 = nullptr;
+  int ldg1 = 0, ldg2 = 0, ldg3 = 0;
+  if (with_pg) {
+    pg = partial_layout(a.partials + (size_t)(blockIdx.x / CS) *
+                                         partial_floats(d0, d1, d2, D),
+                        d0, d1, d2, D);
+    if (a.grads_resident) {
+      G1 = smem + L.G1; ldg1 = L.LD1;
+      G2 = smem + L.G2; ldg2 = L.LD2;
+      G3 = smem + L.G3; ldg3 = L.LD3;
+    } else {
+      G1 = pg.gw1 + lo1; ldg1 = d1;
+      G2 = pg.gw2 + lo2; ldg2 = d2;
+      G3 = pg.gw3 + loD; ldg3 = D;
+    }
   }
+
+  // ---- prologue: state, weights and biases into shared memory
   for (int e = tid; e < R * n; e += NT) {
     const int r = e / n, c = e - r * n;
     const int row = row0 + r;
     float x = 0.f;
     if (row < a.B) {
-      if (c < c1) x = a.x0[(size_t)row * a.d0 + c];
-      else if (c < c2) x = a.x1[(size_t)row * a.d1 + (c - c1)];
-      else x = a.x2[(size_t)row * a.d2 + (c - c2)];
+      if (c < c1) x = a.x0[(size_t)row * d0 + c];
+      else if (c < c2) x = a.x1[(size_t)row * d1 + (c - c1)];
+      else x = a.x2[(size_t)row * d2 + (c - c2)];
     }
-    X[c * R + r] = x;
-    H[c * R + r] = fmaxf(x, 0.f);
-    if (a.warm_T > 0) {
-      M[c * R + r] = 0.f;
-      V[c * R + r] = 0.f;
+    H[c * RP + RW::pos(r)] = fmaxf(x, 0.f);
+    int j = -1;   // own column?
+    if (c < c1) { if (c >= lo0 && c < lo0 + n0) j = c - lo0; }
+    else if (c < c2) { if (c - c1 >= lo1 && c - c1 < lo1 + n1) j = L.J1 + c - c1 - lo1; }
+    else if (c - c2 >= lo2 && c - c2 < lo2 + n2) j = L.J2 + c - c2 - lo2;
+    if (j >= 0) {
+      X[j * RP + RW::pos(r)] = x;
+      if (a.warm_T > 0) {
+        M[j * RP + RW::pos(r)] = 0.f;
+        V[j * RP + RW::pos(r)] = 0.f;
+      }
     }
   }
-  const int nvalid = min(R, a.B - row0);   // rows of this block inside the batch
-  PartialLayout pg = {};
-  if (a.partials != nullptr) {
-    const size_t np = partial_floats(a.d0, a.d1, a.d2, a.D);
-    float* mine = a.partials + (size_t)blockIdx.x * np;
-    for (size_t e = tid; e < np; e += NT) mine[e] = 0.f;
-    pg = partial_layout(mine, a.d0, a.d1, a.d2, a.D);
+  auto load_slice = [&](float* dst, int ld, const float* w, int K, int N, int lo, int nk) {
+    for (int e = tid; e < K * nk; e += NT) {
+      const int k = e / nk, c = e - k * nk;
+      dst[k * ld + c] = w[(size_t)k * N + lo + c];
+    }
+  };
+  load_slice(W1, L.LD1, a.w1, d0, d1, lo1, n1);
+  load_slice(W2, L.LD2, a.w2, d1, d2, lo2, n2);
+  load_slice(W3, L.LD3, a.w3, d2, D, loD, nD);
+  for (int c = tid; c < n; c += NT) {
+    const int layer = c < c1 ? 0 : c < c2 ? 1 : 2;
+    const int col = c < c1 ? c : c < c2 ? c - c1 : c - c2;
+    int owner = 0;   // the rank whose slice holds col
+    while (col >= a.lo[layer][owner + 1]) ++owner;
+    OT[c] = owner << 16 |
+            ((layer == 0 ? 0 : layer == 1 ? L.J1 : L.J2) + col - a.lo[layer][owner]);
   }
-  __syncthreads();
+  for (int c = tid; c < n0; c += NT) BI[c] = a.b0[lo0 + c];
+  for (int c = tid; c < n1; c += NT) BI[L.J1 + c] = a.b1[lo1 + c];
+  for (int c = tid; c < n2; c += NT) BI[L.J2 + c] = a.b2[lo2 + c];
+  for (int c = tid; c < nD; c += NT) BI[L.OWN + c] = a.b3[loD + c];
+  if (with_pg) {
+    for (int e = tid; e < L.OWN + L.ND; e += NT) GB[e] = 0.f;
+    auto zero_slice = [&](float* g, int ldg, int K, int nk) {
+      for (int e = tid; e < K * nk; e += NT) {
+        const int k = e / nk, c = e - k * nk;
+        g[(size_t)k * ldg + c] = 0.f;
+      }
+    };
+    zero_slice(G1, ldg1, d0, n1);
+    zero_slice(G2, ldg2, d1, n2);
+    zero_slice(G3, ldg3, d2, nD);
+  }
+  // every block of the cluster is running before a peer writes into it
+  cluster.sync();
+
+  long long spent[N_PHASE] = {0, 0, 0, 0, 0, 0};
+  long long last = clock64();
+  auto lap = [&](int phase) {
+    if (a.clocks != nullptr && tid == 0) {
+      const long long now = clock64();
+      spent[phase] += now - last;
+      last = now;
+    }
+  };
 
   const bool has_s = a.loss != 0;
   const int total = a.warm_T + a.T;
   float b1p = a.wb1, b2p = a.wb2;     // Adam bias-correction powers
   double loss_acc = 0.0, en_acc = 0.0;
 
-  // one latent column's update from its backward product back[r]
-  auto update_column = [&](int c, const float (&back)[R], bool warm, int t,
-                           float cw1, float cw2) {
-    const uint32_t pc = c < c1 ? (uint32_t)c
-                      : c < c2 ? (uint32_t)(a.O1 + c - c1)
-                               : (uint32_t)(a.O2 + c - c2);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float x = X[c * R + r];
-      const float g = E[c * R + r] - (x > 0.f ? 1.f : 0.f) * back[r];
-      if (warm) {
-        const float m = a.wb1 * M[c * R + r] + a.one_m_b1 * g;
-        const float v = a.wb2 * V[c * R + r] + a.one_m_b2 * g * g;
-        M[c * R + r] = m;
-        V[c * R + r] = v;
-        x = x - a.warm_lr * (m / cw1) / (sqrtf(v / cw2) + a.weps);
-      } else {
-        x = x - a.lr * g;
-        if (a.noise_std > 0.f)
-          x = x + a.noise_std * langevin_normal(row_seed[r], t, row_base[r] + pc);
-      }
-      X[c * R + r] = x;
-      H[c * R + r] = fmaxf(x, 0.f);
-    }
+  // forward quads, the long sums first: S (K = d2), err2 (K = d1), err1
+  // (K = d0); an item is a quad and one half of the rows
+  const int nS = has_s ? nD : 0;
+  const int fq0 = (nS + 3) / 4, fq1 = fq0 + (n2 + 3) / 4, fq2 = fq1 + (n1 + 3) / 4;
+  const int fwd_jobs = (2 * fq2 * KSPLIT + 31) & ~31;
+  // backward quads: the x2 columns (sum over the own output columns), then
+  // x1 (over the own x2 columns), then x0 (over the own x1 columns)
+  const int bq0 = has_s ? (d2 + 3) / 4 : 0, bq1 = bq0 + (d1 + 3) / 4;
+  const int bq2 = bq1 + (d0 + 3) / 4;
+  const int bwd_jobs = (2 * bq2 * KSPLIT + 31) & ~31;
+  // gradient jobs: a quad of columns and PG_ROWS rows of gW3, gW2, gW1
+  const int h1 = fq0 * ((d2 + PG_ROWS - 1) / PG_ROWS);
+  const int h2 = h1 + (fq1 - fq0) * ((d1 + PG_ROWS - 1) / PG_ROWS);
+  const int h3 = h2 + (fq2 - fq1) * ((d0 + PG_ROWS - 1) / PG_ROWS);
+
+  // the own element (column j of X, position r within it) of update slot p,
+  // or j = -1
+  auto own_element = [&](int p, int& j, int& r, int& layer, int& col) {
+    const int e = tid + p * NT;
+    j = -1;
+    if (e >= L.OWN * R) return;
+    const int jj = e / R;
+    r = e - jj * R;
+    if (jj < L.J1) { layer = 0; col = jj; if (col >= n0) return; col += lo0; }
+    else if (jj < L.J2) { layer = 1; col = jj - L.J1; if (col >= n1) return; col += lo1; }
+    else { layer = 2; col = jj - L.J2; if (col >= n2) return; col += lo2; }
+    j = jj;
   };
+  auto noise = [&](int t, int r, int layer, int col) {
+    const int row = row0 + RW::row_at(r);
+    const uint32_t pc = (uint32_t)((layer == 0 ? 0 : layer == 1 ? a.O1 : a.O2) + col);
+    return langevin_normal((uint32_t)a.seed + (uint32_t)(row / a.tile_B), t,
+                           (uint32_t)(row % a.tile_B) * (uint32_t)a.XW + pc);
+  };
+  const int slots = (L.OWN * R + NT - 1) / NT;
+  // The noise of a step touches registers only, so it is drawn while the
+  // cluster's barriers complete: slots [0, NOISE_EARLY) behind the barrier
+  // that ends the step before, the rest behind the one in the step.
+  float z[NOISE_SLOTS] = {0.f, 0.f, 0.f, 0.f};
+  auto draw = [&](int t, int p) {
+    int j, r, layer, col;
+    own_element(p, j, r, layer, col);
+    return j >= 0 ? noise(t, r, layer, col) : 0.f;
+  };
+  if (a.noise_std > 0.f && a.warm_T == 0 && a.T > 0) {
+#pragma unroll
+    for (int p = 0; p < NOISE_EARLY; ++p) z[p] = draw(0, p);
+  }
 
   for (int s = 0; s < total; ++s) {
     const bool warm = s < a.warm_T;
@@ -194,116 +533,256 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     const bool final_step = a.want_scalars && s == total - 1;
     const float cw1 = 1.0f - b1p, cw2 = 1.0f - b2p;
 
-    // ---- forward: errors of every PC site and S at the sensory layer
-    const int nf = n + (has_s ? a.D : 0);
-    for (int j = tid; j < nf; j += NT) {
-      float acc[R];
+    // ---- forward: the own columns' errors and S, from H and the own weights
+    for (int base = tid - lane; base < fwd_jobs; base += NT) {
+      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
+      const bool live = item < 2 * fq2;
+      const int g = live && item >= fq2 ? 1 : 0, rg = g * RG;
+      const int qq = live ? item - g * fq2 : fq2;
+      const float* A = H; const float* W = W1;
+      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, jbase = 0;
+      if (qq < fq0) { A = H + c2 * RP; W = W3; K = d2; ld = L.LD3; ncols = nS; NQ = fq0; q = qq; jbase = -1; }
+      else if (qq < fq1) { A = H + c1 * RP; W = W2; K = d1; ld = L.LD2; ncols = n2; NQ = fq1 - fq0; q = qq - fq0; jbase = L.J2; }
+      else if (qq < fq2) { K = d0; ld = L.LD1; ncols = n1; NQ = fq2 - fq1; q = qq - fq1; jbase = L.J1; }
+      const int col = q + part * NQ;            // this lane's column after the reduce
+      const bool mine = live && col < ncols;
+      float yv[RG];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      if (j < c1) {
-        const float bj = __ldg(a.b0 + j);
+      for (int r = 0; r < RG; ++r) {
+        const int row = row0 + rg + r;
+        yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
+      }
+      int off[4];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float e = X[j * R + r] - bj;
-          E[j * R + r] = e;
-          if (final_step && row0 + r < a.B) en_acc += (double)e * e;
-        }
-      } else if (j < n) {
-        const bool l1 = j < c2;
-        const int col = l1 ? j - c1 : j - c2;
-        if (l1) rows_dot<R>(acc, H, a.w1, 0, a.d0, a.d1, col);
-        else rows_dot<R>(acc, H + c1 * R, a.w2, 0, a.d1, a.d2, col);
-        const float bj = __ldg((l1 ? a.b1 : a.b2) + col);
+      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1);
+      float acc[4][RG];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float e = X[j * R + r] - (acc[r] + bj);
-          E[j * R + r] = e;
-          if (final_step && row0 + r < a.B) en_acc += (double)e * e;
-        }
-      } else {
-        const int col = j - n;
-        rows_dot<R>(acc, H + c2 * R, a.w3, 0, a.d2, a.D, col);
-        const float bj = __ldg(a.b3 + col);
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + r;
-          const float lg = acc[r] + bj;
-          const float yv = row < a.B ? __ldg(a.y + (size_t)row * a.D + col) : 0.f;
-          S[col * R + r] = a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv
-                                       : (lg - yv) * a.inv_var;
-          if (final_step && row < a.B) {
-            const double l = lg, yd = yv;
+        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
+      quad_dot<RG>(acc, A, g, W, ld, off, part, K);
+      float out[RG];
+      quad_reduce<RG>(out, acc, lane);
+      if (!mine) continue;
+      if (jbase < 0) {
+        const float bj = BI[L.OWN + col];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const float lg = out[r] + bj;
+          out[r] = a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
+                               : (lg - yv[r]) * a.inv_var;
+          if (final_step && row0 + rg + r < a.B) {
+            const double l = lg, yd = yv[r];
             loss_acc += a.loss == 1
                 ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
                 : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
           }
         }
-      }
-    }
-    __syncthreads();
-
-    // ---- sampling step: Hebbian gradients from H, E and S of the state
-    // before the update; the barrier keeps the backward pass off H
-    if (a.partials != nullptr &&
-        (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
-      prior_bias_accumulate<R>(pg.gb0, E, a.d0, nvalid, tid);
-      hebbian_accumulate<R>(pg.gw1, pg.gb1, H, E + c1 * R, a.d0, a.d1, -1.f, nvalid, tid);
-      hebbian_accumulate<R>(pg.gw2, pg.gb2, H + c1 * R, E + c2 * R, a.d1, a.d2, -1.f, nvalid, tid);
-      if (has_s)
-        hebbian_accumulate<R>(pg.gw3, pg.gb3, H + c2 * R, S, a.d2, a.D, 1.f, nvalid, tid);
-      __syncthreads();
-    }
-
-    // ---- backward: x0 and x1 columns update now; x2 columns get KS
-    // partial sums of S W3^T
-    const int nb = c2 + (has_s ? KS * a.d2 : 0);
-    for (int j = tid; j < nb; j += NT) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      if (j < c2) {
-        if (j < c1) rows_dot<R>(acc, E + c1 * R, a.w1t, 0, a.d1, a.d0, j);
-        else rows_dot<R>(acc, E + c2 * R, a.w2t, 0, a.d2, a.d1, j - c1);
-        update_column(j, acc, warm, t, cw1, cw2);
+        store_rows<RG>(S + col * RP, g, out);
       } else {
-        const int jj = j - c2;
-        const int chunk = jj / a.d2, i = jj - chunk * a.d2;
-        rows_dot<R>(acc, S, a.w3t, chunk * a.D / KS, (chunk + 1) * a.D / KS, a.d2, i);
+        const int j = jbase + col;
+        const float bj = BI[j];
+        float xv[RG];
+        load_rows<RG>(xv, X + j * RP, g);
 #pragma unroll
-        for (int r = 0; r < R; ++r) P[(chunk * a.d2 + i) * R + r] = acc[r];
-      }
-    }
-    __syncthreads();
-
-    // ---- x2 columns: back = -(S W3^T), summed over the chunks in order
-    for (int i = tid; i < a.d2; i += NT) {
-      float back[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float p = 0.f;
-        if (has_s) {
-          p = P[i * R + r];
-          for (int k = 1; k < KS; ++k) p += P[(k * a.d2 + i) * R + r];
+        for (int r = 0; r < RG; ++r) {
+          out[r] = xv[r] - (out[r] + bj);
+          if (final_step && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
         }
-        back[r] = -p;
+        store_rows<RG>(E + j * RP, g, out);
       }
-      update_column(c2 + i, back, warm, t, cw1, cw2);
+    }
+    for (int e = tid; e < n0 * R; e += NT) {   // err0 = x0 - b0
+      const int j = e / R, r = e - j * R;
+      const float er = X[j * RP + r] - BI[j];
+      E[j * RP + r] = er;
+      if (final_step && row0 + RW::row_at(r) < a.B) en_acc += (double)er * er;
     }
     __syncthreads();
+    lap(0);
+
+    // ---- sampling step: Hebbian gradients of the own columns from H, E and
+    // S of the state before the update.  Nothing below writes H, E or S
+    // before the next cluster barrier, so no barrier is needed after it.
+    if (with_pg && (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
+      for (int job = tid; job < h3; job += NT) {
+        const float* A; const float* Vc; float* gw;
+        int K, nk, NQ, ldg, jb; float sign;
+        size_t gs;   // where the resident slice starts in shared memory
+        if (job < h1) {
+          A = H + c2 * RP; Vc = S; gw = G3; gs = L.G3; K = d2; nk = nS; NQ = fq0; ldg = ldg3;
+          jb = job; sign = 1.f;
+        } else if (job < h2) {
+          A = H + c1 * RP; Vc = E + L.J2 * RP; gw = G2; gs = L.G2; K = d1; nk = n2;
+          NQ = fq1 - fq0; ldg = ldg2; jb = job - h1; sign = -1.f;
+        } else {
+          A = H; Vc = E + L.J1 * RP; gw = G1; gs = L.G1; K = d0; nk = n1; NQ = fq2 - fq1;
+          ldg = ldg1; jb = job - h2; sign = -1.f;
+        }
+        const int chunk = jb / NQ, q = jb - chunk * NQ;
+        float v[4][R];   // by position; rows beyond the batch and columns beyond the slice 0
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int col = q + u * NQ;
+          load_feature<RG>(v[u], Vc + min(col, nk - 1) * RP);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            v[u][r] = col < nk && RW::row_at(r) < nvalid ? sign * v[u][r] : 0.f;
+        }
+        // gw[k][col] += dot; the resident slice is addressed as shared memory
+        auto add = [&](int k, const float (&dot)[4]) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (q + u * NQ >= nk) continue;
+            const size_t at = (size_t)k * ldg + q + u * NQ;
+            if (a.grads_resident) smem[gs + at] += dot[u];
+            else gw[at] += dot[u];
+          }
+        };
+        const int k1 = min(K, (chunk + 1) * PG_ROWS);
+        for (int k = chunk * PG_ROWS; k < k1; ++k) {
+          float h[R];
+          load_feature<RG>(h, A + k * RP);
+          float dot[4] = {0.f, 0.f, 0.f, 0.f};   // four sums side by side, each in a fixed order
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) dot[u] = fmaf(h[r], v[u][r], dot[u]);
+          add(k, dot);
+        }
+      }
+      // bias gradients: -err of the own latent columns, +S of the own outputs
+      for (int j = tid; j < L.OWN + nS; j += NT) {
+        const float* src = j < L.OWN ? E + j * RP : S + (j - L.OWN) * RP;
+        const float sign = j < L.OWN ? -1.f : 1.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) sum += RW::row_at(r) < nvalid ? sign * src[r] : 0.f;
+        GB[j] += sum;
+      }
+      lap(1);
+    }
+
+    // ---- backward: for every latent column, the partial product over the
+    // own out-columns, written into the owner's P at this block's rank
+    for (int base = tid - lane; base < bwd_jobs; base += NT) {
+      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
+      const bool live = item < 2 * bq2;
+      const int g = live && item >= bq2 ? 1 : 0;
+      const int qq = live ? item - g * bq2 : bq2;
+      const float* A = E; const float* W = W1;
+      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, cbase = 0;
+      if (qq < bq0) { A = S; W = W3; K = nD; ld = L.LD3; ncols = d2; NQ = bq0; q = qq; cbase = c2; }
+      else if (qq < bq1) { A = E + L.J2 * RP; W = W2; K = n2; ld = L.LD2; ncols = d1; NQ = bq1 - bq0; q = qq - bq0; cbase = c1; }
+      else if (qq < bq2) { A = E + L.J1 * RP; K = n1; ld = L.LD1; ncols = d0; NQ = bq2 - bq1; q = qq - bq1; }
+      int off[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1) * ld;
+      float acc[4][RG];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
+      quad_dot<RG>(acc, A, g, W, 1, off, part, K);
+      float out[RG];
+      quad_reduce<RG>(out, acc, lane);
+      const int i = q + part * NQ;   // this lane's column after the reduce
+      if (!live || i >= ncols) continue;
+      const int home = OT[cbase + i];   // owner << 16 | its own-column index
+      store_rows<RG>(cluster.map_shared_rank(P, home >> 16) +
+                         ((size_t)rank * L.OWN + (home & 0xffff)) * RP, g, out);
+    }
+    lap(2);
+    cluster_arrive();
+    const bool noisy = !warm && a.noise_std > 0.f;
+    if (noisy) {
+#pragma unroll
+      for (int p = NOISE_EARLY; p < NOISE_SLOTS; ++p) z[p] = draw(t, p);
+    }
+    cluster_wait();
+    lap(3);
+
+    // ---- the own latent columns: add the partials in rank order, update,
+    // and write the new relu(x) into every block's H
+    auto update = [&](int p, float zp, bool have_z) {
+      int j, r, layer, col;
+      own_element(p, j, r, layer, col);
+      if (j < 0) return;
+      float back = 0.f;
+      if (layer < 2 || has_s) {
+        back = P[j * RP + r];
+#pragma unroll
+        for (int k = 1; k < CS; ++k) back += P[((size_t)k * L.OWN + j) * RP + r];
+        if (layer == 2) back = -back;    // back2 = -(S W3^T)
+      }
+      float x = X[j * RP + r];
+      const float g = E[j * RP + r] - (x > 0.f ? 1.f : 0.f) * back;
+      if (warm) {
+        const float m = a.wb1 * M[j * RP + r] + a.one_m_b1 * g;
+        const float v = a.wb2 * V[j * RP + r] + a.one_m_b2 * g * g;
+        M[j * RP + r] = m;
+        V[j * RP + r] = v;
+        x = x - a.warm_lr * (m / cw1) / (sqrtf(v / cw2) + a.weps);
+      } else {
+        x = x - a.lr * g;
+        if (noisy) x = x + a.noise_std * (have_z ? zp : noise(t, r, layer, col));
+      }
+      X[j * RP + r] = x;
+      const float h = fmaxf(x, 0.f);
+      const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
+#pragma unroll
+      for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
+    };
+#pragma unroll
+    for (int p = 0; p < NOISE_SLOTS; ++p) update(p, z[p], true);
+    for (int p = NOISE_SLOTS; p < slots; ++p) update(p, 0.f, false);
+    lap(4);
+    // also the last barrier before exit: no peer touches this block's
+    // shared memory after it
+    cluster_arrive();
+    if (a.noise_std > 0.f && s + 1 >= a.warm_T && s + 1 < total) {
+#pragma unroll
+      for (int p = 0; p < NOISE_EARLY; ++p) z[p] = draw(t + 1, p);
+    }
+    cluster_wait();
+    lap(5);
     if (warm) {
       b1p *= a.wb1;
       b2p *= a.wb2;
     }
   }
 
-  for (int e = tid; e < R * n; e += NT) {
-    const int r = e / n, c = e - r * n;
+  // ---- epilogue: own latent columns, gradient slice, scalars
+  for (int e = tid; e < L.OWN * R; e += NT) {
+    const int r = e / L.OWN, j = e - r * L.OWN;
     const int row = row0 + r;
     if (row >= a.B) continue;
-    const float x = X[c * R + r];
-    if (c < c1) a.o0[(size_t)row * a.d0 + c] = x;
-    else if (c < c2) a.o1[(size_t)row * a.d1 + (c - c1)] = x;
-    else a.o2[(size_t)row * a.d2 + (c - c2)] = x;
+    const float x = X[j * RP + RW::pos(r)];
+    if (j < L.J1) { if (j < n0) a.o0[(size_t)row * d0 + lo0 + j] = x; }
+    else if (j < L.J2) { if (j - L.J1 < n1) a.o1[(size_t)row * d1 + lo1 + j - L.J1] = x; }
+    else if (j - L.J2 < n2) a.o2[(size_t)row * d2 + lo2 + j - L.J2] = x;
+  }
+  if (with_pg) {
+    if (a.grads_resident) {
+      auto store_slice = [&](float* dst, int N, int lo, const float* g, int ld, int K, int nk) {
+        for (int e = tid; e < K * nk; e += NT) {
+          const int k = e / nk, c = e - k * nk;
+          dst[(size_t)k * N + lo + c] = g[k * ld + c];
+        }
+      };
+      store_slice(pg.gw1, d1, lo1, G1, L.LD1, d0, n1);
+      store_slice(pg.gw2, d2, lo2, G2, L.LD2, d1, n2);
+      store_slice(pg.gw3, D, loD, G3, L.LD3, d2, nD);
+    }
+    for (int c = tid; c < n0; c += NT) pg.gb0[lo0 + c] = GB[c];
+    for (int c = tid; c < n1; c += NT) pg.gb1[lo1 + c] = GB[L.J1 + c];
+    for (int c = tid; c < n2; c += NT) pg.gb2[lo2 + c] = GB[L.J2 + c];
+    for (int c = tid; c < nD; c += NT) pg.gb3[loD + c] = GB[L.OWN + c];
+  }
+
+  if (a.clocks != nullptr && tid == 0) {
+#pragma unroll
+    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * N_PHASE + i] = spent[i];
   }
 
   if (a.want_scalars) {
@@ -328,30 +807,86 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   }
 }
 
-// out[e] = partials[0][e] + partials[1][e] + ..., blocks taken in order
-__global__ void sum_partials_kernel(const float* __restrict__ partials,
-                                    float* __restrict__ out, int nblocks, size_t n) {
+// ------------------------------------------------------- summing pass
+//
+// out[e] = p[0][e] + p[1][e] + ..., partials taken in order.  A thread owns
+// one element of type T (a float4 of floats, or one float) and starts the
+// loads of SUM_U partials before the first add, so SUM_U loads are in
+// flight per thread instead of one.
+
+constexpr int SUM_U = 16;
+
+__device__ __forceinline__ float add_in_order(float s, float v) { return s + v; }
+__device__ __forceinline__ float4 add_in_order(float4 s, float4 v) {
+  return make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) sum_partials_kernel(
+    const T* __restrict__ partials, T* __restrict__ out, int nblocks, size_t n) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  float s = partials[e];
-  for (int b = 1; b < nblocks; ++b) s += partials[(size_t)b * n + e];
+  T s = __ldg(partials + e);
+  for (int b = 1; b < nblocks; b += SUM_U) {
+    T v[SUM_U];
+#pragma unroll
+    for (int u = 0; u < SUM_U; ++u)
+      if (b + u < nblocks) v[u] = __ldg(partials + (size_t)(b + u) * n + e);
+#pragma unroll
+    for (int u = 0; u < SUM_U; ++u)
+      if (b + u < nblocks) s = add_in_order(s, v[u]);
+  }
   out[e] = s;
 }
 
-template <int R>
-cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (a.B + R - 1) / R;
-  mcpc_chain_kernel<R><<<blocks, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+// ------------------------------------------------------------ launches
+
+inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           int clusters, size_t smem, cudaStream_t stream) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)(clusters * CS));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CS;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
 }
 
-template <int R>
+template <int RG>
+cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
+  constexpr int R = 2 * RG;
+  cudaError_t err = cudaFuncSetAttribute(
+      mcpc_chain_kernel<RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(cfg, attr, (a.B + R - 1) / R, smem, stream);
+  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// clusters of this kernel the device can run at once, or -cudaError_t
+template <int RG>
+int max_clusters(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mcpc_chain_kernel<RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(cfg, attr, 1, smem, nullptr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG>, &cfg);
+  return err != cudaSuccess ? -(int)err : count;
+}
+
+template <int RG>
 int static_smem_bytes() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<R>) != cudaSuccess) return -1;
+  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG>) != cudaSuccess) return -1;
   return (int)attr.sharedSizeBytes;
 }
 
@@ -361,70 +896,104 @@ int pad128(int d) { return (d + 127) / 128 * 128; }
 
 extern "C" {
 
-// dynamic shared memory of one block of `rows` rows
-size_t mcpc_chain_smem_bytes(int d0, int d1, int d2, int D, int rows, int warm) {
-  const size_t n = (size_t)d0 + d1 + d2;
-  const size_t floats = 3 * n + (size_t)D + (size_t)KS * d2 + (warm ? 2 * n : 0);
-  return floats * (size_t)rows * sizeof(float);
+// blocks a cluster
+int mcpc_chain_cluster_size() { return CS; }
+
+// parts of a step that ChainArgs::clocks tells apart
+int mcpc_chain_phase_count() { return N_PHASE; }
+
+// dynamic shared memory of one block of a cluster of `rows` rows; grads: 0
+// no parameter gradients, 1 the block's gradient slice in device memory, 2
+// in shared memory
+size_t mcpc_chain_smem_bytes(int d0, int d1, int d2, int D, int rows, int warm,
+                             int grads) {
+  return make_layout(d0, d1, d2, D, rows, warm, grads).total * sizeof(float);
 }
 
-// dynamic shared memory a block of `rows` rows may use on `device`, or -1
-int mcpc_chain_smem_budget(int device, int rows) {
+// dynamic shared memory a block may use on `device`, or -1
+int mcpc_chain_smem_budget(int device) {
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  int fixed = -1;
-  switch (rows) {
-    case 16: fixed = static_smem_bytes<16>(); break;
-    case 8: fixed = static_smem_bytes<8>(); break;
-    case 4: fixed = static_smem_bytes<4>(); break;
-    case 2: fixed = static_smem_bytes<2>(); break;
-    case 1: fixed = static_smem_bytes<1>(); break;
-    default: return -1;
-  }
+  // the kernel's static shared memory does not depend on the rows
+  const int fixed = static_smem_bytes<1>();
   return fixed < 0 ? -1 : optin - fixed;
+}
+
+// clusters of `rows` rows with `smem` bytes of dynamic shared memory a block
+// that the current device can run at once; negative: minus a cudaError_t
+int mcpc_chain_max_clusters(int rows, size_t smem) {
+  switch (rows) {
+#define MCPC_CASE(R) case R: return max_clusters<R / 2>(smem);
+    MCPC_CLUSTER_ROWS(MCPC_CASE)
+#undef MCPC_CASE
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mcpc_chain_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Runs warm_T Adam steps then T Langevin steps for every batch row.  All
-// pointers are device pointers; scal receives [n_blocks, 2] (loss, energy)
-// partial sums when want_scalars.  With partials not null (room for
-// [n_blocks, d0 d1 + d1 d2 + d2 D + d0 + d1 + d2 + D] floats, n_blocks =
-// ceil(B / rows)) every block leaves there its share of the parameter
-// gradients, [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3], taken on Langevin
-// steps t >= mixing and, with pg_warm, on the last warm step.  Returns a
-// cudaError_t (0 on success).
+// Runs warm_T Adam steps then T Langevin steps for every batch row, one
+// cluster per `rows` rows.  All pointers but `slices` are device pointers.
+// `slices` is the plan's cut of the layers, 4 x (cluster size + 1) ints on
+// the host: for x0, x1, x2 and the output, the first column of every rank's
+// slice and, last, the layer's width.  `smem_bytes` is the dynamic shared
+// memory the plan expects a block to take: a launch whose plan and kernel
+// disagree on it, or whose slices do not cut the layers in order into parts
+// of at most ceil(d / cluster size) columns, is refused with
+// cudaErrorInvalidValue.  scal receives [n_clusters * cluster size, 2]
+// (loss, energy) partial sums when want_scalars.  With partials not null
+// (room for [n_clusters, d0 d1 + d1 d2 + d2 D + d0 + d1 + d2 + D] floats,
+// n_clusters = ceil(B / rows)) every cluster leaves there its share of the
+// parameter gradients, [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3], taken on
+// Langevin steps t >= mixing and, with pg_warm, on the last warm step;
+// grads_resident keeps a block's slice in shared memory until the end.  With
+// clocks not null (room for [n_clusters * cluster size, 6] 64-bit integers)
+// every block leaves there the SM clocks its thread 0 spent in each part of
+// the steps.  Returns a cudaError_t (0 on success).
 int mcpc_chain_launch(
     const float* x0, const float* x1, const float* x2,
     float* o0, float* o1, float* o2,
     const float* y,
     const float* b0, const float* b1, const float* b2, const float* b3,
     const float* w1, const float* w2, const float* w3,
-    const float* w1t, const float* w2t, const float* w3t,
-    double* scal, float* partials,
+    double* scal, float* partials, long long* clocks, const int* slices,
     int B, int d0, int d1, int d2, int D,
     int T, int warm_T, int loss, int want_scalars, int mixing, int pg_warm,
-    int rows,
+    int rows, int grads_resident,
     float inv_var, float lr, float noise_std,
     float warm_lr, float wb1, float wb2, float one_m_b1, float one_m_b2,
-    float weps, int seed, int tile_B, void* stream) {
+    float weps, int seed, int tile_B, size_t smem_bytes, void* stream) {
   if (B <= 0 || d0 <= 0 || d1 <= 0 || d2 <= 0 || D <= 0 || T < 0 ||
-      warm_T < 0 || tile_B <= 0 || loss < 0 || loss > 2)
+      warm_T < 0 || tile_B <= 0 || loss < 0 || loss > 2 || slices == nullptr)
     return (int)cudaErrorInvalidValue;
   ChainArgs a;
+  const int widths[4] = {d0, d1, d2, D};
+  for (int l = 0; l < 4; ++l) {
+    const int* lo = slices + l * (CS + 1);
+    if (lo[0] != 0 || lo[CS] != widths[l]) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < CS; ++k)
+      if (lo[k + 1] < lo[k] || lo[k + 1] - lo[k] > widest_slice(widths[l]))
+        return (int)cudaErrorInvalidValue;
+    for (int k = 0; k <= CS; ++k) a.lo[l][k] = lo[k];
+  }
+  const size_t smem = mcpc_chain_smem_bytes(
+      d0, d1, d2, D, rows, warm_T > 0,
+      partials == nullptr ? 0 : grads_resident ? 2 : 1);
+  if (smem != smem_bytes) return (int)cudaErrorInvalidValue;
   a.x0 = x0; a.x1 = x1; a.x2 = x2;
   a.o0 = o0; a.o1 = o1; a.o2 = o2;
   a.y = y;
   a.b0 = b0; a.b1 = b1; a.b2 = b2; a.b3 = b3;
   a.w1 = w1; a.w2 = w2; a.w3 = w3;
-  a.w1t = w1t; a.w2t = w2t; a.w3t = w3t;
   a.scal = scal;
   a.partials = partials;
+  a.clocks = clocks;
   a.mixing = mixing; a.pg_warm = pg_warm;
+  a.grads_resident = grads_resident;
   a.B = B; a.d0 = d0; a.d1 = d1; a.d2 = d2; a.D = D;
   a.T = T; a.warm_T = warm_T; a.loss = loss; a.want_scalars = want_scalars;
   a.inv_var = inv_var; a.lr = lr; a.noise_std = noise_std;
@@ -434,14 +1003,11 @@ int mcpc_chain_launch(
   a.O1 = pad128(d0);
   a.O2 = a.O1 + pad128(d1);
   a.XW = a.O2 + pad128(d2);
-  const size_t smem = mcpc_chain_smem_bytes(d0, d1, d2, D, rows, warm_T > 0);
   cudaStream_t st = (cudaStream_t)stream;
   switch (rows) {
-    case 16: return (int)launch_rows<16>(a, smem, st);
-    case 8: return (int)launch_rows<8>(a, smem, st);
-    case 4: return (int)launch_rows<4>(a, smem, st);
-    case 2: return (int)launch_rows<2>(a, smem, st);
-    case 1: return (int)launch_rows<1>(a, smem, st);
+#define MCPC_CASE(R) case R: return (int)launch_rows<R / 2>(a, smem, st);
+    MCPC_CLUSTER_ROWS(MCPC_CASE)
+#undef MCPC_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -450,8 +1016,18 @@ int mcpc_chain_launch(
 int mcpc_sum_partials_launch(const float* partials, float* out, int nblocks,
                              size_t n, void* stream) {
   if (nblocks <= 0 || n == 0) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n + NT - 1) / NT);
-  sum_partials_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(partials, out, nblocks, n);
+  cudaStream_t st = (cudaStream_t)stream;
+  // float4s need every row of partials and out 16-byte aligned
+  const bool vec = n % 4 == 0 && ((uintptr_t)partials | (uintptr_t)out) % 16 == 0;
+  if (vec) {
+    const size_t n4 = n / 4;
+    sum_partials_kernel<float4><<<(unsigned)((n4 + NT - 1) / NT), NT, 0, st>>>(
+        reinterpret_cast<const float4*>(partials), reinterpret_cast<float4*>(out),
+        nblocks, n4);
+  } else {
+    sum_partials_kernel<float><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
+        partials, out, nblocks, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,13 @@
 // Device code shared by the MCPC chain kernels (mcpc_chain.cu,
-// mcpc_chain_unpacked.cu): the counter-hash noise, the small matrix products
-// over a block's rows, and the Hebbian parameter-gradient accumulation.
+// mcpc_chain_unpacked.cu): the counter-hash noise and the layout of a
+// partial of the parameter gradients, which both use; and the small matrix
+// products over a block's rows and the gradient accumulation into device
+// memory, which the unpacked kernel uses (the cluster kernel of
+// mcpc_chain.cu has its own, over weights in shared memory).
 //
-// Every block of NT threads owns R batch rows and keeps its state in shared
-// memory feature-major ([feature][row]), so one float4 load feeds 4 rows.
+// In the unpacked kernel every block of NT threads owns R batch rows and
+// keeps its state in shared memory feature-major ([feature][row]), so one
+// float4 load feeds 4 rows.
 
 #pragma once
 

@@ -24,11 +24,14 @@ On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
 which replaces the JAX package's Pallas kernel
 ``ops/pallas_mcpc.py::_make_packed_kernel``, or with ``packed=False``
 ``csrc/mcpc_chain_unpacked.cu``, which replaces ``_make_kernel``, the
-readable baseline.  With parameter gradients every block of either kernel
-leaves a partial sum, and :func:`sum_block_partials` (a second kernel) adds
-them in block order.  On CPU tensors it runs :func:`mcpc_chain_reference`,
-the same arithmetic in plain PyTorch.  There is no fallback from one to the
-other.
+readable baseline.  The packed kernel runs one thread-block cluster per
+group of batch rows, with every layer's weights split by output column over
+the cluster's blocks and kept in shared memory; :func:`chain_plan` decides
+the split.  With parameter gradients every cluster of the packed kernel
+(every block of the unpacked one) leaves a partial sum, and
+:func:`sum_block_partials` (a second kernel) adds them in order.  On CPU
+tensors it runs :func:`mcpc_chain_reference`, the same arithmetic in plain
+PyTorch.  There is no fallback from one to the other.
 
 Noise.  Both versions draw the Langevin noise from the stateless counter
 hash of the JAX package's interpret mode (``_fmix32``, ``_mock_bits``,
@@ -48,6 +51,7 @@ splitting each multiplication so no intermediate exceeds 2**49.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -523,11 +527,139 @@ def mcpc_chain_reference(params, latents, target, seed, **options):
 
 # -------------------------------------------------------------- kernels
 
-_KERNEL_ROWS = (16, 8, 4, 2, 1)
+_UNPACKED_ROWS = (16, 8, 4, 2, 1)  # rows a block of the unpacked kernel
+CLUSTER_SIZE = 8  # blocks a cluster: the most every Hopper card must take
+# Rows a cluster for which the kernel is built (``MCPC_CLUSTER_ROWS`` in
+# ``csrc/mcpc_chain.cu``): what the plan's rule picks at B >= 136 (18), from 61
+# (10), from 31 (4) and below (2) on a card that runs 15 clusters at once.
+CLUSTER_ROWS = (18, 10, 4, 2)
+# What a step costs beyond its rows' products, in rows: the barriers, and the
+# weights' way from shared memory into registers, which every row shares.  On
+# an H100 a step of one wave took 11,331 SM clocks at 2 rows and 23,067 at 18
+# (``scripts/chain_clocks.py --rows``): 733 clocks a row on top of 9,864.
+_ROW_OVERHEAD = 13
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _Z = ctypes.c_size_t
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How the packed kernel maps one call onto the card."""
+
+    cluster_size: int   # blocks a cluster
+    rows: int           # batch rows a cluster
+    clusters: int       # ceil(B / rows)
+    # per layer (x0, x1, x2, output): each rank's (first column, end); the
+    # kernel takes its slices from here
+    slices: tp.Tuple[tp.Tuple[tp.Tuple[int, int], ...], ...]
+    smem_bytes: int     # dynamic shared memory a block
+    grads_resident: bool  # a block's gradient slice stays in shared memory
+
+    @property
+    def blocks(self) -> int:
+        return self.clusters * self.cluster_size
+
+    def slice_bounds(self) -> tp.List[int]:
+        """The slices as the kernel takes them: per layer the first column of
+        every rank's slice and, last, the layer's width."""
+        return [lo for layer in self.slices
+                for lo in [first for first, _ in layer] + [layer[-1][1]]]
+
+    def describe(self, max_clusters: tp.Optional[int] = None) -> str:
+        """One line for logs; ``max_clusters`` (what the card runs at once)
+        adds the number of SMs at work."""
+        text = (f"cluster of {self.cluster_size} blocks, {self.rows} rows a "
+                f"cluster, {self.clusters} clusters")
+        if max_clusters is not None:
+            text += (f", {min(self.clusters, max_clusters) * self.cluster_size}"
+                     f" SMs at work (the card runs {max_clusters} clusters at once)")
+        return (f"{text}, {self.smem_bytes} B shared memory a block, gradient "
+                f"slice {'resident' if self.grads_resident else 'not resident'}")
+
+
+def column_slices(d: int, ranks: int = CLUSTER_SIZE) -> tp.Tuple[tp.Tuple[int, int], ...]:
+    """``d`` columns cut into ``ranks`` contiguous ``(first, end)`` slices,
+    as even as possible: the first ``d % ranks`` take one column more.  With
+    ``d < ranks`` the last ranks get an empty slice."""
+    q, rem = divmod(d, ranks)
+    lo = [k * q + min(k, rem) for k in range(ranks + 1)]
+    return tuple((lo[k], lo[k + 1]) for k in range(ranks))
+
+
+def chain_smem_bytes(dims, rows: int, warm: bool, grads: int) -> int:
+    """Dynamic shared memory of one block of the packed kernel (the layout of
+    ``make_layout`` in ``csrc/mcpc_chain.cu``, which refuses a launch whose
+    plan was sized otherwise).  ``grads``: 0 no parameter gradients, 1 the
+    block's gradient slice in device memory, 2 in shared memory."""
+    d0, d1, d2, D = dims
+    n0, n1, n2, nD = (-(-d // CLUSTER_SIZE) for d in dims)  # widest slices
+    own = n0 + n1 + n2
+
+    def stride(width):  # a slice's row stride: the least 8 * odd that holds it
+        return 8 * (-(-width // 8) | 1)
+
+    weights = d0 * stride(n1) + d1 * stride(n2) + d2 * stride(nD)
+    # a feature's rows are kept at a pitch of whole float4s once a half of
+    # them holds a float4
+    pitch = -(-rows // 4) * 4 if rows >= 8 else rows
+    floats = (
+        (d0 + d1 + d2) * pitch             # relu(X), all columns
+        + (2 + (2 if warm else 0)) * own * pitch  # own X, errors, Adam moments
+        + nD * pitch                       # own S
+        + CLUSTER_SIZE * own * pitch       # the ranks' partial backward products
+        + weights + own + nD               # weight slices, own biases
+        + d0 + d1 + d2                     # every latent column's owner
+        + (weights if grads == 2 else 0)
+        + (own + nD if grads else 0)
+    )
+    return 4 * floats
+
+
+def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
+               max_clusters: int,
+               row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
+    """The packed kernel's plan for ``dims = (d0, d1, d2, D)`` and batch
+    ``B``, given ``budget`` bytes of dynamic shared memory a block and the
+    ``max_clusters`` the card runs at once (15 on an H100 SXM: its 132 SMs
+    come in groups of which one holds fewer than 16).
+
+    Rows a cluster: of the counts in ``CLUSTER_ROWS`` whose block fits the
+    budget, the one with the least ``waves * (rows + 8)``, where ``waves =
+    ceil(ceil(B / rows) / max_clusters)`` is how often the card must be
+    filled and 13 rows stand for what a step costs whatever its rows; ties go
+    to more rows.  At B=256 that is 18 rows: 15 clusters, one wave, 120 SMs
+    (16 rows would be 16 clusters and a second wave for the last one).  A
+    small batch takes few rows a cluster and so more SMs.  The gradient
+    slice is resident when it fits beside the weights at that row count,
+    else it stays in device memory.  Raises ``ValueError`` when not even two
+    rows fit."""
+    if B < 1 or max_clusters < 1:
+        raise ValueError("chain_plan needs a batch and a cluster count of at least 1")
+    dims = tuple(int(d) for d in dims)
+    options = (2, 1) if with_pgrads else (0,)
+    best = None
+    for rows in row_counts:
+        fits = [(g, chain_smem_bytes(dims, rows, warm, g)) for g in options]
+        fits = [(g, need) for g, need in fits if need <= budget]
+        if not fits:
+            continue
+        clusters = -(-B // rows)
+        cost = -(-clusters // max_clusters) * (rows + _ROW_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, rows, clusters) + fits[0]
+    if best is None:
+        least = chain_smem_bytes(dims, min(row_counts), warm, options[-1])
+        raise ValueError(
+            f"dims {dims} need {least} bytes of shared memory a block at "
+            f"{min(row_counts)} rows a cluster; the budget is {budget}")
+    _, rows, clusters, grads, need = best
+    return ChainPlan(
+        cluster_size=CLUSTER_SIZE, rows=rows, clusters=clusters,
+        slices=tuple(column_slices(d) for d in dims),
+        smem_bytes=need, grads_resident=grads == 2,
+    )
 
 
 def _prefix(packed: bool) -> str:
@@ -539,7 +671,7 @@ def _prefix(packed: bool) -> str:
 def _library(packed: bool = True) -> ctypes.CDLL:
     """The packed or unpacked kernel's library, built at first use, with its
     C signatures.  The packed library also holds the pass that sums the
-    blocks' partial gradients."""
+    partial gradients."""
     from . import _build
 
     name = _prefix(packed)
@@ -548,40 +680,130 @@ def _library(packed: bool = True) -> ctypes.CDLL:
     launch.restype = _I
     smem_bytes = getattr(lib, name + "_smem_bytes")
     smem_bytes.restype = _Z
+    budget = getattr(lib, name + "_smem_budget")
+    budget.restype = _I
     if packed:
-        launch.argtypes = [_P] * 19 + [_I] * 12 + [_F] * 9 + [_I, _I, _P]
-        smem_bytes.argtypes = [_I] * 6
+        launch.argtypes = ([_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 13 + [_F] * 9
+                           + [_I, _I, _Z, _P])
+        smem_bytes.argtypes = [_I] * 7
+        budget.argtypes = [_I]
+        lib.mcpc_chain_max_clusters.restype = _I
+        lib.mcpc_chain_max_clusters.argtypes = [_I, _Z]
+        for count in (lib.mcpc_chain_cluster_size, lib.mcpc_chain_phase_count):
+            count.restype = _I
+            count.argtypes = []
         lib.mcpc_sum_partials_launch.restype = _I
         lib.mcpc_sum_partials_launch.argtypes = [_P, _P, _I, _Z, _P]
     else:
         launch.argtypes = [_P] * 18 + [_I] * 9 + [_F] * 3 + [_I, _P]
         smem_bytes.argtypes = [_I] * 5
-    budget = getattr(lib, name + "_smem_budget")
-    budget.restype = _I
-    budget.argtypes = [_I, _I]
+        budget.argtypes = [_I, _I]
     error_string = getattr(lib, name + "_error_string")
     error_string.restype = ctypes.c_char_p
     error_string.argtypes = [_I]
     return lib
 
 
+def _error_message(err: int, packed: bool = True) -> str:
+    name = _prefix(packed)
+    return getattr(_library(packed), name + "_error_string")(err).decode()
+
+
 def _check_launch(err: int, packed: bool = True) -> None:
     if err != 0:
-        name = _prefix(packed)
-        msg = getattr(_library(packed), name + "_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"{_prefix(packed)} kernel launch failed: "
+                           f"{_error_message(err, packed)} ({err})")
 
 
-def kernel_rows(dims, warm: bool, device, packed: bool = True) -> int:
-    """Rows per block: the largest of 16, 8, 4, 2, 1 whose shared memory
-    fits one block on ``device``."""
-    lib, name = _library(packed), _prefix(packed)
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _on(index: int):
+    """A guard that makes CUDA device ``index`` current, or nothing where it
+    is: entering ``torch.cuda.device`` costs the host about half of what the
+    summing pass takes on the card, this check a quarter of that."""
+    return _NO_GUARD if index == torch.cuda.current_device() else torch.cuda.device(index)
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as the handle a launch
+    takes.  ``torch.cuda.current_stream`` builds a Stream object for it, at
+    as much host time as the device guard; where this PyTorch has the plain
+    getter, which costs next to nothing, that is used."""
+    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if getter is not None:
+        return getter(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _device_index(device) -> int:
     index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    extra = (int(warm),) if packed else ()
-    for rows in _KERNEL_ROWS:
-        need = getattr(lib, name + "_smem_bytes")(*dims, rows, *extra)
-        budget = getattr(lib, name + "_smem_budget")(index, rows)
+    return torch.cuda.current_device() if index is None else index
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_budget_of(index: int) -> int:
+    budget = _library().mcpc_chain_smem_budget(index)
+    if budget < 0:
+        raise RuntimeError("could not query the device's shared memory")
+    return budget
+
+
+def smem_budget(device) -> int:
+    """Bytes of dynamic shared memory one block of the packed kernel may use
+    on the CUDA ``device``: the ``budget`` of :func:`chain_plan`."""
+    return _smem_budget_of(_device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters_of(index: int, rows: int, smem_bytes: int) -> int:
+    with torch.cuda.device(index):
+        count = _library().mcpc_chain_max_clusters(rows, smem_bytes)
+    if count < 0:
+        raise RuntimeError("the cluster occupancy query failed: "
+                           f"{_error_message(-count)} ({-count})")
+    if count == 0:
+        raise RuntimeError(
+            f"the device cannot run one cluster of {CLUSTER_SIZE} blocks with "
+            f"{smem_bytes} bytes of shared memory a block")
+    return count
+
+
+def max_active_clusters(device, plan: tp.Optional[ChainPlan] = None) -> int:
+    """Clusters of the packed kernel that the CUDA ``device`` runs at once
+    (asked of CUDA once per shape): those of ``plan``, or without one
+    those of the largest block, the ``max_clusters`` of :func:`chain_plan`.
+    Raises when the device cannot run even one."""
+    index = _device_index(device)
+    if plan is None:
+        return _max_clusters_of(index, CLUSTER_ROWS[0], _smem_budget_of(index))
+    return _max_clusters_of(index, plan.rows, plan.smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan_of(index: int, dims, B: int, warm: bool, with_pgrads: bool,
+                    row_counts: tp.Tuple[int, ...]) -> ChainPlan:
+    return chain_plan(dims, B, warm=warm, with_pgrads=with_pgrads,
+                      budget=_smem_budget_of(index),
+                      max_clusters=max_active_clusters(index),
+                      row_counts=row_counts)
+
+
+def device_plan(c: _Chain, B: int, device,
+                row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
+    """:func:`chain_plan` of a validated call on the CUDA ``device``."""
+    return _device_plan_of(_device_index(device), c.dims, B, c.warm_T > 0,
+                           c.with_pgrads, tuple(row_counts))
+
+
+def unpacked_rows(dims, device) -> int:
+    """Rows per block of the unpacked kernel: the largest of 16, 8, 4, 2, 1
+    whose shared memory fits one block on ``device``."""
+    lib = _library(packed=False)
+    index = _device_index(device)
+    for rows in _UNPACKED_ROWS:
+        need = lib.mcpc_chain_unpacked_smem_bytes(*dims, rows)
+        budget = lib.mcpc_chain_unpacked_smem_budget(index, rows)
         if budget < 0:
             raise RuntimeError("could not query the device's shared memory")
         if need <= budget:
@@ -599,8 +821,9 @@ def sum_block_partials_reference(partials: Tensor) -> Tensor:
 
 
 def sum_block_partials(partials: Tensor) -> Tensor:
-    """Sum ``[n_blocks, n]`` per-block partial gradients over the blocks, in
-    block order: the second pass of the parameter gradients, which takes the
+    """Sum ``[n_blocks, n]`` partial gradients (one per cluster of the packed
+    kernel, one per block of the unpacked) over the blocks, in block order:
+    the second pass of the parameter gradients, which takes the
     place of the TPU kernel's accumulators carried across batch tiles
     (``pallas_mcpc.py``, ``pl.when(tile_i == 0)``).  CUDA tensors launch
     ``sum_partials_kernel`` (``csrc/mcpc_chain.cu``) or raise; CPU tensors
@@ -608,20 +831,19 @@ def sum_block_partials(partials: Tensor) -> Tensor:
     """
     if partials.dim() != 2 or partials.shape[0] < 1 or partials.shape[1] < 1:
         raise ValueError("sum_block_partials takes a [n_blocks, n] tensor")
-    if partials.device.type == "cpu":
+    device = partials.device
+    if device.type == "cpu":
         return sum_block_partials_reference(partials)
-    if partials.device.type != "cuda":
-        raise ValueError(
-            f"sum_block_partials runs on cpu or cuda, not {partials.device.type}")
+    if device.type != "cuda":
+        raise ValueError(f"sum_block_partials runs on cpu or cuda, not {device.type}")
     if partials.dtype != torch.float32:
         raise TypeError(f"sum_block_partials takes float32, got {partials.dtype}")
     partials = partials.contiguous()
     nblocks, n = partials.shape
-    out = torch.empty(n, dtype=torch.float32, device=partials.device)
-    with torch.cuda.device(partials.device):
-        stream = torch.cuda.current_stream(partials.device).cuda_stream
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    with _on(device.index):
         err = _library().mcpc_sum_partials_launch(
-            partials.data_ptr(), out.data_ptr(), nblocks, n, stream)
+            partials.data_ptr(), out.data_ptr(), nblocks, n, _raw_stream(device.index))
     _check_launch(err)
     sum_block_partials.launches += 1
     return out
@@ -630,7 +852,13 @@ def sum_block_partials(partials: Tensor) -> Tensor:
 sum_block_partials.launches = 0
 
 
-def _kernel(c: _Chain, params, latents, target):
+# the parts of a step that :func:`chain_phase_clocks` tells apart
+PHASES = ("forward", "gradients", "backward", "wait for partials", "update",
+          "wait for relu(x)")
+
+
+def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = None,
+            plan: tp.Optional[ChainPlan] = None):
     d0, d1, d2, D = c.dims
     device = latents[0].device
     tensors = list(latents) + [t for p in params for t in p.values()]
@@ -645,36 +873,44 @@ def _kernel(c: _Chain, params, latents, target):
     x0, x1, x2 = (x.contiguous() for x in latents)
     b0, b1, b2, b3 = (p["b"].contiguous() for p in params)
     w1, w2, w3 = (params[i]["w"].contiguous() for i in (1, 2, 3))
-    # transposed copies staged once per call, so the backward products
-    # read coalesced
-    w1t, w2t, w3t = (w.t().contiguous() for w in (w1, w2, w3))
     y = (target.contiguous() if target is not None
          else torch.zeros((B, D), dtype=torch.float32, device=device))
     outs = [torch.empty_like(x) for x in (x0, x1, x2)]
-    rows = kernel_rows(c.dims, c.warm_T > 0, device, c.packed)
-    blocks = -(-B // rows)
-    # every block zeroes and fills its own partial gradients
+    pointers = [t.data_ptr() for t in (x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3)]
+    if c.packed:
+        plan = device_plan(c, B, device) if plan is None else plan
+        max_active_clusters(device, plan)  # raises if not even one cluster runs
+        groups = plan.clusters
+    else:
+        rows = unpacked_rows(c.dims, device)
+        groups = -(-B // rows)
+        # transposed copies staged once per call, so the backward products
+        # read coalesced
+        transposed = [w.t().contiguous() for w in (w1, w2, w3)]
+        pointers += [w.data_ptr() for w in transposed]
+    # every cluster (unpacked: block) zeroes and fills its own partial gradients
     partials = None
     if c.with_pgrads:
-        partials = torch.empty((blocks, sum(_partial_sizes(c.dims))),
+        partials = torch.empty((groups, sum(_partial_sizes(c.dims))),
                                dtype=torch.float32, device=device)
     partials_ptr = None if partials is None else partials.data_ptr()
-    pointers = [t.data_ptr() for t in (
-        x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3, w1t, w2t, w3t)]
     lib = _library(c.packed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with _on(device.index):
+        stream = _raw_stream(device.index)
         if c.packed:
-            scal = torch.zeros((blocks, 2), dtype=torch.float64, device=device)
+            scal = torch.zeros((plan.blocks, 2), dtype=torch.float64, device=device)
+            bounds = plan.slice_bounds()
             err = lib.mcpc_chain_launch(
                 *pointers, scal.data_ptr(), partials_ptr,
+                None if clocks is None else clocks.data_ptr(),
+                (_I * len(bounds))(*bounds),
                 B, d0, d1, d2, D,
                 c.T, c.warm_T, _LOSS_CODES[c.loss], int(c.return_scalars),
-                c.mixing, int(c.warm_pgrads), rows,
+                c.mixing, int(c.warm_pgrads), plan.rows, int(plan.grads_resident),
                 c.inv_var, c.lr, c.noise_std,
                 c.warm_lr, c.warm_b1, c.warm_b2,
                 1.0 - c.warm_b1, 1.0 - c.warm_b2, c.warm_eps,
-                c.seed, c.tile, stream,
+                c.seed, c.tile, plan.smem_bytes, stream,
             )
         else:
             err = lib.mcpc_chain_unpacked_launch(
@@ -695,6 +931,27 @@ def _kernel(c: _Chain, params, latents, target):
     if partials is not None:
         pgrads = _pgrads_from_flat(sum_block_partials(partials), params, c.dims)
     return _result(tuple(outs), pgrads, scalars, c.return_scalars)
+
+
+def chain_phase_clocks(params, latents, target, seed, *,
+                       rows: tp.Optional[int] = None, **options) -> Tensor:
+    """Where the packed kernel's time goes: run :func:`mcpc_chain` on CUDA
+    tensors and return ``[blocks, len(PHASES)]`` int64 SM clocks, what
+    thread 0 of each block spent in each part of the steps (waits at the
+    barriers included), summed over the chain.  ``rows`` (one of
+    ``CLUSTER_ROWS``) forces the rows a cluster instead of the plan's own
+    choice.  A profiling aid: the chain's results are dropped."""
+    c = _chain_args(params, latents, target, seed, **options)
+    device = latents[0].device
+    if device.type != "cuda" or not c.packed:
+        raise ValueError("chain_phase_clocks times the packed kernel on CUDA tensors")
+    if _library().mcpc_chain_phase_count() != len(PHASES):
+        raise RuntimeError("PHASES does not name the kernel's phases")
+    plan = device_plan(c, latents[0].shape[0], device,
+                       CLUSTER_ROWS if rows is None else (rows,))
+    clocks = torch.zeros((plan.blocks, len(PHASES)), dtype=torch.int64, device=device)
+    _kernel(c, params, latents, target, clocks, plan)
+    return clocks
 
 
 def mcpc_chain(params, latents, target, seed, **options):

@@ -1,0 +1,99 @@
+"""Where a step of the packed chain kernel spends its SM clocks, on one GPU.
+
+    python3 scripts/chain_clocks.py [--steps 2000] [--batch 256] [--rows N]
+
+For both widths (20-128-128-784 and 10-256-256-784) and three chains (a
+Langevin chain, an Adam warm phase alone, a Langevin chain that takes the
+parameter gradients on every step) it runs ``chain_phase_clocks`` and prints
+the plan, the time per step (CUDA events around the call, median of 3 after
+a warm-up) and the clocks per step that thread 0 of a block spends in each
+phase, barrier waits included, averaged over the blocks.  ``--rows`` forces
+the rows a cluster (one of the wrapper's ``CLUSTER_ROWS``) instead of the
+plan's own choice: this is how the plan's rule for the rows was measured.
+Needs a CUDA device and nvcc; there is no CPU mode.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import montecarlopredictivecoding_tpu_torch as port  # noqa: E402
+
+chain = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
+
+WIDTHS = {"fid": (20, 128, 128, 784), "mse": (10, 256, 256, 784)}
+
+
+def event_ms(fn, reps: int = 3):
+    """(median ms of ``fn`` over ``reps`` calls after a warm-up, the last output)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=2000)
+    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--rows", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chain_clocks: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    row_counts = chain.CLUSTER_ROWS if args.rows is None else (args.rows,)
+    T = args.steps
+    chains = {
+        "langevin": dict(T=T, lr=0.01),
+        "warm": dict(T=0, warm_T=T, lr=0.01),
+        "langevin, gradients on every step": dict(T=T, lr=0.01, with_pgrads=True),
+    }
+    for width, dims in WIDTHS.items():
+        gen = torch.Generator().manual_seed(args.seed)
+        model = port.make_mlp_model(*dims)
+        params = model.init(gen, device=dev)
+        latents = model.init_latents(
+            params, torch.zeros(args.batch, dims[0], device=dev), gen)
+        target = (torch.rand(args.batch, dims[3], generator=gen) > 0.5).float().to(dev)
+        for name, kw in chains.items():
+            try:
+                plan = chain.device_plan(
+                    chain._chain_args(params, latents, target, 1, **kw), args.batch, dev,
+                    row_counts)
+            except ValueError as e:
+                print(f"{width} {name}: {e}")
+                continue
+            ms, clocks = event_ms(lambda: chain.chain_phase_clocks(
+                params, latents, target, 1, rows=args.rows, **kw))
+            per_step = (clocks.double().mean(dim=0) / T).tolist()
+            print(f"{width} {dims} B={args.batch} {name}: "
+                  f"{plan.describe(chain.max_active_clusters(dev, plan))}; "
+                  f"{1e3 * ms / T:.3f} us/step; SM clocks a step: "
+                  + ", ".join(f"{p} {c:.0f}" for p, c in zip(chain.PHASES, per_step))
+                  + f"; sum {sum(per_step):.0f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

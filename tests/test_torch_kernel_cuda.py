@@ -75,8 +75,22 @@ def _assert_pgrads_close(got, want, rel=1e-5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims,B,kw", [
     ((20, 128, 128, 784), 64, dict(T=30, mixing=10, warm_T=5, loss="bernoulli")),
-    # B not a multiple of the rows of a block: the last block has pad rows
+    # B not a multiple of the rows of a cluster: the last one has pad rows
     ((20, 128, 128, 784), 37, dict(T=20, mixing=5, loss="bernoulli")),
+    # one cluster with fewer rows than it holds
+    ((20, 128, 128, 784), 1, dict(T=20, mixing=5, warm_T=4, loss="bernoulli")),
+    ((20, 128, 128, 784), 8, dict(T=20, mixing=5, warm_T=4, loss="bernoulli")),
+    ((20, 128, 128, 784), 250, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    ((10, 256, 256, 784), 8, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    ((10, 256, 256, 784), 37, dict(T=12, mixing=4, loss="gaussian")),
+    ((10, 256, 256, 784), 250, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    # d0 = 10 over 8 ranks: slices of 2 and 1 columns
+    ((10, 128, 128, 784), 37, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    # d0 = 4 over 8 ranks: the last four ranks own no column of x0
+    ((4, 128, 128, 784), 37, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    ((4, 128, 128, 784), 256, dict(T=12, mixing=4, warm_T=4, loss="gaussian")),
+    ((4, 8, 8, 16), 5, dict(T=12, mixing=4, warm_T=4, loss="bernoulli")),
+    ((10, 256, 256, 784), 21, dict(T=0, warm_T=8, warm_pgrads=True)),
     ((20, 128, 128, 784), 40, dict(T=20, mixing=0, loss="gaussian", batch_tile=20)),
     ((10, 256, 256, 784), 30, dict(T=11, mixing=3, warm_T=3, loss="none")),
     ((20, 128, 128, 784), 21, dict(T=0, warm_T=8, warm_pgrads=True)),
@@ -103,6 +117,92 @@ def test_kernel_pgrads_match_plain_version(cuda_device, dims, B, kw):
     again = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
     for g, h in zip(a[1], again[1]):
         assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(20, 128, 128, 784), (10, 256, 256, 784)])
+def test_two_runs_of_a_training_chain_are_bit_identical(cuda_device, dims):
+    """The partial backward products are added in rank order and the
+    gradients without atomics, so nothing depends on the blocks' timing."""
+    params, latents, target = _case(dims, 250, cuda_device)
+    kw = dict(T=30, mixing=10, warm_T=10, warm_lr=0.7, lr=0.1, with_pgrads=True,
+              return_scalars=True)
+    a = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    b = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    for u, v in zip(a[0], b[0]):
+        assert torch.equal(u, v)
+    for g, h in zip(a[1], b[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+    for k in ("loss", "energy"):
+        assert torch.equal(a[2][k], b[2][k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,warm,with_pgrads", [
+    ((20, 128, 128, 784), True, True),
+    ((20, 128, 128, 784), False, False),
+    ((10, 256, 256, 784), True, True),
+    ((4, 8, 8, 16), True, True),
+])
+def test_plan_agrees_with_the_kernel_and_the_card_runs_it(cuda_device, dims, warm,
+                                                          with_pgrads):
+    plan = chain_mod.chain_plan(dims, 256, warm=warm, with_pgrads=with_pgrads,
+                                budget=chain_mod.smem_budget(cuda_device),
+                                max_clusters=chain_mod.max_active_clusters(cuda_device))
+    lib = chain_mod._library()
+    assert lib.mcpc_chain_cluster_size() == plan.cluster_size
+    grads = (2 if plan.grads_resident else 1) if with_pgrads else 0
+    assert lib.mcpc_chain_smem_bytes(*dims, plan.rows, int(warm), grads) == plan.smem_bytes
+    assert chain_mod.max_active_clusters(cuda_device, plan) >= 1
+
+
+@pytest.mark.cuda
+def test_launch_refuses_a_plan_the_kernel_was_not_sized_for(cuda_device):
+    """The shared-memory layout and the slices exist on both sides of the C
+    interface: a launch whose two sides disagree fails instead of running."""
+    import dataclasses
+    params, latents, target = _case((20, 128, 128, 784), 8, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 0, T=2, lr=0.1)
+    plan = chain_mod.device_plan(c, 8, cuda_device)
+    before = chain_mod.mcpc_chain.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chain_mod._kernel(c, params, latents, target,
+                          plan=dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 4))
+    uneven = ((0, 20),) + ((20, 20),) * 7   # one rank owns all of x0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chain_mod._kernel(c, params, latents, target, plan=dataclasses.replace(
+            plan, slices=(uneven,) + plan.slices[1:]))
+    assert chain_mod.mcpc_chain.launches == before
+    chain_mod._kernel(c, params, latents, target, plan=plan)
+    assert chain_mod.mcpc_chain.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_every_built_row_count_matches_the_plain_version(cuda_device, rows):
+    """The plan picks one row count a call; ``chain_phase_clocks`` can force
+    each, so every instantiation of the kernel is launched here."""
+    params, latents, target = _case((20, 128, 128, 784), 37, cuda_device)
+    assert rows in chain_mod.CLUSTER_ROWS
+    kw = dict(T=9, warm_T=3, lr=0.03)
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+    assert plan.rows == rows
+    got, _ = chain_mod._kernel(c, params, latents, target, plan=plan)
+    want, _ = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    for u, v in zip(got, want):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks,n", [(16, 120356), (1, 1000), (7, 30001), (40, 4100)])
+def test_sum_block_partials_shapes(cuda_device, nblocks, n):
+    """float4 body, scalar body (n not a multiple of 4), more partials than
+    one group of loads."""
+    gen = torch.Generator().manual_seed(1)
+    partials = (torch.randn(nblocks, n, generator=gen) * 1e3).to(cuda_device)
+    got = chain_mod.sum_block_partials(partials)
+    assert torch.equal(got, chain_mod.sum_block_partials_reference(partials))
 
 
 @pytest.mark.cuda
