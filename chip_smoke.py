@@ -18,6 +18,16 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, on
          ``device_ms``).  Each line prints the
          packed kernel's plan: cluster size, rows a cluster, clusters, SMs
          at work, shared memory a block, gradient slice resident or not.
+Phase 1  also holds the chain's options against the plain version, at full
+(options) width and B=37 (the last cluster has pad rows), on chains of 200 Adam
+         steps and 500 Langevin steps: captures of the Langevin phase and of
+         a warm-only chain, per-step scalars every 7 steps in both phases,
+         the masked Bernoulli loss at perc 0.5 (with gradients) and at a perc
+         that rounds to 0 (all columns), the Adam moments handed out, a
+         continuation from given moments, and a warm phase split into three
+         calls that hand the moments on, against one call; then, at B=1024
+         (4 waves of 18-row clusters), a masked, captured Langevin chain and
+         a short Adam chain that hands its moments out.
 Phase 2  drives the serving path at full width through the entry points a
          user calls: ``get_model`` -> ``get_mnist_data`` -> ``init_latents``
          -> ``mcpc_chain``, for (a) the bench chain (B=256, T=10000,
@@ -44,6 +54,24 @@ Phase 3  drives the training path at full width: ``get_model`` ->
          split inside the kernel, by its own clocks, is
          ``scripts/chain_clocks.py``.)
 
+Phase 4  drives the figure-2 masked-digit posterior (panels c, d) at full
+         width through ``PCTrainer``: ``experiments/figure_2.py``'s
+         ``posterior_non_linear_model`` with the ``models/mcpc_ml_2.msgpack``
+         checkpoint (20-128-128-784): the linear probe on 2 batches of 1024
+         (2000 Adam MAP steps each), the PC posterior of up to 16 masked 4s
+         (2000 Adam steps, every step captured) and the MCPC posterior from
+         there (1000 + 9000 Langevin steps, masked at 0.5, every step
+         captured).  The counts are zeroed just before and read just after;
+         every ``train_on_batch`` must take the kernel (no engine call), and
+         the posteriors must be finite rows that sum to 1.  It prints each
+         call's time (CUDA events), microseconds a step and how much of it
+         the ``mcpc_chain`` call took.  A stand-in for ``mcpc_chain`` keeps
+         each call's inputs and options; afterwards each chain runs again on
+         them (the same bits as in the figure) and is held against the plain
+         version in f32 and float64 like phase 1, at its full length and cut
+         to 200 warm and 500 Langevin steps.  Last, it times the MCPC chain
+         alone with and without its captures.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -59,6 +87,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -80,6 +110,23 @@ CHAIN_B = dict(T=10000, lr=0.03, noise_var=2.0, loss="bernoulli",
                warm_T=2000, warm_lr=0.1)
 CHAIN_C = dict(T=1000, lr=0.01, noise_var=2.0, loss="bernoulli", packed=False)
 TRAIN_BATCHES = 40
+# the options' check: 200 Adam steps and 500 Langevin steps at B=37
+OPT_B = 37
+OPT_CHAIN = dict(warm_T=200, warm_lr=0.1, T=500, lr=0.03, noise_var=2.0)
+# and at figure 2's probe batch, 57 clusters of 18 rows in 4 waves, on
+# chains of 20 steps: at B=1024 a few rows amplify a rounding difference
+# into 1e-3..1e-2 after 31 to 281 Langevin steps, in either f32 version
+# (scripts/chain_error_growth.py), which no allowance of the kernel's own
+# error can tell from a fault; before that every row sits at rounding size
+WIDE_B = 1024
+WIDE_CASES = [
+    ("Langevin phase, masked perc 0.5, every step captured",
+     dict(T=20, lr=0.03, noise_var=2.0, loss="bernoulli_mask", mask_perc=0.5,
+          capture_stride=1, return_scalars=True)),
+    ("20 Adam steps, moments handed out, scalars every 3 steps",
+     dict(T=0, warm_T=20, warm_lr=0.1, lr=0.1, noise_var=None, emit_warm_opt_state=True,
+          scalar_stride=3, return_scalars=True)),
+]
 
 # Tolerances.  Phase 1 holds a kernel against the plain version run in
 # float64 on the same inputs: the kernel may sit at most P1_ATOL (latents) /
@@ -98,6 +145,7 @@ TRAIN_BATCHES = 40
 # least P3_CLEAR of the tensor's largest: Adam's first step is lr*sign(g),
 # so an entry whose gradient is only rounding noise may differ by 2*lr.
 P1_ATOL, P1_RTOL, P1_GRAD_REL = 1e-4, 1e-5, 2e-5
+P1_MOMENT_REL = 2e-5   # Adam moments, relative to their tensor's largest entry
 P2_ATOL, P2_RTOL = 2e-3, 1e-4
 P3_CLEAR, P3_PARAM_ATOL = 1e-3, 1e-6
 
@@ -198,8 +246,78 @@ def to_double(params, latents, target):
             tuple(x.double() for x in latents), target.double())
 
 
+def moment_rel(ma, mb) -> float:
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(ma, mb))
+
+
+def option_parts(out, kw) -> dict:
+    """The named parts of a chain's result: latents, pgrads and, with their
+    options, the trajectory, the scalars and the Adam moments."""
+    parts, rest = {"latents": out[0], "pgrads": out[1]}, list(out[2:])
+    for name, on in (("traj", kw.get("capture_stride")), ("scalars", kw.get("return_scalars")),
+                     ("moments", kw.get("emit_warm_opt_state"))):
+        if on:
+            parts[name] = rest.pop(0)
+    return parts
+
+
 def grads_equal(torch, ga, gb) -> bool:
     return all(torch.equal(a[k], b[k]) for a, b in zip(ga, gb) for k in ("w", "b"))
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Two results' parts (tensors, or tuples, lists and dicts of them, or
+    None) hold the same bits."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(bits_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bits_equal(torch, x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a, b)
+
+
+class ChainRecorder:
+    """Stands in for ``ops.mcpc_chain.mcpc_chain`` while phase 4 runs: it
+    keeps a copy of each call's inputs and options, its result but the
+    trajectory (so the caching allocator sees what it sees without the
+    recorder), the CUDA events around the call and the device-memory
+    segments the call had to allocate, and calls the wrapper.  The wrapper
+    counts a launch on the module's ``mcpc_chain``, which is this object
+    while it stands in, so its ``launches`` attributes are the wrapper's
+    own."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+    launches_unpacked = property(lambda self: self.fn.launches_unpacked,
+                                 lambda self, n: setattr(self.fn, "launches_unpacked", n))
+
+    def _segments(self) -> int:
+        return self.torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    def __call__(self, params, latents, target, seed, **kw):
+        def copy(xs):
+            return tuple(x.clone() for x in xs)
+
+        kept = dict(kw, **{k: copy(kw[k]) for k in ("warm_mu", "warm_nu")
+                           if kw.get(k) is not None})
+        inputs = (tuple({k: v.clone() for k, v in p.items()} for p in params),
+                  copy(latents), None if target is None else target.clone(), seed)
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        segments = self._segments()
+        start.record()
+        out = self.fn(params, latents, target, seed, **kw)
+        end.record()
+        parts = option_parts(out, kw)
+        parts.pop("traj", None)
+        self.calls.append(dict(inputs=inputs, kw=kept, parts=parts, events=(start, end),
+                               new_segments=self._segments() - segments))
+        return out
 
 
 def main() -> int:
@@ -212,7 +330,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     port = importlib.import_module("montecarlopredictivecoding_tpu_torch")
-    from montecarlopredictivecoding_tpu_torch.core.optim import adam_init, adam_step
+    from montecarlopredictivecoding_tpu_torch.core.optim import apply_updates
     from montecarlopredictivecoding_tpu_torch.data import get_mnist_data
     from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
     from montecarlopredictivecoding_tpu_torch.models import get_model
@@ -363,6 +481,103 @@ def main() -> int:
           f"{sum_bound:.5f} ms (bytes) {tag}")
     check(sum_err == 0.0, f"phase 1: sum_block_partials differs by {sum_err}")
 
+    # the chain's options, against the plain version in f32 and float64: each
+    # part may sit at most its allowance further from float64 than the plain
+    # f32 version does
+    params, latents, target = random_case(FID, OPT_B)
+    draw_m = torch.Generator().manual_seed(SEED + 3)
+    mu = tuple((0.1 * torch.randn(x.shape, generator=draw_m)).to(dev) for x in latents)
+    nu = tuple((0.01 * torch.rand(x.shape, generator=draw_m)).to(dev) for x in latents)
+    warm_only = dict(OPT_CHAIN, T=0)
+    option_cases = [
+        ("captures, Langevin phase", dict(OPT_CHAIN, capture_stride=1, return_scalars=True)),
+        ("captures, warm-only chain", dict(warm_only, capture_stride=1, return_scalars=True)),
+        ("scalar_stride 7, Langevin phase",
+         dict(OPT_CHAIN, scalar_stride=7, return_scalars=True)),
+        ("scalar_stride 7, warm-only chain",
+         dict(warm_only, scalar_stride=7, return_scalars=True)),
+        ("masked bernoulli perc 0.5, gradients over the last 100 steps",
+         dict(OPT_CHAIN, loss="bernoulli_mask", mask_perc=0.5, return_scalars=True,
+              with_pgrads=True, mixing=400)),
+        ("masked bernoulli perc 0.0001 (rounds to 0: all columns)",
+         dict(OPT_CHAIN, loss="bernoulli_mask", mask_perc=0.0001, return_scalars=True)),
+        ("emit_warm_opt_state", dict(OPT_CHAIN, emit_warm_opt_state=True,
+                                     return_scalars=True)),
+        ("continuation from given moments, warm_count 7",
+         dict(OPT_CHAIN, warm_mu=mu, warm_nu=nu, warm_count=7, emit_warm_opt_state=True,
+              return_scalars=True, capture_stride=5)),
+    ]
+    _, offs, XW = chain.aligned_layout(FID[:3])
+    pad_lanes = torch.ones(XW, dtype=torch.bool, device=dev)
+    for o, d in zip(offs, FID[:3]):
+        pad_lanes[o : o + d] = False
+
+    def held(name, got, ref, ref64, kw):
+        """Compare every part of a result: (the report, what failed)."""
+        gp, rp, r64 = (option_parts(o, kw) for o in (got, ref, ref64))
+        line, failed = [], []
+        for part, err, allow in (("latents", max_abs, P1_ATOL), ("traj", max_abs, P1_ATOL),
+                                 ("scalars", scalar_rel, P1_RTOL),
+                                 ("pgrads", grad_rel, P1_GRAD_REL),
+                                 ("moments", moment_rel, P1_MOMENT_REL)):
+            if part not in gp or gp[part] is None:
+                continue
+            if part == "traj":
+                a, b, c = ([x] for x in (gp[part], rp[part], r64[part]))
+                if bool(gp[part][:, :, pad_lanes].any()):
+                    failed.append(f"{name}: pad lanes of the trajectory are not 0")
+            else:
+                a, b, c = gp[part], rp[part], r64[part]
+            e, e64, p64 = err(a, b), err(a, c), err(b, c)
+            line.append(f"{part} kernel-plain {e:.3e}, kernel-plain64 {e64:.3e}, "
+                        f"plain-plain64 {p64:.3e} (allowance {allow})")
+            if not e64 <= p64 + allow:
+                failed.append(f"{name}: {part} {e64} from float64, plain f32 {p64}")
+        return "; ".join(line), failed
+
+    def doubled(kw):
+        return {k: tuple(m.double() for m in v) if k in ("warm_mu", "warm_nu") else v
+                for k, v in kw.items()}
+
+    option_inputs = {OPT_B: (params, latents, target), WIDE_B: random_case(FID, WIDE_B)}
+    for name, B, kw in ([(n, OPT_B, kw) for n, kw in option_cases]
+                        + [(n, WIDE_B, kw) for n, kw in WIDE_CASES]):
+        p_in, l_in, t_in = option_inputs[B]
+        got = chain.mcpc_chain(p_in, l_in, t_in, SEED, **kw)
+        torch.cuda.synchronize()
+        ref = chain.mcpc_chain_reference(p_in, l_in, t_in, SEED, **kw)
+        ref64 = chain.mcpc_chain_reference(*to_double(p_in, l_in, t_in), SEED, **doubled(kw))
+        if kw.get("scalar_stride"):
+            n_slots = chain.scalar_slots(kw["T"], kw["warm_T"], kw["scalar_stride"])
+            check(option_parts(got, kw)["scalars"]["loss"].shape == (n_slots,),
+                  f"phase 1 {name}: not {n_slots} scalar slots")
+        text, failed = held(name, got, ref, ref64, kw)
+        print(f"phase 1: {name}: B={B} warm {kw.get('warm_T', 0)} + T {kw['T']} "
+              f"[{plan_text(FID, B, kw)}] {text}")
+        check(not failed, "phase 1 " + "; ".join(failed))
+        del got, ref, ref64
+    del option_inputs
+
+    # a warm phase in three calls that hand the Adam state on, against one call
+    one_kw = dict(warm_only, emit_warm_opt_state=True)
+    ref = chain.mcpc_chain_reference(params, latents, target, SEED, **one_kw)
+    ref64 = chain.mcpc_chain_reference(*to_double(params, latents, target), SEED, **one_kw)
+    lat, count, state = latents, 0, None
+    for steps in (60, 70, 70):
+        extra = {}
+        if state is not None:
+            extra = dict(warm_count=count, **{
+                key: tuple(m[:, o : o + d] for o, d in zip(offs, FID[:3]))
+                for key, m in zip(("warm_mu", "warm_nu"), state)})
+        lat, _, state = chain.mcpc_chain(params, lat, target, SEED,
+                                         **dict(one_kw, warm_T=steps), **extra)
+        count += steps
+    torch.cuda.synchronize()
+    text, failed = held("continuation in three calls", (lat, None, state), ref, ref64, one_kw)
+    print(f"phase 1: warm phase of 200 steps in three calls (60 + 70 + 70) handing the "
+          f"Adam state on, against one call: B={OPT_B} {text}")
+    check(not failed, "phase 1 " + "; ".join(failed))
+
     # ---------------------------------------------------------- phase 2
     gen_model = get_model(MODEL_CONFIG, SEED, device=dev)
     params = gen_model.params
@@ -444,7 +659,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 3
     config = train_mnist.mcpc_training_config()
-    sampling, lr_p = config["sampling"], config["optimizer_p_kwargs_mcpc"]["lr"]
+    sampling = config["sampling"]
     train_steps = config["T_pc"] + config["mixing"] + sampling
     trainee = get_model(config, SEED, device=dev)
     train, _, _ = get_mnist_data(config, device=dev)
@@ -457,7 +672,8 @@ def main() -> int:
         return float(chain.mcpc_chain(p, latents, data, SEED, **infer)[2]["loss"])
 
     draw = torch.Generator().manual_seed(SEED + 2)
-    params_t, opt_state = trainee.params, adam_init(trainee.params)
+    param_opt = train_mnist.param_optimizer(config)
+    params_t, opt_state = trainee.params, param_opt.init(trainee.params)
     first, batch_ms = None, []
     zero_counts()
     loss_before = test_loss(params_t)
@@ -527,21 +743,22 @@ def main() -> int:
     check(g64 <= p_g64 + P1_GRAD_REL,
           f"phase 3: gradients {g64} from float64, plain f32 {p_g64}")
     scale = sampling * BATCH
-    want, _ = adam_step(p0_64, tuple({k: v / scale for k, v in gr.items()}
-                                     for gr in ref64[1]), adam_init(p0_64), lr_p)
-    worst, held, total = 0.0, 0, 0
+    updates64, _ = param_opt.update(tuple({k: v / scale for k, v in gr.items()}
+                                          for gr in ref64[1]), param_opt.init(p0_64), p0_64)
+    want = apply_updates(p0_64, updates64)
+    worst, n_clear, total = 0.0, 0, 0
     for new, exact, gr in zip(p1, want, ref64[1]):
         for k in ("w", "b"):
             clear = gr[k].abs() >= P3_CLEAR * gr[k].abs().max()
-            held += int(clear.sum())
+            n_clear += int(clear.sum())
             total += clear.numel()
             if bool(clear.any()):
                 worst = max(worst, float((new[k].double() - exact[k])[clear].abs().max()))
     print(f"phase 3: first batch, updated parameters vs the float64 plain version on the "
-          f"{held} of {total} entries whose gradient is at least {P3_CLEAR} of its "
+          f"{n_clear} of {total} entries whose gradient is at least {P3_CLEAR} of its "
           f"tensor's largest: max|d|={worst:.3e} (atol {P3_PARAM_ATOL})")
-    check(held > total // 2 and worst <= P3_PARAM_ATOL,
-          f"phase 3: updated parameters differ by {worst} on {held} entries")
+    check(n_clear > total // 2 and worst <= P3_PARAM_ATOL,
+          f"phase 3: updated parameters differ by {worst} on {n_clear} entries")
 
     # where a training batch's time goes: the chain alone, with and without
     # the sampling steps' gradients, and its warm phase alone
@@ -565,7 +782,146 @@ def main() -> int:
           f"{1e3 * (chain_pg_ms - chain_nopg_ms) / sampling:.3f} us each; the Adam step and "
           f"the rest of one_batch {train_ms - chain_pg_ms:.3f} ms {tag}")
 
-    launches = [s + t for s, t in zip(serve_counts, train_counts)]
+    # ---------------------------------------------------------- phase 4
+    from montecarlopredictivecoding_tpu_torch.core.trainer import PCTrainer
+    from montecarlopredictivecoding_tpu_torch.experiments import common, figure_2
+
+    check(os.path.isfile(os.path.join(here, "models", "mcpc_ml_2.msgpack")),
+          "models/mcpc_ml_2.msgpack is missing")
+    ctx = common.ExperimentContext(os.path.join(here, "models"),
+                                   os.path.join(here, "build", "chip_smoke", "figures"),
+                                   scale=1.0, device="cuda")
+    fig_config = figure_2._mnist_config(ctx)
+    calls = []
+    train_on_batch = PCTrainer.train_on_batch
+
+    def timed(self, inputs, *args, **kwargs):
+        """PCTrainer.train_on_batch between two CUDA events, with the path
+        it took."""
+        kernel_before = self.kernel_calls
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_on_batch(self, inputs, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        calls.append(dict(trainer=self, B=inputs.shape[0], steps=self.T,
+                          mode=self.opt_x_spec.name, ms=start.elapsed_time(end),
+                          kernel=self.kernel_calls > kernel_before))
+        return out
+
+    recorder = ChainRecorder(torch, chain.mcpc_chain)
+    PCTrainer.train_on_batch = timed
+    chain.mcpc_chain = recorder
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t_fig = time.perf_counter()
+        preds_pc, preds_mc = figure_2.posterior_non_linear_model(ctx, img_kept=0.5)
+        torch.cuda.synchronize()
+        fig_s = time.perf_counter() - t_fig
+        fig_counts = read_counts()
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+        chain.mcpc_chain = recorder.fn
+    trainers = {id(c["trainer"]): c["trainer"] for c in calls}.values()
+    fallbacks = sum(t.engine_calls for t in trainers)
+    print(f"phase 4: main path launches: mcpc_chain {fig_counts[0]}, "
+          f"sum_block_partials {fig_counts[2]}; PCTrainer calls {len(calls)}, "
+          f"engine fallbacks {fallbacks}")
+    check(fig_counts[0] > 0, "the figure-2 path did not launch the mcpc_chain kernel")
+    check(fallbacks == 0 and all(c["kernel"] for c in calls),
+          "a figure-2 PCTrainer call ran in the step engine")
+    check(fig_counts[0] == len(calls), f"{fig_counts[0]} launches for {len(calls)} calls")
+    labels = ["probe MAP, batch 1", "probe MAP, batch 2", "PC posterior", "MCPC posterior"]
+    check(len(calls) == len(labels), f"{len(calls)} PCTrainer calls, expected {len(labels)}")
+    check(len(recorder.calls) == len(calls),
+          f"{len(recorder.calls)} chain calls for {len(calls)} PCTrainer calls")
+    for label, c, rec in zip(labels, calls, recorder.calls):
+        chain_call_ms = rec["events"][0].elapsed_time(rec["events"][1])
+        print(f"phase 4: {label}: B={c['B']}, {c['steps']} {c['mode']} steps, "
+              f"{c['ms']:.3f} ms, {1e3 * c['ms'] / c['steps']:.3f} us/step, bound "
+              f"{chain_bound_ms(FID, c['B'], c['steps']):.3f} ms; of the call, mcpc_chain "
+              f"{chain_call_ms:.3f} ms (it allocated {rec['new_segments']} new device-memory "
+              f"segments) and the trainer's own work around it "
+              f"{c['ms'] - chain_call_ms:.3f} ms {tag}")
+
+    # every chain of the figure against the plain version on its own inputs,
+    # in f32 and float64, at its full length and cut to 200 warm and 500
+    # Langevin steps: phase 1's rule for each part.  The full-length run
+    # repeats the figure's launch, which must give the same bits (all but
+    # the trajectory were kept), and is held against the plain version with
+    # its trajectory
+    fig_failed = []
+    for label, rec in zip(labels, recorder.calls):
+        params_r, lat_r, target_r, seed_r = rec["inputs"]
+        kw = rec["kw"]
+        shown = {k: v for k, v in kw.items() if k not in ("warm_mu", "warm_nu")}
+        print(f"phase 4: {label}: the trainer's mcpc_chain options {shown}")
+        again = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **kw)
+        again_parts = option_parts(again, kw)
+        again_parts.pop("traj", None)
+        same = bits_equal(torch, again_parts, rec["parts"])
+        if not same:
+            fig_failed.append(f"{label}: the repeated launch differs from the figure's")
+        plain_ms, ref = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
+            params_r, lat_r, target_r, seed_r, **kw), reps=1, warm_up=False)
+        ref64 = chain.mcpc_chain_reference(*to_double(params_r, lat_r, target_r), seed_r,
+                                           **doubled(kw))
+        text, failed = held(f"{label}, full length", again, ref, ref64, kw)
+        print(f"phase 4: {label}, full length: the repeated launch gives the figure's bits: "
+              f"{same}; against the plain version: {text}; the plain version "
+              f"{plain_ms:.3f} ms {tag}")
+        fig_failed += failed
+        del again, ref, ref64
+        short = dict(kw, warm_T=min(kw.get("warm_T", 0), 200), T=min(kw["T"], 500))
+        short["mixing"] = min(kw.get("mixing", 0), short["T"])
+        got = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **short)
+        ref = chain.mcpc_chain_reference(params_r, lat_r, target_r, seed_r, **short)
+        ref64 = chain.mcpc_chain_reference(*to_double(params_r, lat_r, target_r), seed_r,
+                                           **doubled(short))
+        text, failed = held(f"{label}, cut", got, ref, ref64, short)
+        print(f"phase 4: {label}, cut to warm {short['warm_T']} + T {short['T']}, against "
+              f"the plain version: {text}")
+        fig_failed += failed
+        del got, ref, ref64
+    check(not fig_failed, "phase 4 " + "; ".join(fig_failed))
+    n_img = preds_pc.shape[1]
+    check(preds_pc.shape == (fig_config["T_pc"], n_img, 10) and 1 <= n_img <= 16,
+          f"preds_pc is {preds_pc.shape}")
+    check(preds_mc.shape == (fig_config["sampling"], n_img, 10),
+          f"preds_mc is {preds_mc.shape}")
+    rows_err = 0.0
+    for p in (preds_pc, preds_mc):
+        check(bool(np.isfinite(p).all()), "a figure-2 posterior is not finite")
+        rows_err = max(rows_err, float(np.abs(p.sum(-1) - 1.0).max()))
+    check(rows_err <= 1e-5, f"posterior rows sum to 1 within {rows_err}")
+    pc_final, mc_mean = preds_pc[-1].mean(0), preds_mc.mean((0, 1))
+    print(f"phase 4: figure 2 (c, d) at full width: {n_img} masked 4s, preds_pc "
+          f"{tuple(preds_pc.shape)}, preds_mc {tuple(preds_mc.shape)}, finite, rows sum "
+          f"to 1 within {rows_err:.1e}; mean P(4): PC MAP {pc_final[4]:.3f}, MCPC "
+          f"{mc_mean[4]:.3f}; the whole computation {fig_s:.3f} s (data and the probe's "
+          f"training included; PCTrainer calls {sum(c['ms'] for c in calls) / 1e3:.3f} s) "
+          f"{tag}")
+    # the MCPC posterior's chain alone, with and without its captures
+    fig_params = common.load_generative_checkpoint(ctx, "mcpc_ml_2", fig_config).params
+    lat16 = gen_model.model.init_latents(fig_params, torch.zeros(n_img, 20, device=dev),
+                                         torch.Generator().manual_seed(SEED + 4))
+    _, _, fig_test = get_mnist_data(fig_config, device=dev)
+    y16 = next(iter(fig_test))[0][:n_img]
+    mc_kw = dict(T=fig_config["mixing"] + fig_config["sampling"],
+                 lr=fig_config["optimizer_x_kwargs_mcpc"]["lr"], noise_var=2.0,
+                 loss="bernoulli_mask", mask_perc=0.5, return_scalars=True)
+    cap_ms, _ = cuda_ms(torch, lambda: chain.mcpc_chain(fig_params, lat16, y16, SEED,
+                                                        capture_stride=1, **mc_kw))
+    nocap_ms, _ = cuda_ms(torch, lambda: chain.mcpc_chain(fig_params, lat16, y16, SEED,
+                                                          **mc_kw))
+    print(f"phase 4: the MCPC posterior's chain alone, B={n_img}, {mc_kw['T']} steps "
+          f"[{plan_text(FID, n_img, mc_kw)}]: every step captured {cap_ms:.3f} ms "
+          f"(the trajectory's scalars recomputed included), no capture {nocap_ms:.3f} ms, "
+          f"{1e3 * nocap_ms / mc_kw['T']:.3f} us/step {tag}")
+
+    launches = [s + t + f for s, t, f in zip(serve_counts, train_counts, fig_counts)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

@@ -2,8 +2,9 @@
 JAX package beside it in this repository.
 
 Same subpackages and module names as the JAX package, so each part has a
-findable counterpart.  Plain tensor code is PyTorch; the fused MCPC chain
-(``ops.mcpc_chain``) runs as a hand-written CUDA kernel for Hopper
+findable counterpart.  Plain tensor code is PyTorch.  ``PCTrainer`` runs a
+configuration in the general step engine or, where it can, in the fused MCPC
+chain (``ops.mcpc_chain``), which runs as a hand-written CUDA kernel for Hopper
 (``ops/csrc/mcpc_chain.cu``) on CUDA tensors and as its plain PyTorch
 version on CPU tensors.  Entry points default to ``device="cuda"``; pass
 ``device="cpu"`` to run on the CPU.  This package imports neither JAX nor
@@ -17,7 +18,9 @@ from .core import (
     GenerativeModel,
     LangevinStep,
     Linear,
+    OptimizerSpec,
     PCModel,
+    PCTrainer,
     bernoulli_fn,
     bernoulli_fn_mask,
     fe_fn,

@@ -1,3 +1,4 @@
+from .engine import EngineConfig, EngineState, build_train_on_batch
 from .losses import bernoulli_fn, bernoulli_fn_mask, fe_fn, fe_fn_mask, zero_fn
 from .model import PCModel, make_mlp_model
 from .modules import (
@@ -14,9 +15,14 @@ from .modules import (
     scaled_gaussian_energy,
     uniform_init,
 )
-from .trainer import GenerativeModel, LangevinStep
+from .optim import OptimizerSpec
+from .schedule import SchedulePlan, build_plan, parse_schedule
+from .trainer import GenerativeModel, LangevinStep, PCTrainer
 
 __all__ = [
+    "EngineConfig",
+    "EngineState",
+    "build_train_on_batch",
     "bernoulli_fn",
     "bernoulli_fn_mask",
     "fe_fn",
@@ -36,6 +42,11 @@ __all__ = [
     "sample_x_fn_normal",
     "scaled_gaussian_energy",
     "uniform_init",
+    "OptimizerSpec",
+    "SchedulePlan",
+    "build_plan",
+    "parse_schedule",
     "GenerativeModel",
     "LangevinStep",
+    "PCTrainer",
 ]

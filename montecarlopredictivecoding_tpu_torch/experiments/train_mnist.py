@@ -29,7 +29,7 @@ import typing as tp
 import torch
 
 from ..core.losses import bernoulli_fn
-from ..core.optim import AdamState, adam_init, adam_step
+from ..core.optim import OptimizerSpec, Transform, apply_updates
 from ..data import get_mnist_data
 from ..models.factory import get_model
 from ..ops.mcpc_chain import mcpc_chain
@@ -97,7 +97,13 @@ def chain_options(config: dict, langevin_var: tp.Optional[float] = 2.0) -> dict:
     )
 
 
-def one_batch(params, opt_state: AdamState, latents, seed: int, data, *,
+def param_optimizer(config: dict) -> Transform:
+    """The parameters' optimizer, ``optax.adam`` at the config's lr:
+    ``init(params)`` makes the state :func:`one_batch` takes."""
+    return OptimizerSpec("adam", lr=config["optimizer_p_kwargs_mcpc"]["lr"]).make()
+
+
+def one_batch(params, opt_state, latents, seed: int, data, *,
               config: dict, langevin_var: tp.Optional[float] = 2.0):
     """One training batch, pure: the fused warm + chain call with parameter
     gradients from ``latents`` (a tuple ``(x0, x1, x2)``) and the noise seed
@@ -107,8 +113,8 @@ def one_batch(params, opt_state: AdamState, latents, seed: int, data, *,
                            **chain_options(config, langevin_var))
     scale = config["sampling"] * data.shape[0]
     grads = tuple({k: v / scale for k, v in g.items()} for g in pgrads)
-    return adam_step(params, grads, opt_state,
-                     config["optimizer_p_kwargs_mcpc"]["lr"])
+    updates, opt_state = param_optimizer(config).update(grads, opt_state, params)
+    return apply_updates(params, updates), opt_state
 
 
 def train_mcpc(
@@ -150,7 +156,7 @@ def train_mcpc(
     config = apply_preset(mcpc_training_config(), preset, "mcpc")
     train, _, _ = get_mnist_data(config, seed=seed, device=device)
     gen = get_model(config, seed, device=device)
-    opt_state = adam_init(gen.params)
+    opt_state = param_optimizer(config).init(gen.params)
 
     def snap(tag):
         path = out + (f"_epoch{tag}" if tag is not None else "")

@@ -1,3 +1,13 @@
-from .factory import get_model
+from .factory import (
+    get_mcpc_trainer,
+    get_mcpc_trainer_one_sample,
+    get_model,
+    get_pc_trainer,
+)
 
-__all__ = ["get_model"]
+__all__ = [
+    "get_mcpc_trainer",
+    "get_mcpc_trainer_one_sample",
+    "get_model",
+    "get_pc_trainer",
+]

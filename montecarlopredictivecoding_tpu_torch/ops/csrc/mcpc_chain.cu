@@ -5,8 +5,12 @@
 // warm phase (warm_step: Adam MAP steps on the latents), the Langevin phase
 // (step -> eval_grads, box_muller), the final-step scalars (scal_sums) and
 // the Hebbian parameter gradients (accum_pgrads, with_pgrads / warm_pgrads,
-// summed across batch tiles).  Activation relu; sensory loss bernoulli,
-// gaussian or none.
+// summed across batch tiles), the per-step scalar slots (emit_scal_slot,
+// scalar_stride), the trajectory captures (capture_stride, the make_async_copy
+// into traj_ref), the masked losses (_loss_mask, mask_k) and the Adam-state
+// hand-off (emit_warm_opt_state, warm_init with m_in / v_in / bias0).
+// Activation relu; sensory loss bernoulli, gaussian or none, each optionally
+// masked.
 //
 // What it computes, per batch row (rows never read each other on this path):
 //
@@ -86,6 +90,36 @@
 // in device memory.  A second kernel, sum_partials_kernel, adds the
 // clusters' partials in cluster order.  Rows that only pad the last cluster
 // are skipped in every sum.
+//
+// Options.  Each is a branch on a ChainArgs field (a null pointer or 0 means
+// off).  Every option also sits behind a template flag, OPT, and the launch
+// picks the instantiation, so a chain that uses none runs the kernel without
+// their code.  With runtime branches only, ptxas showed no spill and about
+// the same registers, yet such chains ran 5-6% slower (B=256, T=10000:
+// 122.6-123.5 against 116.5-116.6 ms in one chip_smoke.py call on an NVIDIA
+// H100 80GB HBM3 at 700 W); with the step loop's options behind the flag and
+// the Adam state's loads and stores still runtime branches, 1-3% slower
+// (119.2-120.3 against 117.5-118.4 ms, another call; the forward pass took 4%
+// more SM clocks).  Code that never runs still costs.
+//  * Captures: at every step of the captured phase (the Langevin phase, or
+//    the warm phase when T == 0) with t % cap_stride == 0, before the update,
+//    each block stores its own columns of X for its valid rows into
+//    traj[t / cap_stride][row][padded column], the JAX layout; the wrapper
+//    zeroes the pad lanes.  X is stable there (the last barrier of the step
+//    before has passed, and this block writes X only after the next one).
+//  * Per-step scalars: on a slot step (t % scal_stride == 0 in the same
+//    phase) and on the last step, every block sums the loss and energy of its
+//    own columns and valid rows in double, warps by shuffle, then thread 0
+//    over the warps in order, behind the __syncthreads that already ends the
+//    forward pass; it writes the pair to slots[block][slot].  The wrapper adds
+//    the blocks in block order (sum_partials_kernel<double>): no atomics.
+//  * Masked losses: the owner of output column j zeroes S and the loss term
+//    unless j >= mask_lo (D - mask_k, or 0 for "all columns").
+//  * Adam state: with m_in / v_in the prologue loads the own columns'
+//    moments instead of zeros, and the bias powers start at (b1p0, b2p0),
+//    computed by the host; with m_out / v_out the epilogue stores them.
+//  Every block reaches every barrier as before: none of these adds a
+//  barrier or a rank-dependent exit, and pad rows are skipped in stores.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -132,6 +166,15 @@ struct ChainArgs {
   int seed, tile_B, XW, O1, O2;                        // noise indexing
   int lo[4][CS + 1];           // the plan's slices of x0, x1, x2 and the output:
                                // rank k owns columns [lo[l][k], lo[l][k + 1])
+  // options (see the header); aligned [B, XW] arrays are laid out as the
+  // JAX package's packed latents, column c of latent l at O_l + c
+  const float* m_in; const float* v_in;                // [B, XW] or null
+  float* m_out; float* v_out;                          // [B, XW] or null
+  float* traj;                                         // [n_cap, B, XW] or null
+  double* slots;                                       // [n_blocks, n_slots, 2] or null
+  int cap_stride, scal_stride, n_slots;
+  int mask_lo;                 // output columns below it are not clamped
+  float b1p0, b2p0;            // bias-correction powers of the first warm step
 };
 
 // ------------------------------------------------------------- slices
@@ -344,7 +387,10 @@ constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
 
 // -------------------------------------------------------------- kernel
 
-template <int RG>
+// OPT: the instantiation that takes the options (captures, scalar slots,
+// masks, Adam state; see "Options" in the header); without it the kernel
+// carries none of their code.
+template <int RG, bool OPT>
 __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   using RW = Rows<RG>;
   constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
@@ -384,6 +430,21 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   const int lo2 = a.lo[2][rank], n2 = a.lo[2][rank + 1] - lo2;
   const int loD = a.lo[3][rank], nD = a.lo[3][rank + 1] - loD;
 
+  // dst[row][padded column] = src[own column][row] for the own columns and
+  // valid rows; dst is an aligned [B, XW] array
+  auto store_own = [&](float* dst, const float* src) {
+    for (int e = tid; e < L.OWN * R; e += NT) {
+      const int r = e / L.OWN, j = e - r * L.OWN;
+      const int row = row0 + r;
+      if (row >= a.B) continue;
+      int pc;
+      if (j < L.J1) { if (j >= n0) continue; pc = lo0 + j; }
+      else if (j < L.J2) { if (j - L.J1 >= n1) continue; pc = a.O1 + lo1 + j - L.J1; }
+      else { if (j - L.J2 >= n2) continue; pc = a.O2 + lo2 + j - L.J2; }
+      dst[(size_t)row * a.XW + pc] = src[j * RP + RW::pos(r)];
+    }
+  };
+
   // own gradient slices: in shared memory (laid out as the weights) or in
   // this cluster's partial in device memory
   PartialLayout pg = {};
@@ -422,8 +483,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     if (j >= 0) {
       X[j * RP + RW::pos(r)] = x;
       if (a.warm_T > 0) {
-        M[j * RP + RW::pos(r)] = 0.f;
-        V[j * RP + RW::pos(r)] = 0.f;
+        // a continuation resumes the moments of the caller's optimizer
+        const bool resume = OPT && a.m_in != nullptr && row < a.B;
+        const size_t at = (size_t)row * a.XW +
+                          (c < c1 ? c : c < c2 ? a.O1 + c - c1 : a.O2 + c - c2);
+        M[j * RP + RW::pos(r)] = resume ? a.m_in[at] : 0.f;
+        V[j * RP + RW::pos(r)] = resume ? a.v_in[at] : 0.f;
       }
     }
   }
@@ -475,8 +540,19 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 
   const bool has_s = a.loss != 0;
   const int total = a.warm_T + a.T;
-  float b1p = a.wb1, b2p = a.wb2;     // Adam bias-correction powers
+  float b1p = a.b1p0, b2p = a.b2p0;   // Adam bias-correction powers
   double loss_acc = 0.0, en_acc = 0.0;
+  // the threads' sums by shuffle within each warp, into red[][warp]
+  auto block_sums = [&](double l, double en) {
+    for (int off = 16; off > 0; off >>= 1) {
+      l += __shfl_down_sync(0xffffffffu, l, off);
+      en += __shfl_down_sync(0xffffffffu, en, off);
+    }
+    if (lane == 0) {
+      red[0][tid >> 5] = l;
+      red[1][tid >> 5] = en;
+    }
+  };
 
   // forward quads, the long sums first: S (K = d2), err2 (K = d1), err1
   // (K = d0); an item is a quad and one half of the rows
@@ -530,8 +606,19 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   for (int s = 0; s < total; ++s) {
     const bool warm = s < a.warm_T;
     const int t = s - a.warm_T;
-    const bool final_step = a.want_scalars && s == total - 1;
+    // the step's index in the phase that captures and emits slots: the
+    // Langevin phase, or the warm phase of a warm-only chain
+    const int cs = a.T > 0 ? t : s;
+    const bool last = s == total - 1;
+    const bool slot_step = OPT && a.slots != nullptr && cs >= 0 && cs % a.scal_stride == 0;
+    const bool sums_now = slot_step || (a.want_scalars && last);
     const float cw1 = 1.0f - b1p, cw2 = 1.0f - b2p;
+
+    // ---- capture: the pre-update latents of the own columns
+    if constexpr (OPT) {
+      if (a.traj != nullptr && cs >= 0 && cs % a.cap_stride == 0)
+        store_own(a.traj + (size_t)(cs / a.cap_stride) * a.B * a.XW, X);
+    }
 
     // ---- forward: the own columns' errors and S, from H and the own weights
     for (int base = tid - lane; base < fwd_jobs; base += NT) {
@@ -566,12 +653,14 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       if (!mine) continue;
       if (jbase < 0) {
         const float bj = BI[L.OWN + col];
+        const bool clamped = !OPT || loD + col >= a.mask_lo;
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
           const float lg = out[r] + bj;
-          out[r] = a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
-                               : (lg - yv[r]) * a.inv_var;
-          if (final_step && row0 + rg + r < a.B) {
+          out[r] = !clamped ? 0.f
+                   : a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
+                                 : (lg - yv[r]) * a.inv_var;
+          if (sums_now && clamped && row0 + rg + r < a.B) {
             const double l = lg, yd = yv[r];
             loss_acc += a.loss == 1
                 ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
@@ -587,7 +676,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 #pragma unroll
         for (int r = 0; r < RG; ++r) {
           out[r] = xv[r] - (out[r] + bj);
-          if (final_step && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
+          if (sums_now && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
         }
         store_rows<RG>(E + j * RP, g, out);
       }
@@ -596,9 +685,36 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       const int j = e / R, r = e - j * R;
       const float er = X[j * RP + r] - BI[j];
       E[j * RP + r] = er;
-      if (final_step && row0 + RW::row_at(r) < a.B) en_acc += (double)er * er;
+      if (sums_now && row0 + RW::row_at(r) < a.B) en_acc += (double)er * er;
+    }
+    if (OPT && sums_now) {   // the step's sums: warps by shuffle, then over warps
+      block_sums(loss_acc, en_acc);
+      loss_acc = en_acc = 0.0;
     }
     __syncthreads();
+    if (OPT && sums_now && tid == 0) {
+      // red is written again only on a later step, behind two cluster barriers
+      double l = 0.0, en = 0.0;
+      for (int w = 0; w < NWARP; ++w) {
+        l += red[0][w];
+        en += red[1][w];
+      }
+      en *= 0.5;
+      if (a.slots != nullptr) {
+        double* mine = a.slots + (size_t)blockIdx.x * a.n_slots * 2;
+        if (slot_step) {
+          mine[2 * (cs / a.scal_stride)] = l;
+          mine[2 * (cs / a.scal_stride) + 1] = en;
+        }
+        if (last) {
+          mine[2 * (a.n_slots - 1)] = l;
+          mine[2 * (a.n_slots - 1) + 1] = en;
+        }
+      } else {
+        a.scal[2 * blockIdx.x] = l;
+        a.scal[2 * blockIdx.x + 1] = en;
+      }
+    }
     lap(0);
 
     // ---- sampling step: Hebbian gradients of the own columns from H, E and
@@ -780,20 +896,8 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     for (int c = tid; c < nD; c += NT) pg.gb3[loD + c] = GB[L.OWN + c];
   }
 
-  if (a.clocks != nullptr && tid == 0) {
-#pragma unroll
-    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * N_PHASE + i] = spent[i];
-  }
-
-  if (a.want_scalars) {
-    for (int off = 16; off > 0; off >>= 1) {
-      loss_acc += __shfl_down_sync(0xffffffffu, loss_acc, off);
-      en_acc += __shfl_down_sync(0xffffffffu, en_acc, off);
-    }
-    if ((tid & 31) == 0) {
-      red[0][tid >> 5] = loss_acc;
-      red[1][tid >> 5] = en_acc;
-    }
+  if (!OPT && a.want_scalars) {   // the last step's sums, as the loop left them
+    block_sums(loss_acc, en_acc);
     __syncthreads();
     if (tid == 0) {
       double l = 0.0, en = 0.0;
@@ -801,22 +905,33 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         l += red[0][w];
         en += red[1][w];
       }
-      a.scal[2 * blockIdx.x + 0] = l;
+      a.scal[2 * blockIdx.x] = l;
       a.scal[2 * blockIdx.x + 1] = 0.5 * en;
     }
+  }
+
+  if (OPT && a.m_out != nullptr) {   // the Adam moments after the warm phase
+    store_own(a.m_out, M);
+    store_own(a.v_out, V);
+  }
+
+  if (a.clocks != nullptr && tid == 0) {
+#pragma unroll
+    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * N_PHASE + i] = spent[i];
   }
 }
 
 // ------------------------------------------------------- summing pass
 //
 // out[e] = p[0][e] + p[1][e] + ..., partials taken in order.  A thread owns
-// one element of type T (a float4 of floats, or one float) and starts the
-// loads of SUM_U partials before the first add, so SUM_U loads are in
-// flight per thread instead of one.
+// one element of type T (a float4 of floats, one float, or one double: the
+// per-step scalar slots) and starts the loads of SUM_U partials before the
+// first add, so SUM_U loads are in flight per thread instead of one.
 
 constexpr int SUM_U = 16;
 
 __device__ __forceinline__ float add_in_order(float s, float v) { return s + v; }
+__device__ __forceinline__ double add_in_order(double s, double v) { return s + v; }
 __device__ __forceinline__ float4 add_in_order(float4 s, float4 v) {
   return make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
 }
@@ -856,37 +971,47 @@ inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   cfg.numAttrs = 1;
 }
 
-template <int RG>
-cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
+template <int RG, bool OPT>
+cudaError_t launch_kernel(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   constexpr int R = 2 * RG;
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mcpc_chain_kernel<RG, OPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, (a.B + R - 1) / R, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG>, a);
+  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// clusters of this kernel the device can run at once, or -cudaError_t
+template <int RG>
+cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
+  const bool opt = a.traj != nullptr || a.slots != nullptr || a.mask_lo > 0 ||
+                   a.m_in != nullptr || a.m_out != nullptr;
+  return opt ? launch_kernel<RG, true>(a, smem, stream)
+             : launch_kernel<RG, false>(a, smem, stream);
+}
+
+// clusters of this kernel the device can run at once, or -cudaError_t (the
+// options' instantiation takes the same shared memory and no more registers
+// than the 255 a thread that one block an SM allows)
 template <int RG>
 int max_clusters(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mcpc_chain_kernel<RG, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, 1, smem, nullptr);
   int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false>, &cfg);
   return err != cudaSuccess ? -(int)err : count;
 }
 
 template <int RG>
 int static_smem_bytes() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG>) != cudaSuccess) return -1;
+  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false>) != cudaSuccess) return -1;
   return (int)attr.sharedSizeBytes;
 }
 
@@ -953,22 +1078,41 @@ const char* mcpc_chain_error_string(int err) {
 // grads_resident keeps a block's slice in shared memory until the end.  With
 // clocks not null (room for [n_clusters * cluster size, 6] 64-bit integers)
 // every block leaves there the SM clocks its thread 0 spent in each part of
-// the steps.  Returns a cudaError_t (0 on success).
+// the steps.  The options (header of this file): m_in / v_in resume the Adam
+// moments ([B, XW], XW the 128-padded packed width) with the bias powers
+// starting at (b1p0, b2p0); m_out / v_out receive them after the warm phase;
+// traj ([ceil(steps / cap_stride), B, XW], steps = T, or warm_T when T == 0)
+// receives the pre-update latents every cap_stride steps; slots
+// ([n_clusters * cluster size, n_slots, 2]) the per-step (loss, energy) sums
+// every scal_stride steps plus the last step's in slot n_slots - 1, instead
+// of scal; output columns below mask_lo are not clamped.  Returns a
+// cudaError_t (0 on success).
 int mcpc_chain_launch(
     const float* x0, const float* x1, const float* x2,
     float* o0, float* o1, float* o2,
     const float* y,
     const float* b0, const float* b1, const float* b2, const float* b3,
     const float* w1, const float* w2, const float* w3,
-    double* scal, float* partials, long long* clocks, const int* slices,
+    double* scal, float* partials, long long* clocks,
+    const float* m_in, const float* v_in, float* m_out, float* v_out,
+    float* traj, double* slots, const int* slices,
     int B, int d0, int d1, int d2, int D,
     int T, int warm_T, int loss, int want_scalars, int mixing, int pg_warm,
     int rows, int grads_resident,
+    int cap_stride, int scal_stride, int n_slots, int mask_lo,
     float inv_var, float lr, float noise_std,
     float warm_lr, float wb1, float wb2, float one_m_b1, float one_m_b2,
-    float weps, int seed, int tile_B, size_t smem_bytes, void* stream) {
+    float weps, float b1p0, float b2p0,
+    int seed, int tile_B, size_t smem_bytes, void* stream) {
   if (B <= 0 || d0 <= 0 || d1 <= 0 || d2 <= 0 || D <= 0 || T < 0 ||
-      warm_T < 0 || tile_B <= 0 || loss < 0 || loss > 2 || slices == nullptr)
+      warm_T < 0 || tile_B <= 0 || loss < 0 || loss > 2 || slices == nullptr ||
+      mask_lo < 0 || mask_lo >= D)
+    return (int)cudaErrorInvalidValue;
+  // each option needs what it works on
+  if ((traj != nullptr && (cap_stride <= 0 || T + warm_T == 0)) ||
+      (slots != nullptr && (scal_stride <= 0 || n_slots < 1 || !want_scalars)) ||
+      ((m_in != nullptr || m_out != nullptr) && warm_T == 0) ||
+      ((m_in == nullptr) != (v_in == nullptr)) || ((m_out == nullptr) != (v_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   ChainArgs a;
   const int widths[4] = {d0, d1, d2, D};
@@ -1003,6 +1147,11 @@ int mcpc_chain_launch(
   a.O1 = pad128(d0);
   a.O2 = a.O1 + pad128(d1);
   a.XW = a.O2 + pad128(d2);
+  a.m_in = m_in; a.v_in = v_in; a.m_out = m_out; a.v_out = v_out;
+  a.traj = traj; a.slots = slots;
+  a.cap_stride = cap_stride; a.scal_stride = scal_stride; a.n_slots = n_slots;
+  a.mask_lo = mask_lo;
+  a.b1p0 = b1p0; a.b2p0 = b2p0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (rows) {
 #define MCPC_CASE(R) case R: return (int)launch_rows<R / 2>(a, smem, st);
@@ -1028,6 +1177,15 @@ int mcpc_sum_partials_launch(const float* partials, float* out, int nblocks,
     sum_partials_kernel<float><<<(unsigned)((n + NT - 1) / NT), NT, 0, st>>>(
         partials, out, nblocks, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// the same sum in double (the per-step scalar slots)
+int mcpc_sum_partials_f64_launch(const double* partials, double* out, int nblocks,
+                                 size_t n, void* stream) {
+  if (nblocks <= 0 || n == 0) return (int)cudaErrorInvalidValue;
+  sum_partials_kernel<double><<<(unsigned)((n + NT - 1) / NT), NT, 0, (cudaStream_t)stream>>>(
+      partials, out, nblocks, n);
   return (int)cudaGetLastError();
 }
 

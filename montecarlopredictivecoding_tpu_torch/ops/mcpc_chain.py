@@ -20,6 +20,12 @@ and, on a sampling step, from the state before the update,
     gW1 += -relu(x0)ᵀ err1   gW2 += -relu(x1)ᵀ err2   gW3 += relu(x2)ᵀ S
     gb0 += Σ -err0   gb1 += Σ -err1   gb2 += Σ -err2   gb3 += Σ S
 
+Options, as the JAX wrapper's: captures of the pre-update latents every
+``capture_stride`` steps, per-step scalar slots every ``scalar_stride``
+steps, masked sensory losses (``mask_perc``), and the Adam state of the warm
+phase handed out (``emit_warm_opt_state``) or resumed (``warm_mu``,
+``warm_nu``, ``warm_count``).
+
 On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
 which replaces the JAX package's Pallas kernel
 ``ops/pallas_mcpc.py::_make_packed_kernel``, or with ``packed=False``
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import ctypes.util
 import dataclasses
 import functools
 import math
@@ -214,16 +221,10 @@ def box_muller(bits1: Tensor, bits2: Tensor) -> tp.Tuple[Tensor, Tensor]:
 
 # keyword -> (value that means "off", the ROADMAP.md item that ports it)
 _UNPORTED = {
-    "capture_stride": (0, "queue 2 item d (captures)"),
-    "scalar_stride": (0, "queue 2 item c (per-step scalars)"),
     "output_var": (None, "queue 2 item e (output-PC site)"),
-    "mask_perc": (None, "queue 2 item e (masked losses)"),
     "bf16_matmul": (False, "queue 2, the bf16 opt-in"),
-    "warm_mu": (None, "queue 2 item b (warm continuation)"),
-    "warm_nu": (None, "queue 2 item b (warm continuation)"),
-    "warm_count": (None, "queue 2 item b (warm continuation)"),
-    "emit_warm_opt_state": (False, "queue 2 item b (emit_warm_opt_state)"),
 }
+_TANH_ITEM = "queue 2 item e (tanh)"
 
 _LOSS_CODES = {"none": 0, "bernoulli": 1, "gaussian": 2}
 
@@ -236,7 +237,7 @@ class _Chain:
     T: int
     lr: float
     noise_std: float
-    loss: str
+    loss: str            # "bernoulli", "gaussian" or "none"; a mask is mask_lo
     inv_var: float
     warm_T: int
     warm_lr: float
@@ -250,6 +251,51 @@ class _Chain:
     with_pgrads: bool
     warm_pgrads: bool
     packed: bool
+    # output columns below mask_lo are not clamped (0: all are)
+    mask_lo: int = 0
+    capture_stride: int = 0
+    n_cap: int = 0
+    scalar_stride: int = 0
+    n_slots: int = 0
+    emit_opt_state: bool = False
+    # Adam bias powers of the first warm step: (b1, b2), or b^(count+1) when
+    # resuming an optimizer that has taken ``count`` steps
+    bias0: tp.Tuple[float, float] = (0.9, 0.999)
+
+
+@functools.lru_cache(maxsize=None)
+def _powf():
+    """C's ``powf``, which ``jnp.power`` calls on a float32 scalar on the
+    CPU: numpy's and torch's float32 powers round differently."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    return libm.powf
+
+
+def bias_powers(b1: float, b2: float, count: int) -> tp.Tuple[float, float]:
+    """``(b1^(count+1), b2^(count+1))`` in float32: the bias-correction powers
+    of the first warm step of a chain that resumes an Adam state of ``count``
+    steps (the JAX wrapper's ``bias0``)."""
+    powf = _powf()
+    n = float(np.float32(count + 1))
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def power(b):  # subnormal results flush to zero, as XLA's do
+        p = powf(float(np.float32(b)), n)
+        return p if abs(p) >= tiny else 0.0
+
+    return power(b1), power(b2)
+
+
+def scalar_slots(T: int, warm_T: int, scalar_stride: int) -> int:
+    """Slots of the per-step scalar mode: one per emitted step (t % stride
+    == 0 over the Langevin phase, or over the warm phase of a warm-only
+    chain) plus the final step's; 0 when the mode is off."""
+    if scalar_stride <= 0:
+        return 0
+    steps = T if T > 0 else warm_T
+    return -(-steps // scalar_stride) + 1
 
 
 def _chain_args(params, latents, target, seed, *, T: int, lr: float,
@@ -259,26 +305,64 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
                 with_pgrads: bool = False, packed: bool = True,
                 warm_T: int = 0, warm_lr: float = 0.1, warm_b1: float = 0.9,
                 warm_b2: float = 0.999, warm_eps: float = 1e-8,
+                capture_stride: int = 0,
                 activation: str = "relu", warm_pgrads: bool = False,
                 return_scalars: bool = False,
-                batch_tile: tp.Optional[int] = None, **unported) -> _Chain:
-    # what the JAX wrapper refuses comes first, in its words
+                batch_tile: tp.Optional[int] = None,
+                emit_warm_opt_state: bool = False,
+                mask_perc: tp.Optional[float] = None,
+                scalar_stride: int = 0,
+                warm_mu=None, warm_nu=None, warm_count=None,
+                **unported) -> _Chain:
+    # what the JAX wrapper refuses, in its order and its words
     if warm_T and not packed:
         raise ValueError("the Adam warm-start phase requires packed=True")
     if warm_pgrads and not warm_T:
         raise ValueError("warm_pgrads requires warm_T > 0")
+    if emit_warm_opt_state and not warm_T:
+        raise ValueError("emit_warm_opt_state requires warm_T > 0")
+    warm_init = warm_mu is not None
+    if warm_init:
+        if not warm_T:
+            raise ValueError("warm_mu/warm_nu require warm_T > 0")
+        if warm_nu is None or warm_count is None:
+            raise ValueError("warm_mu requires warm_nu and warm_count")
+        if len(warm_mu) != 3 or len(warm_nu) != 3:
+            raise ValueError("warm moments must cover all 3 latent sites")
+    if activation != "relu" and not packed:
+        raise ValueError("packed=False supports relu only")
+    if capture_stride > 0 and T == 0 and warm_T == 0:
+        raise ValueError("capture_stride requires steps (T > 0 or warm_T > 0)")
+    if scalar_stride > 0:
+        if not packed or not return_scalars:
+            raise ValueError(
+                "scalar_stride requires packed=True and return_scalars"
+            )
+        if capture_stride > 0:
+            raise ValueError(
+                "scalar_stride and capture_stride are mutually exclusive: "
+                "capture runs get per-step scalars recomputed from the "
+                "trajectory"
+            )
+        if T == 0 and warm_T == 0:
+            raise ValueError("scalar_stride requires steps (T or warm_T)")
+    masked = loss.endswith("_mask")
+    if masked:
+        if mask_perc is None:
+            raise ValueError("masked losses require mask_perc")
+        if not packed:
+            raise ValueError("masked losses require packed=True")
     if warm_pgrads and not with_pgrads:
         # the JAX kernel has no accumulators to add to without with_pgrads
         raise ValueError("warm_pgrads requires with_pgrads")
     if not packed:
-        if activation != "relu":
-            raise ValueError("packed=False supports relu only")
-        if loss.endswith("_mask"):
-            raise ValueError("masked losses require packed=True")
         if return_scalars or batch_tile is not None:
             raise ValueError(
                 "return_scalars/warm_pgrads/batch_tile require packed=True"
             )
+        if capture_stride > 0:
+            # the JAX wrapper returns no trajectory here without a word
+            raise ValueError("capture_stride requires packed=True")
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"mcpc_chain got an unexpected keyword {name!r}")
@@ -287,18 +371,13 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
             raise NotImplementedError(
                 f"mcpc_chain({name}={value!r}) is not ported yet: ROADMAP.md {item}"
             )
-    if loss in ("bernoulli_mask", "gaussian_mask"):
-        raise NotImplementedError(
-            f"mcpc_chain(loss={loss!r}) is not ported yet: ROADMAP.md "
-            f"{_UNPORTED['mask_perc'][1]}"
-        )
-    if loss not in _LOSS_CODES:
-        raise ValueError(f"unknown loss {loss!r}")
     if activation == "tanh":
         raise NotImplementedError(
-            "mcpc_chain(activation='tanh') is not ported yet: ROADMAP.md "
-            "queue 2 item e (tanh)"
+            f"mcpc_chain(activation='tanh') is not ported yet: ROADMAP.md {_TANH_ITEM}"
         )
+    base = loss[: -len("_mask")] if masked else loss
+    if base not in _LOSS_CODES or (masked and base == "none"):
+        raise ValueError(f"unknown loss {loss!r}")
     if activation != "relu":
         raise ValueError(f"unsupported activation {activation!r}")
     if len(params) != 4 or len(latents) != 3:
@@ -322,6 +401,10 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         raise ValueError(f"target must be [{B}, {dims[3]}]")
     if T < 0 or warm_T < 0:
         raise ValueError("T and warm_T must be >= 0")
+    if warm_init:
+        for moments in (warm_mu, warm_nu):
+            if [tuple(m.shape) for m in moments] != [tuple(x.shape) for x in latents]:
+                raise ValueError("warm moments must be shaped like the latents")
 
     if not packed:
         tile = B  # one tile, the seed unshifted
@@ -334,12 +417,15 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
             f"batch {B} has no tile divisor >= 128 (best: {tile}); pad the "
             "batch to a multiple of 128 or pass batch_tile explicitly"
         )
+    # Python's round, as the JAX wrapper: a perc that rounds to 0 clamps all
+    mask_k = round(dims[3] * mask_perc) if masked else 0
+    cap_steps = T if T > 0 else warm_T
     seed = int(seed)
     return _Chain(
         dims=dims, T=int(T), lr=float(lr),
         # the JAX wrapper takes this square root in double
         noise_std=float(np.sqrt(lr * noise_var)) if noise_var else 0.0,
-        loss=loss, inv_var=1.0 / input_var, warm_T=int(warm_T),
+        loss=base, inv_var=1.0 / input_var, warm_T=int(warm_T),
         warm_lr=float(warm_lr), warm_b1=float(warm_b1),
         warm_b2=float(warm_b2), warm_eps=float(warm_eps),
         return_scalars=bool(return_scalars), tile=tile,
@@ -347,11 +433,98 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         seed=((seed + 2**31) % 2**32) - 2**31,
         mixing=int(mixing), with_pgrads=bool(with_pgrads),
         warm_pgrads=bool(warm_pgrads), packed=bool(packed),
+        mask_lo=max(dims[3] - mask_k, 0) if mask_k > 0 else 0,
+        capture_stride=int(capture_stride) if capture_stride > 0 else 0,
+        n_cap=-(-cap_steps // capture_stride) if capture_stride > 0 else 0,
+        scalar_stride=int(scalar_stride) if scalar_stride > 0 else 0,
+        n_slots=scalar_slots(T, warm_T, scalar_stride),
+        emit_opt_state=bool(emit_warm_opt_state),
+        bias0=(bias_powers(warm_b1, warm_b2, int(warm_count)) if warm_init
+               else (float(np.float32(warm_b1)), float(np.float32(warm_b2)))),
     )
 
 
-def _result(latents, pgrads, scalars, return_scalars: bool):
-    return (latents, pgrads, scalars) if return_scalars else (latents, pgrads)
+def _result(c: _Chain, latents, pgrads, traj, scalars, moments):
+    """The JAX wrapper's return order: ``latents, pgrads[, traj][,
+    scalars][, (m, v)]``."""
+    out = [latents, pgrads]
+    if c.capture_stride:
+        out.append(traj)
+    if c.return_scalars:
+        out.append(scalars)
+    if c.emit_opt_state:
+        out.append(moments)
+    return tuple(out)
+
+
+def _pack_aligned(parts, dims) -> Tensor:
+    """Per-latent ``[B, d_l]`` tensors placed in one aligned ``[B, XW]``
+    tensor, pad lanes zero (the JAX package's packed latent layout)."""
+    _, offs, XW = aligned_layout(dims)
+    out = parts[0].new_zeros((parts[0].shape[0], XW))
+    for part, o, d in zip(parts, offs, dims):
+        out[:, o : o + d] = part
+    return out
+
+
+# The per-captured-step scalars are recomputed from the trajectory in chunks
+# of this many rows, as the JAX wrapper does, so the forward's intermediates
+# stay near 200 MB at 20-128-128-784 whatever the chain's length.
+_SCALAR_RECOMPUTE_ROWS = 16384
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """TF32 off for the products inside (the recomputed scalars are held to
+    the kernel's f32 ones)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def traj_scalar_rows(traj: Tensor, params, target, c: _Chain):
+    """Pre-update ``(loss [n_cap], energy [n_cap])`` sums of every captured
+    step, recomputed from the aligned trajectory ``[n_cap, B, XW]`` (the JAX
+    wrapper's ``_traj_scalar_rows``), in chunks of
+    ``_SCALAR_RECOMPUTE_ROWS`` rows."""
+    n_cap, B = traj.shape[0], traj.shape[1]
+    chunk = max(1, _SCALAR_RECOMPUTE_ROWS // B)
+    parts = [_traj_scalar_block(traj[i : i + chunk], params, target, c)
+             for i in range(0, n_cap, chunk)]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
+def _traj_scalar_block(traj: Tensor, params, target, c: _Chain):
+    d0, d1, d2, D = c.dims
+    _, offs, _ = aligned_layout((d0, d1, d2))
+    b0 = params[0]["b"]
+    (w1, b1), (w2, b2), (w3, b3) = ((params[i]["w"], params[i]["b"])
+                                    for i in (1, 2, 3))
+    x0 = traj[:, :, offs[0] : offs[0] + d0]
+    x1 = traj[:, :, offs[1] : offs[1] + d1]
+    x2 = traj[:, :, offs[2] : offs[2] + d2]
+    with _full_f32_matmul():
+        err0 = x0 - b0
+        err1 = x1 - (torch.matmul(torch.relu(x0), w1) + b1)
+        err2 = x2 - (torch.matmul(torch.relu(x1), w2) + b2)
+        logits = torch.matmul(torch.relu(x2), w3) + b3
+    energy = 0.5 * (torch.sum(err0 * err0, dim=(1, 2))
+                    + torch.sum(err1 * err1, dim=(1, 2))
+                    + torch.sum(err2 * err2, dim=(1, 2)))
+    if c.loss == "none":
+        return torch.zeros_like(energy), energy
+    y = (target if target is not None else torch.zeros_like(logits[0]))[None]
+    if c.loss == "bernoulli":
+        elem = (torch.clamp(logits, min=0.0) - logits * y
+                + torch.log1p(torch.exp(-torch.abs(logits))))
+    else:
+        elem = 0.5 * c.inv_var * (logits - y) ** 2
+    if c.mask_lo:
+        elem = elem[:, :, c.mask_lo:]
+    return torch.sum(elem, dim=(1, 2)), energy
 
 
 def _partial_sizes(dims) -> tp.Tuple[int, ...]:
@@ -410,7 +583,7 @@ def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
 
 
 @torch.no_grad()
-def _reference(c: _Chain, params, latents, target):
+def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
     d0, d1, d2, D = c.dims
     b0 = params[0]["b"]
     (w1, b1), (w2, b2), (w3, b3) = ((params[i]["w"], params[i]["b"])
@@ -419,6 +592,9 @@ def _reference(c: _Chain, params, latents, target):
     B = X.shape[0]
     y = target if target is not None else torch.zeros(
         (B, D), dtype=X.dtype, device=X.device)
+    clamped = None  # the output columns the loss clamps, where masked
+    if c.mask_lo:
+        clamped = (torch.arange(D, device=X.device) >= c.mask_lo).to(X.dtype)
 
     flat = None
     if c.with_pgrads:
@@ -440,6 +616,8 @@ def _reference(c: _Chain, params, latents, target):
                 S = (0.5 + 0.5 * torch.tanh(0.5 * logits)) - y
             else:
                 S = (logits - y) * c.inv_var
+            if clamped is not None:
+                S = S * clamped
             back2 = (-S) @ w3.T
         back = torch.cat([e1 @ w1.T, e2 @ w2.T, back2], dim=1)
         dH = (X > 0).to(X.dtype)
@@ -460,26 +638,58 @@ def _reference(c: _Chain, params, latents, target):
         energy = 0.5 * (torch.sum(err0 * err0) + torch.sum(e1 * e1)
                         + torch.sum(e2 * e2))
         if c.loss == "bernoulli":
-            loss_s = torch.sum(
-                torch.clamp(logits, min=0.0) - logits * y
-                + torch.log1p(torch.exp(-torch.abs(logits)))
-            )
+            elem = (torch.clamp(logits, min=0.0) - logits * y
+                    + torch.log1p(torch.exp(-torch.abs(logits))))
         elif c.loss == "gaussian":
-            loss_s = torch.sum(0.5 * c.inv_var * (logits - y) ** 2)
-        else:
+            elem = 0.5 * c.inv_var * (logits - y) ** 2
+        if c.loss == "none":
             loss_s = torch.zeros((), dtype=X.dtype, device=X.device)
-        return G, {"loss": loss_s.reshape(1), "energy": energy.reshape(1)}
+        else:
+            loss_s = torch.sum(elem if clamped is None else elem * clamped)
+        return G, (loss_s, energy)
 
-    scalars = None
+    traj = None
+    if c.capture_stride:
+        _, _, XW = aligned_layout((d0, d1, d2))
+        traj = X.new_zeros((c.n_cap, B, XW))
+    slots = [None] * c.n_slots
+    final = None
+
+    def observe(X, cs: int, last: bool) -> bool:
+        """Capture the step's pre-update latents; whether it wants sums."""
+        if traj is not None and cs >= 0 and cs % c.capture_stride == 0:
+            traj[cs // c.capture_stride] = _pack_aligned(
+                X.split((d0, d1, d2), dim=1), (d0, d1, d2))
+        slot = c.scalar_stride and cs >= 0 and cs % c.scalar_stride == 0
+        return bool(slot) or (c.return_scalars and last)
+
+    def record(cs: int, last: bool, sc) -> None:
+        nonlocal final
+        if c.scalar_stride:
+            if cs >= 0 and cs % c.scalar_stride == 0:
+                slots[cs // c.scalar_stride] = sc
+            if last:
+                slots[-1] = sc
+        elif last:
+            final = sc
+
+    total = c.warm_T + c.T
+    moments = None
     if c.warm_T > 0:
-        m = torch.zeros_like(X)
-        v = torch.zeros_like(X)
+        if warm_mu is not None:
+            m = torch.cat(warm_mu, dim=1).to(X.dtype)
+            v = torch.cat(warm_nu, dim=1).to(X.dtype)
+        else:
+            m = torch.zeros_like(X)
+            v = torch.zeros_like(X)
         # bias-correction powers carried step to step in f32, as the kernel
-        b1p, b2p = np.float32(c.warm_b1), np.float32(c.warm_b2)
+        b1p, b2p = np.float32(c.bias0[0]), np.float32(c.bias0[1])
         for s in range(c.warm_T):
-            last = c.return_scalars and c.T == 0 and s == c.warm_T - 1
-            G, sc = grads(X, last, c.warm_pgrads and s == c.warm_T - 1)
-            scalars = sc if last else scalars
+            cs, last = (s if c.T == 0 else -1), s == total - 1
+            want = observe(X, cs, last)
+            G, sc = grads(X, want, c.warm_pgrads and s == c.warm_T - 1)
+            if want:
+                record(cs, last, sc)
             c1 = float(np.float32(1.0) - b1p)
             c2 = float(np.float32(1.0) - b2p)
             m = c.warm_b1 * m + (1.0 - c.warm_b1) * G
@@ -488,6 +698,9 @@ def _reference(c: _Chain, params, latents, target):
             X = X - c.warm_lr * (m / c1) / (torch.sqrt(v / c2) + c.warm_eps)
             b1p = np.float32(b1p * np.float32(c.warm_b1))
             b2p = np.float32(b2p * np.float32(c.warm_b2))
+        if c.emit_opt_state:
+            moments = tuple(_pack_aligned(t.split((d0, d1, d2), dim=1), (d0, d1, d2))
+                            for t in (m, v))
 
     noisy = c.noise_std > 0.0
     if noisy and c.packed and c.T > 0:
@@ -500,21 +713,36 @@ def _reference(c: _Chain, params, latents, target):
                 counter_bits_at(idx, seeds, 2 * p),
                 counter_bits_at(idx, seeds, 2 * p + 1),
             )
-        last = c.return_scalars and t == c.T - 1
-        G, sc = grads(X, last, c.with_pgrads and t >= c.mixing)
-        scalars = sc if last else scalars
+        last = t == c.T - 1
+        want = observe(X, t, last)
+        G, sc = grads(X, want, c.with_pgrads and t >= c.mixing)
+        if want:
+            record(t, last, sc)
         X = X - c.lr * G
         if noisy and c.packed:
             X = X + c.noise_std * (z_cos if t % 2 == 0 else z_sin)
         elif noisy:
             X = X + c.noise_std * _unpacked_normals(c, B, t, X.device)
 
-    if c.return_scalars and scalars is None:  # no steps at all
-        zero = torch.zeros(1, dtype=X.dtype, device=X.device)
-        scalars = {"loss": zero, "energy": zero.clone()}
+    scalars = None
+    if c.return_scalars:
+        zero = torch.zeros((), dtype=X.dtype, device=X.device)
+        rows = slots if c.scalar_stride else [final or (zero, zero)]
+        scalars = {"loss": torch.stack([r[0] for r in rows]),
+                   "energy": torch.stack([r[1] for r in rows])}
+        if traj is not None:
+            scalars = _with_capture_rows(scalars, traj, params, target, c)
     new = tuple(x.contiguous() for x in X.split((d0, d1, d2), dim=1))
     pgrads = None if flat is None else _pgrads_from_flat(flat, params, c.dims)
-    return _result(new, pgrads, scalars, c.return_scalars)
+    return _result(c, new, pgrads, traj, scalars, moments)
+
+
+def _with_capture_rows(final, traj, params, target, c: _Chain):
+    """A capture run's scalars: the recomputed rows of the captured steps,
+    then the kernel's final-step row (the JAX wrapper's order)."""
+    loss, energy = traj_scalar_rows(traj, params, target, c)
+    return {"loss": torch.cat([loss.to(final["loss"].dtype), final["loss"]]),
+            "energy": torch.cat([energy.to(final["energy"].dtype), final["energy"]])}
 
 
 def mcpc_chain_reference(params, latents, target, seed, **options):
@@ -522,7 +750,8 @@ def mcpc_chain_reference(params, latents, target, seed, **options):
     same arithmetic, on any device.  The tests and ``chip_smoke.py`` hold the
     kernel against it."""
     return _reference(_chain_args(params, latents, target, seed, **options),
-                      params, latents, target)
+                      params, latents, target, options.get("warm_mu"),
+                      options.get("warm_nu"))
 
 
 # -------------------------------------------------------------- kernels
@@ -683,7 +912,7 @@ def _library(packed: bool = True) -> ctypes.CDLL:
     budget = getattr(lib, name + "_smem_budget")
     budget.restype = _I
     if packed:
-        launch.argtypes = ([_P] * 17 + [ctypes.POINTER(_I)] + [_I] * 13 + [_F] * 9
+        launch.argtypes = ([_P] * 23 + [ctypes.POINTER(_I)] + [_I] * 17 + [_F] * 11
                            + [_I, _I, _Z, _P])
         smem_bytes.argtypes = [_I] * 7
         budget.argtypes = [_I]
@@ -692,8 +921,9 @@ def _library(packed: bool = True) -> ctypes.CDLL:
         for count in (lib.mcpc_chain_cluster_size, lib.mcpc_chain_phase_count):
             count.restype = _I
             count.argtypes = []
-        lib.mcpc_sum_partials_launch.restype = _I
-        lib.mcpc_sum_partials_launch.argtypes = [_P, _P, _I, _Z, _P]
+        for summing in (lib.mcpc_sum_partials_launch, lib.mcpc_sum_partials_f64_launch):
+            summing.restype = _I
+            summing.argtypes = [_P, _P, _I, _Z, _P]
     else:
         launch.argtypes = [_P] * 18 + [_I] * 9 + [_F] * 3 + [_I, _P]
         smem_bytes.argtypes = [_I] * 5
@@ -825,9 +1055,10 @@ def sum_block_partials(partials: Tensor) -> Tensor:
     kernel, one per block of the unpacked) over the blocks, in block order:
     the second pass of the parameter gradients, which takes the
     place of the TPU kernel's accumulators carried across batch tiles
-    (``pallas_mcpc.py``, ``pl.when(tile_i == 0)``).  CUDA tensors launch
-    ``sum_partials_kernel`` (``csrc/mcpc_chain.cu``) or raise; CPU tensors
-    run the plain version.  ``sum_block_partials.launches`` counts launches.
+    (``pallas_mcpc.py``, ``pl.when(tile_i == 0)``).  float32, or float64 for
+    the per-step scalar slots.  CUDA tensors launch ``sum_partials_kernel``
+    (``csrc/mcpc_chain.cu``) or raise; CPU tensors run the plain version.
+    ``sum_block_partials.launches`` counts launches.
     """
     if partials.dim() != 2 or partials.shape[0] < 1 or partials.shape[1] < 1:
         raise ValueError("sum_block_partials takes a [n_blocks, n] tensor")
@@ -836,14 +1067,18 @@ def sum_block_partials(partials: Tensor) -> Tensor:
         return sum_block_partials_reference(partials)
     if device.type != "cuda":
         raise ValueError(f"sum_block_partials runs on cpu or cuda, not {device.type}")
-    if partials.dtype != torch.float32:
-        raise TypeError(f"sum_block_partials takes float32, got {partials.dtype}")
+    if partials.dtype == torch.float32:
+        launch = _library().mcpc_sum_partials_launch
+    elif partials.dtype == torch.float64:
+        launch = _library().mcpc_sum_partials_f64_launch
+    else:
+        raise TypeError(f"sum_block_partials takes float32 or float64, got {partials.dtype}")
     partials = partials.contiguous()
     nblocks, n = partials.shape
-    out = torch.empty(n, dtype=torch.float32, device=device)
+    out = torch.empty(n, dtype=partials.dtype, device=device)
     with _on(device.index):
-        err = _library().mcpc_sum_partials_launch(
-            partials.data_ptr(), out.data_ptr(), nblocks, n, _raw_stream(device.index))
+        err = launch(partials.data_ptr(), out.data_ptr(), nblocks, n,
+                     _raw_stream(device.index))
     _check_launch(err)
     sum_block_partials.launches += 1
     return out
@@ -858,12 +1093,14 @@ PHASES = ("forward", "gradients", "backward", "wait for partials", "update",
 
 
 def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = None,
-            plan: tp.Optional[ChainPlan] = None):
+            plan: tp.Optional[ChainPlan] = None, warm_mu=None, warm_nu=None):
     d0, d1, d2, D = c.dims
     device = latents[0].device
     tensors = list(latents) + [t for p in params for t in p.values()]
     if target is not None:
         tensors.append(target)
+    if warm_mu is not None:
+        tensors += list(warm_mu) + list(warm_nu)
     for t in tensors:
         if t.device != device:
             raise ValueError("mcpc_chain: all tensors must be on one device")
@@ -895,21 +1132,45 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
                                dtype=torch.float32, device=device)
     partials_ptr = None if partials is None else partials.data_ptr()
     lib = _library(c.packed)
+    XW = aligned_layout((d0, d1, d2))[2]
+    # the options' buffers: the kernel writes only real columns and rows, so
+    # the aligned outputs start at zero
+    m_in = v_in = moments = traj = slots = None
+    if c.packed:
+        if warm_mu is not None:
+            m_in, v_in = (_pack_aligned([m.contiguous() for m in ms], (d0, d1, d2))
+                          for ms in (warm_mu, warm_nu))
+        if c.emit_opt_state:
+            moments = (torch.zeros((B, XW), dtype=torch.float32, device=device),
+                       torch.zeros((B, XW), dtype=torch.float32, device=device))
+        if c.capture_stride:
+            traj = torch.zeros((c.n_cap, B, XW), dtype=torch.float32, device=device)
+        if c.scalar_stride:
+            slots = torch.empty((plan.blocks, 2 * c.n_slots), dtype=torch.float64,
+                                device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with _on(device.index):
         stream = _raw_stream(device.index)
         if c.packed:
             scal = torch.zeros((plan.blocks, 2), dtype=torch.float64, device=device)
             bounds = plan.slice_bounds()
             err = lib.mcpc_chain_launch(
-                *pointers, scal.data_ptr(), partials_ptr,
-                None if clocks is None else clocks.data_ptr(),
+                *pointers, scal.data_ptr(), partials_ptr, ptr(clocks),
+                ptr(m_in), ptr(v_in),
+                *((None, None) if moments is None else (ptr(moments[0]), ptr(moments[1]))),
+                ptr(traj), ptr(slots),
                 (_I * len(bounds))(*bounds),
                 B, d0, d1, d2, D,
                 c.T, c.warm_T, _LOSS_CODES[c.loss], int(c.return_scalars),
                 c.mixing, int(c.warm_pgrads), plan.rows, int(plan.grads_resident),
+                c.capture_stride, c.scalar_stride, c.n_slots, c.mask_lo,
                 c.inv_var, c.lr, c.noise_std,
                 c.warm_lr, c.warm_b1, c.warm_b2,
                 1.0 - c.warm_b1, 1.0 - c.warm_b2, c.warm_eps,
+                c.bias0[0], c.bias0[1],
                 c.seed, c.tile, plan.smem_bytes, stream,
             )
         else:
@@ -924,13 +1185,19 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     else:
         mcpc_chain.launches_unpacked += 1
     scalars = None
-    if c.return_scalars:
+    if c.scalar_stride:
+        # the blocks' pairs added in block order
+        sums = sum_block_partials(slots).view(c.n_slots, 2).to(torch.float32)
+        scalars = {"loss": sums[:, 0].contiguous(), "energy": sums[:, 1].contiguous()}
+    elif c.return_scalars:
         sums = scal.sum(dim=0).to(torch.float32)
         scalars = {"loss": sums[0:1], "energy": sums[1:2]}
+        if traj is not None:
+            scalars = _with_capture_rows(scalars, traj, params, target, c)
     pgrads = None
     if partials is not None:
         pgrads = _pgrads_from_flat(sum_block_partials(partials), params, c.dims)
-    return _result(tuple(outs), pgrads, scalars, c.return_scalars)
+    return _result(c, tuple(outs), pgrads, traj, scalars, moments)
 
 
 def chain_phase_clocks(params, latents, target, seed, *,
@@ -966,27 +1233,44 @@ def mcpc_chain(params, latents, target, seed, **options):
 
     Keyword options, as ``mcpc_chain_pallas``: ``T``, ``lr``,
     ``noise_var=2.0`` (None or 0: no noise), ``loss`` in ``"bernoulli"``,
-    ``"gaussian"``, ``"none"``, ``input_var=1.0``, ``warm_T=0``,
-    ``warm_lr=0.1``, ``warm_b1=0.9``, ``warm_b2=0.999``, ``warm_eps=1e-8``,
-    ``activation="relu"``, ``return_scalars=False``, ``batch_tile=None``
-    (keys the per-tile noise seeds), and
+    ``"gaussian"``, ``"none"``, ``"bernoulli_mask"``, ``"gaussian_mask"``
+    (with ``mask_perc``: only the last ``round(D * mask_perc)`` output
+    columns are clamped, all of them when that rounds to 0),
+    ``input_var=1.0``, ``warm_T=0``, ``warm_lr=0.1``, ``warm_b1=0.9``,
+    ``warm_b2=0.999``, ``warm_eps=1e-8``, ``activation="relu"``,
+    ``return_scalars=False``, ``batch_tile=None`` (keys the per-tile noise
+    seeds), and
     ``with_pgrads=False``: also sum the Hebbian parameter gradients over the
     Langevin steps ``t >= mixing`` (``mixing=0``);
     ``warm_pgrads=False``: also take them on the last warm step (needs
     ``with_pgrads`` and ``warm_T > 0``; with ``T=0`` that is one PC training
     step);
+    ``capture_stride=0``: return the pre-update latents of every
+    ``capture_stride``-th step of the Langevin phase (of the warm phase when
+    ``T=0``) as ``traj`` ``[n_cap, B, XW]`` in the aligned packed layout of
+    :func:`aligned_layout`, pad lanes 0;
+    ``scalar_stride=0``: with ``return_scalars``, the scalars of every
+    ``scalar_stride``-th step of that phase plus the final step's
+    (:func:`scalar_slots` rows);
+    ``emit_warm_opt_state=False``: also return the Adam moments after the
+    warm phase, ``(m, v)``, each ``[B, XW]`` aligned;
+    ``warm_mu``/``warm_nu`` (3 tensors shaped like the latents) and
+    ``warm_count``: resume an Adam state of ``warm_count`` steps;
     ``packed=True``: False runs the unpacked baseline, which has relu, no
-    warm phase, no scalars, one batch tile and a noise stream of its own.
-    The options that are not ported yet raise ``NotImplementedError`` naming
-    their ROADMAP.md item.
+    warm phase, no scalars, no options, one batch tile and a noise stream of
+    its own.
+    ``output_var``, ``bf16_matmul`` and tanh are not ported yet and raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
 
-    Returns ``(latents', pgrads)``, or ``(latents', pgrads, scalars)`` with
-    ``return_scalars``.  ``pgrads`` is None unless ``with_pgrads``; else a
-    tuple of four ``{"w", "b"}`` dicts shaped like
+    Returns ``latents', pgrads[, traj][, scalars][, (m, v)]``, in that
+    order, each present only with its option.  ``pgrads`` is None unless
+    ``with_pgrads``; else a tuple of four ``{"w", "b"}`` dicts shaped like
     ``params``, sums over the whole batch and the sampling steps (not
     divided by either), ``pgrads[0]["w"]`` zeros.  ``scalars`` is
-    ``{"loss": [1], "energy": [1]}``, the batch sums before the final
-    step's update.
+    ``{"loss": [R], "energy": [R]}``, batch sums before a step's update:
+    ``R = 1`` (the final step), or with captures the captured steps
+    (recomputed from ``traj``) and then the final step, or with
+    ``scalar_stride`` its slots.
 
     CPU tensors run :func:`mcpc_chain_reference`; CUDA tensors launch the
     kernel or raise.  ``mcpc_chain.launches`` counts launches of the packed
@@ -994,10 +1278,11 @@ def mcpc_chain(params, latents, target, seed, **options):
     """
     c = _chain_args(params, latents, target, seed, **options)
     device = latents[0].device
+    moments = options.get("warm_mu"), options.get("warm_nu")
     if device.type == "cpu":
-        return _reference(c, params, latents, target)
+        return _reference(c, params, latents, target, *moments)
     if device.type == "cuda":
-        return _kernel(c, params, latents, target)
+        return _kernel(c, params, latents, target, None, None, *moments)
     raise ValueError(f"mcpc_chain runs on cpu or cuda, not {device.type}")
 
 

@@ -228,8 +228,12 @@ def test_sum_block_partials_kernel_is_the_ordered_sum(cuda_device):
     torch.cuda.synchronize()
     assert chain_mod.sum_block_partials.launches == before + 1
     assert torch.equal(got, chain_mod.sum_block_partials_reference(partials))
+    # the per-step scalar slots are summed in double by the same pass
+    wide = partials.double() * 1e-3
+    assert torch.equal(chain_mod.sum_block_partials(wide),
+                       chain_mod.sum_block_partials_reference(wide))
     with pytest.raises(TypeError, match="float32"):
-        chain_mod.sum_block_partials(partials.double())
+        chain_mod.sum_block_partials(partials.half())
 
 
 @pytest.mark.cuda
@@ -240,3 +244,128 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
                              target, 0, T=2, lr=0.1)
     with pytest.raises(ValueError, match="one device"):
         chain_mod.mcpc_chain(params, latents, target.cpu(), 0, T=2, lr=0.1)
+
+
+# ------------------------------------------------ options of the chain
+
+FID = (20, 128, 128, 784)
+
+OPTION_CASES = {
+    "capture_langevin": dict(T=20, warm_T=5, capture_stride=3, return_scalars=True),
+    "capture_warm_only": dict(T=0, warm_T=9, capture_stride=2, return_scalars=True),
+    "scalar_stride_langevin": dict(T=20, warm_T=5, scalar_stride=7, return_scalars=True),
+    "scalar_stride_warm_only": dict(T=0, warm_T=15, scalar_stride=7, return_scalars=True),
+    "mask_bernoulli_half": dict(T=20, warm_T=5, loss="bernoulli_mask", mask_perc=0.5,
+                                return_scalars=True, with_pgrads=True, mixing=5),
+    "mask_gaussian_rounds_to_all": dict(T=20, loss="gaussian_mask", mask_perc=0.0001,
+                                        input_var=0.5, return_scalars=True),
+    "emit_warm_opt_state": dict(T=6, warm_T=9, emit_warm_opt_state=True,
+                                return_scalars=True),
+}
+
+
+def _assert_same_outputs(got, want, moments_rel=1e-5):
+    """Latents (and the trajectory) atol 1e-4, scalars rtol 1e-5, gradients
+    1e-5 and moments ``moments_rel`` of their tensor's largest entry."""
+    assert len(got) == len(want)
+    for u, v in zip(got[0], want[0]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+    if want[1] is not None:
+        _assert_pgrads_close(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        if isinstance(w, dict):
+            for k in ("loss", "energy"):
+                assert g[k].shape == w[k].shape
+                torch.testing.assert_close(g[k], w[k], rtol=1e-5, atol=1e-5)
+        elif isinstance(w, tuple):
+            for a, b in zip(g, w):
+                scale = max(float(b.abs().max()), 1e-30)
+                torch.testing.assert_close(a, b, rtol=0, atol=moments_rel * scale)
+        else:
+            assert g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+@pytest.mark.parametrize("B", [37, 8])
+def test_kernel_options_match_plain_version(cuda_device, case, B):
+    kw = dict(OPTION_CASES[case], lr=0.03)
+    params, latents, target = _case(FID, B, cuda_device)
+    if kw.get("loss", "").startswith("gaussian"):
+        target = 2.0 * target - 1.0
+    before = chain_mod.mcpc_chain.launches
+    got = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    torch.cuda.synchronize()
+    assert chain_mod.mcpc_chain.launches == before + 1
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    _assert_same_outputs(got, want)
+    if kw.get("capture_stride"):
+        # pad lanes of the trajectory stay zero
+        traj = got[2]
+        _, offs, XW = chain_mod.aligned_layout(FID[:3])
+        pad = torch.ones(XW, dtype=torch.bool, device=cuda_device)
+        for o, d in zip(offs, FID[:3]):
+            pad[o : o + d] = False
+        assert not traj[:, :, pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_every_built_row_count_takes_every_option(cuda_device, rows):
+    """Captures, per-step scalars, a mask and the Adam hand-off in one call,
+    at each instantiation of the kernel, with pad rows (B = 37)."""
+    params, latents, target = _case(FID, 37, cuda_device)
+    gen = torch.Generator().manual_seed(4)
+    mu = tuple((0.1 * torch.randn(x.shape, generator=gen)).to(cuda_device) for x in latents)
+    nu = tuple((0.01 * torch.rand(x.shape, generator=gen)).to(cuda_device) for x in latents)
+    for kw in (
+        dict(T=0, warm_T=8, capture_stride=3, loss="bernoulli_mask", mask_perc=0.5,
+             emit_warm_opt_state=True, warm_mu=mu, warm_nu=nu, warm_count=7,
+             return_scalars=True),
+        dict(T=11, warm_T=4, scalar_stride=4, loss="bernoulli_mask", mask_perc=0.5,
+             emit_warm_opt_state=True, return_scalars=True, with_pgrads=True, mixing=3),
+    ):
+        kw = dict(kw, lr=0.03)
+        c = chain_mod._chain_args(params, latents, target, 9, **kw)
+        plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+        assert plan.rows == rows
+        got = chain_mod._kernel(c, params, latents, target, plan=plan,
+                                warm_mu=kw.get("warm_mu"), warm_nu=kw.get("warm_nu"))
+        want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+        _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+def test_capture_at_the_training_batch(cuda_device):
+    """B = 256: 15 clusters of 18 rows, every step captured."""
+    params, latents, target = _case(FID, 256, cuda_device)
+    kw = dict(T=12, warm_T=3, lr=0.03, capture_stride=1, return_scalars=True)
+    got = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    assert got[2].shape == (12, 256, 384)
+    _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+def test_continuation_in_three_calls_matches_one_call(cuda_device):
+    """Warm 4 + 5 + 6 steps handing the Adam state on equal 15 steps in one
+    launch, to rounding: the bias powers resume at b^(count+1)."""
+    params, latents, target = _case(FID, 37, cuda_device)
+    kw = dict(T=0, lr=0.03, warm_lr=0.1, emit_warm_opt_state=True)
+    one = chain_mod.mcpc_chain(params, latents, target, 9, warm_T=15, **kw)
+    lat, count, state = latents, 0, None
+    _, offs, _ = chain_mod.aligned_layout(FID[:3])
+    for steps in (4, 5, 6):
+        extra = {}
+        if state is not None:
+            extra = dict(warm_count=count, **{
+                name: tuple(m[:, o : o + d] for o, d in zip(offs, FID[:3]))
+                for name, m in zip(("warm_mu", "warm_nu"), state)})
+        lat, _, state = chain_mod.mcpc_chain(params, lat, target, 9, warm_T=steps,
+                                             **kw, **extra)
+        count += steps
+    for u, v in zip(lat, one[0]):
+        torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
+    for a, b in zip(state, one[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))

@@ -316,29 +316,44 @@ def test_sum_block_partials_cpu_is_the_ordered_sum():
         chain_mod.sum_block_partials(partials[0])
 
 
+_MU = tuple(np.zeros((8, d), np.float32) for d in (4, 8, 8))
+
+# Every option the port did not take at first, by name: the ones still
+# unported raise NotImplementedError naming their ROADMAP.md item; the
+# ported ones raise the JAX wrapper's ValueError when misused, like it.
 UNPORTED = {
-    "capture_stride": 2,
-    "scalar_stride": 2,
-    "output_var": 1.0,
-    "mask_perc": 0.5,
-    "bf16_matmul": True,
-    "warm_mu": (),
-    "warm_nu": (),
-    "warm_count": 1,
-    "emit_warm_opt_state": True,
-    "activation": "tanh",
-    "loss": "bernoulli_mask",
+    "capture_stride": (dict(T=0, capture_stride=2), ValueError, "requires steps"),
+    "scalar_stride": (dict(scalar_stride=2), ValueError, "return_scalars"),
+    "output_var": (dict(output_var=1.0), NotImplementedError, "ROADMAP.md"),
+    "mask_perc": (dict(loss="gaussian_mask"), ValueError, "mask_perc"),
+    "bf16_matmul": (dict(bf16_matmul=True), NotImplementedError, "ROADMAP.md"),
+    "warm_mu": (dict(warm_mu=_MU, warm_nu=_MU, warm_count=1), ValueError, "warm_T > 0"),
+    "warm_nu": (dict(warm_T=2, warm_mu=_MU, warm_count=1), ValueError, "warm_nu"),
+    "warm_count": (dict(warm_T=2, warm_mu=_MU, warm_nu=_MU), ValueError, "warm_count"),
+    "emit_warm_opt_state": (dict(emit_warm_opt_state=True), ValueError, "warm_T > 0"),
+    "activation": (dict(activation="tanh"), NotImplementedError, "ROADMAP.md"),
+    "loss": (dict(loss="bernoulli_mask"), ValueError, "mask_perc"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_options_raise(name):
+    kw, error, match = UNPORTED[name]
     params_np, latents, target = _inputs()
     p, x, y = (params_from_numpy(params_np, "cpu"),
                latents_from_numpy(latents, "cpu"), torch.from_numpy(target))
+    tkw = {k: tuple(torch.from_numpy(m) for m in v) if k in ("warm_mu", "warm_nu") else v
+           for k, v in kw.items()}
     for fn in (chain_mod.mcpc_chain, chain_mod.mcpc_chain_reference):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(p, x, y, 0, T=2, lr=0.1, **{name: UNPORTED[name]})
+        with pytest.raises(error, match=match):
+            fn(p, x, y, 0, **dict(dict(T=2, lr=0.1), **tkw))
+    if error is ValueError:  # the JAX wrapper refuses the same call
+        jkw = {k: tuple(jnp.asarray(m) for m in v) if k in ("warm_mu", "warm_nu") else v
+               for k, v in kw.items()}
+        with pytest.raises(ValueError, match=match):
+            mcpc_chain_pallas(params_np, tuple(jnp.asarray(v) for v in latents),
+                              jnp.asarray(target), jnp.int32(0),
+                              **dict(dict(T=2, lr=0.1), **jkw), interpret=True)
 
 
 def test_invalid_arguments_raise():

@@ -1,5 +1,6 @@
-"""The port's Adam parameter step (``core/optim.py``) against ``optax.adam``
-on the same numpy parameters and gradients.
+"""The port's Adam (``OptimizerSpec("adam").make()`` in ``core/optim.py``,
+the parameter step of ``train_mcpc``) against ``optax.adam`` on the same
+numpy parameters and gradients.
 
 Tolerance: atol 1e-7 on parameters of size ~0.1 after 5 steps of lr 0.01
 (both sides do the same f32 operations in the same order; what may differ is
@@ -43,21 +44,22 @@ def test_adam_step_matches_optax(lr, b1, b2, eps):
     jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
     jstate = opt.init(jparams)
     tparams = params_from_numpy(params_np, "cpu")
-    tstate = optim.adam_init(tparams)
+    tx = optim.OptimizerSpec("adam", lr=lr, betas=(b1, b2), eps=eps).make()
+    tstate = tx.init(tparams)
     for step, g in enumerate(grads_np, start=1):
         updates, jstate = opt.update(jax.tree_util.tree_map(jnp.asarray, g), jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
         before = tparams
-        tparams, tstate = optim.adam_step(tparams, params_from_numpy(g, "cpu"), tstate,
-                                          lr, b1=b1, b2=b2, eps=eps)
-        assert tstate.count == step == int(jstate[0].count)
+        tupdates, tstate = tx.update(params_from_numpy(g, "cpu"), tstate, tparams)
+        tparams = optim.apply_updates(tparams, tupdates)
+        assert tstate[0].count == step == int(jstate[0].count)
         for i in range(4):
             for k in ("w", "b"):
                 np.testing.assert_allclose(tparams[i][k].numpy(), np.asarray(jparams[i][k]),
                                            rtol=0, atol=1e-7)
-                np.testing.assert_allclose(tstate.mu[i][k].numpy(),
+                np.testing.assert_allclose(tstate[0].mu[i][k].numpy(),
                                            np.asarray(jstate[0].mu[i][k]), rtol=1e-6, atol=0)
-                np.testing.assert_allclose(tstate.nu[i][k].numpy(),
+                np.testing.assert_allclose(tstate[0].nu[i][k].numpy(),
                                            np.asarray(jstate[0].nu[i][k]), rtol=1e-6, atol=0)
         # the step is pure: its arguments are untouched
         assert before is not tparams and not torch.equal(before[1]["w"], tparams[1]["w"])
@@ -69,12 +71,15 @@ def test_adam_first_step_is_lr_times_sign():
     rounding noise can still move a parameter by lr."""
     p = ({"w": torch.zeros(3), "b": torch.zeros(1)},)
     g = ({"w": torch.tensor([1e-3, -50.0, 0.0]), "b": torch.tensor([2.0])},)
-    new, state = optim.adam_step(p, g, optim.adam_init(p), lr=0.01)
+    tx = optim.OptimizerSpec("adam", lr=0.01).make()
+    updates, state = tx.update(g, tx.init(p), p)
+    new = optim.apply_updates(p, updates)
     np.testing.assert_allclose(new[0]["w"].numpy(), [-0.01, 0.01, 0.0], rtol=1e-4)
-    assert state.count == 1
+    assert state[0].count == 1
 
 
 def test_adam_step_refuses_mismatched_grads():
     p = ({"w": torch.zeros(3), "b": torch.zeros(1)},)
+    tx = optim.OptimizerSpec("adam", lr=0.01).make()
     with pytest.raises(ValueError, match="structure"):
-        optim.adam_step(p, ({"w": torch.zeros(3)},), optim.adam_init(p), lr=0.01)
+        tx.update(({"w": torch.zeros(3)},), tx.init(p), p)

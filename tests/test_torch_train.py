@@ -13,7 +13,6 @@ import torch
 import montecarlopredictivecoding_tpu as mcpc
 from montecarlopredictivecoding_tpu.experiments import train_mnist as jtrain
 from montecarlopredictivecoding_tpu.ops import mcpc_chain_pallas
-from montecarlopredictivecoding_tpu_torch.core import optim
 from montecarlopredictivecoding_tpu_torch.data import mnist as tmnist
 from montecarlopredictivecoding_tpu_torch.experiments import train_mnist as ttrain
 from montecarlopredictivecoding_tpu_torch.models import get_model
@@ -75,7 +74,7 @@ def test_one_batch_matches_jax_over_three_batches():
     jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
     jstate = opt.init(jparams)
     tparams = params_from_numpy(params_np, "cpu")
-    tstate = optim.adam_init(tparams)
+    tstate = ttrain.param_optimizer(config).init(tparams)
     for batch in range(3):
         lat = tuple(rng.uniform(-10, 10, (B, d)).astype(np.float32) for d in DIMS[:3])
         data = (rng.random((B, DIMS[3])) > 0.5).astype(np.float32)
@@ -100,7 +99,7 @@ def test_one_batch_matches_jax_over_three_batches():
         before = tparams
         tparams, tstate = ttrain.one_batch(tparams, tstate, tlat, seed, tdata,
                                            config=config)
-        assert tstate.count == batch + 1
+        assert tstate[0].count == batch + 1
         assert torch.equal(before[0]["w"], tparams[0]["w"])  # gW0 is zero
         assert not torch.equal(before[3]["w"], tparams[3]["w"])
     for i in range(4):
