@@ -28,6 +28,15 @@ Phase 1  also holds the chain's options against the plain version, at full
          calls that hand the moments on, against one call; then, at B=1024
          (4 waves of 18-row clusters), a masked, captured Langevin chain and
          a short Adam chain that hands its moments out.
+Phase 1  also holds tanh and the output-PC site against the plain version by
+(tanh,   the same rule, at B=37 (4 rows a cluster) and B=256 (18 rows; 10 at
+output   30-256-256-784): tanh at 20-128-128-784 and at the mse preset's
+PC)      30-256-256-784, on 50 Adam steps and 100 Langevin steps: with
+         gradients, warm-only with ``warm_pgrads``, masked and captured,
+         masked with scalars every 7 steps; and the output-PC site at
+         20-128-128-784 in three calls, each from the kernel's last output: a
+         warm phase that hands its moments out, a continuation from them,
+         then Langevin steps with noise, gradients and captures (``traj3``).
 Phase 2  drives the serving path at full width through the entry points a
          user calls: ``get_model`` -> ``get_mnist_data`` -> ``init_latents``
          -> ``mcpc_chain``, for (a) the bench chain (B=256, T=10000,
@@ -72,6 +81,30 @@ Phase 4  drives the figure-2 masked-digit posterior (panels c, d) at full
          to 200 warm and 500 Langevin steps.  Last, it times the MCPC chain
          alone with and without its captures.
 
+Phase 5  drives this slice's paths at full width (synthetic MNIST; the
+         checkpoints in ``models/``), with the counts zeroed just before and
+         read just after: PC training (``train_mnist.train_pc``, preset ml,
+         25-128-128-784 tanh, B=128, 10 batches), the masked-reconstruction
+         MSE (``eval.metrics.get_mse_rec``) of ``pc_mse_1`` (30-256-256-784
+         tanh) and ``mcpc_mse_1`` (10-256-256-784 relu) on 2 test batches of
+         1024, the marginal likelihood (``get_marginal_likelihood``, 5000
+         samples) of ``pc_ml_1`` and ``mcpc_ml_1`` on 2 validation batches of
+         1024, the output-PC joint sampler (figure 3's recipe on the fid
+         model with a trailing PC site and ``mcpc_fid_3``'s parameters,
+         B=256, 250 Adam steps at lr 0.7 then 10,000 Langevin steps at
+         JOINT_LR, through ``PCTrainer``), and figure 3 (``experiments/figure_3.py``): panel a
+         (the 1-D model, in the step engine, at SCALE_3A of its steps) and
+         panel b (B=1, 250 + 1000 + 30000 steps, captured outputs); nothing
+         is drawn.  Every ``PCTrainer`` call but panel a's must take the
+         kernel.  It prints each call's time (CUDA events) beside its bound.
+         The first PC training batch, each model's first MSE batch, the
+         joint sampler's and panel b's chains run again on their recorded
+         inputs (the same bits) and are held against the plain version in
+         f32 and float64 like phase 1: a Langevin chain cut to 500 steps, an
+         Adam chain at the longest of 250, 200, 50, 20, 5, 2, 1 steps where
+         the plain f32 version stays within P1_ATOL of float64 (none: not
+         held, and said so).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -105,6 +138,7 @@ MODEL_CONFIG = {
 BATCH = 256
 SEED = 1234
 FID, MSE = (20, 128, 128, 784), (10, 256, 256, 784)
+PC_ML, PC_MSE = (25, 128, 128, 784), (30, 256, 256, 784)   # the tanh presets
 CHAIN_A = dict(T=10000, lr=0.01, noise_var=2.0, loss="bernoulli")
 CHAIN_B = dict(T=10000, lr=0.03, noise_var=2.0, loss="bernoulli",
                warm_T=2000, warm_lr=0.1)
@@ -148,6 +182,18 @@ P1_ATOL, P1_RTOL, P1_GRAD_REL = 1e-4, 1e-5, 2e-5
 P1_MOMENT_REL = 2e-5   # Adam moments, relative to their tensor's largest entry
 P2_ATOL, P2_RTOL = 2e-3, 1e-4
 P3_CLEAR, P3_PARAM_ATOL = 1e-3, 1e-6
+
+# tanh and the output-PC site in phase 1: 50 Adam steps, 100 Langevin steps
+TANH_CHAIN = dict(warm_T=50, warm_lr=0.1, T=100, lr=0.03, noise_var=2.0,
+                  activation="tanh")
+OUT_PC = dict(output_var=0.5, loss="none")
+# phase 5: PC training batches, the batches of each metric, figure 3a's scale
+# (its 10,250 steps run one small autograd step at a time on the host)
+PC_TRAIN_BATCHES, EVAL_BATCHES, ML_SAMPLES, SCALE_3A = 10, 2, 5000, 0.2
+# the joint sampler's Langevin step: with the output site's variance 1, x2
+# sees the curvature sigma_max(W3)^2 = 4478 of mcpc_fid_3, so a step above
+# 2 / 4478 diverges (at lr 0.1 the latents pass 1e6 within 30 steps)
+JOINT_LR = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -243,7 +289,7 @@ def grad_rel(ga, gb) -> float:
 
 def to_double(params, latents, target):
     return (tuple({k: v.double() for k, v in p.items()} for p in params),
-            tuple(x.double() for x in latents), target.double())
+            tuple(x.double() for x in latents), None if target is None else target.double())
 
 
 def moment_rel(ma, mb) -> float:
@@ -253,13 +299,29 @@ def moment_rel(ma, mb) -> float:
 
 def option_parts(out, kw) -> dict:
     """The named parts of a chain's result: latents, pgrads and, with their
-    options, the trajectory, the scalars and the Adam moments."""
+    options, the trajectory (and the output-PC site's), the scalars and the
+    Adam moments."""
     parts, rest = {"latents": out[0], "pgrads": out[1]}, list(out[2:])
-    for name, on in (("traj", kw.get("capture_stride")), ("scalars", kw.get("return_scalars")),
+    out_pc = kw.get("output_var") is not None
+    for name, on in (("traj", kw.get("capture_stride")),
+                     ("traj3", kw.get("capture_stride") and out_pc),
+                     ("scalars", kw.get("return_scalars")),
                      ("moments", kw.get("emit_warm_opt_state"))):
         if on:
             parts[name] = rest.pop(0)
     return parts
+
+
+def off_prediction(torch, latents, generator):
+    """The latents with x3 moved at least one unit off its prediction, away
+    or towards it at random.  Where |x3 - logits| is within the rounding of
+    two different sums of the logits, the first Adam step on x3 (lr *
+    sign(x3 - logits)) follows that rounding and the chains part by up to
+    2 lr; at the prediction itself every element is such a case, and with an
+    offset of N(0, 1) about one element in 10^5 is.  The kernel is held to
+    its plain version where the chain is a function of its inputs."""
+    z = torch.randn(latents[3].shape, generator=generator).to(latents[3].device)
+    return latents[:3] + (latents[3] + torch.where(z >= 0, 1.0 + z, z - 1.0),)
 
 
 def grads_equal(torch, ga, gb) -> bool:
@@ -279,7 +341,7 @@ def bits_equal(torch, a, b) -> bool:
 
 
 class ChainRecorder:
-    """Stands in for ``ops.mcpc_chain.mcpc_chain`` while phase 4 runs: it
+    """Stands in for ``ops.mcpc_chain.mcpc_chain`` while phases 4 and 5 run: it
     keeps a copy of each call's inputs and options, its result but the
     trajectory (so the caching allocator sees what it sees without the
     recorder), the CUDA events around the call and the device-memory
@@ -315,6 +377,7 @@ class ChainRecorder:
         end.record()
         parts = option_parts(out, kw)
         parts.pop("traj", None)
+        parts.pop("traj3", None)
         self.calls.append(dict(inputs=inputs, kw=kept, parts=parts, events=(start, end),
                                new_segments=self._segments() - segments))
         return out
@@ -358,6 +421,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     sources = ["mcpc_chain", "mcpc_chain_unpacked"]
     lib_paths = _build.build_all(sources)
@@ -385,7 +449,8 @@ def main() -> int:
         return chain.chain_plan(dims, B, warm=kw.get("warm_T", 0) > 0,
                                 with_pgrads=kw.get("with_pgrads", False),
                                 budget=chain.smem_budget(dev),
-                                max_clusters=chain.max_active_clusters(dev))
+                                max_clusters=chain.max_active_clusters(dev),
+                                output_pc=kw.get("output_var") is not None)
 
     def plan_text(dims, B, kw):
         plan = chain_plan(dims, B, kw)
@@ -508,24 +573,32 @@ def main() -> int:
               return_scalars=True, capture_stride=5)),
     ]
     _, offs, XW = chain.aligned_layout(FID[:3])
-    pad_lanes = torch.ones(XW, dtype=torch.bool, device=dev)
-    for o, d in zip(offs, FID[:3]):
-        pad_lanes[o : o + d] = False
 
-    def held(name, got, ref, ref64, kw):
+    def pad_lanes_of(dims):
+        """The pad lanes of the aligned packed layout of ``dims``' latents."""
+        _, offsets, width = chain.aligned_layout(dims[:3])
+        lanes = torch.ones(width, dtype=torch.bool, device=dev)
+        for o, d in zip(offsets, dims[:3]):
+            lanes[o : o + d] = False
+        return lanes
+
+    def held(name, got, ref, ref64, kw, dims=FID):
         """Compare every part of a result: (the report, what failed)."""
         gp, rp, r64 = (option_parts(o, kw) for o in (got, ref, ref64))
         line, failed = [], []
         for part, err, allow in (("latents", max_abs, P1_ATOL), ("traj", max_abs, P1_ATOL),
+                                 ("traj3", max_abs, P1_ATOL),
                                  ("scalars", scalar_rel, P1_RTOL),
                                  ("pgrads", grad_rel, P1_GRAD_REL),
                                  ("moments", moment_rel, P1_MOMENT_REL)):
             if part not in gp or gp[part] is None:
                 continue
-            if part == "traj":
+            if part in ("traj", "traj3"):
                 a, b, c = ([x] for x in (gp[part], rp[part], r64[part]))
-                if bool(gp[part][:, :, pad_lanes].any()):
-                    failed.append(f"{name}: pad lanes of the trajectory are not 0")
+                pads = (gp[part][:, :, pad_lanes_of(dims)] if part == "traj"
+                        else gp[part][:, :, dims[3]:])
+                if bool(pads.any()):
+                    failed.append(f"{name}: pad lanes of the {part} captures are not 0")
             else:
                 a, b, c = gp[part], rp[part], r64[part]
             e, e64, p64 = err(a, b), err(a, c), err(b, c)
@@ -578,6 +651,76 @@ def main() -> int:
           f"Adam state on, against one call: B={OPT_B} {text}")
     check(not failed, "phase 1 " + "; ".join(failed))
 
+    # tanh and the output-PC site, held by the same rule
+    tanh_cases = [
+        ("warm + Langevin, gradients over the last 50 steps",
+         dict(TANH_CHAIN, with_pgrads=True, mixing=50, return_scalars=True)),
+        ("warm-only, warm_pgrads",
+         dict(TANH_CHAIN, T=0, with_pgrads=True, warm_pgrads=True, return_scalars=True)),
+        ("masked perc 0.5, every step captured",
+         dict(TANH_CHAIN, loss="bernoulli_mask", mask_perc=0.5, capture_stride=1,
+              return_scalars=True)),
+        ("masked perc 0.5, scalars every 7 steps",
+         dict(TANH_CHAIN, loss="bernoulli_mask", mask_perc=0.5, scalar_stride=7,
+              return_scalars=True)),
+    ]
+    for dims in (FID, PC_MSE):
+        for B in (OPT_B, BATCH):
+            p_in, l_in, t_in = random_case(dims, B)
+            for name, kw in tanh_cases:
+                got = chain.mcpc_chain(p_in, l_in, t_in, SEED, **kw)
+                torch.cuda.synchronize()
+                ref = chain.mcpc_chain_reference(p_in, l_in, t_in, SEED, **kw)
+                ref64 = chain.mcpc_chain_reference(*to_double(p_in, l_in, t_in), SEED, **kw)
+                text, failed = held(f"tanh {name}", got, ref, ref64, kw, dims)
+                print(f"phase 1: tanh, {name}: {'-'.join(map(str, dims))} B={B} "
+                      f"[{plan_text(dims, B, kw)}] {text}")
+                check(not failed, "phase 1 " + "; ".join(failed))
+                del got, ref, ref64
+
+    def output_pc_case(B):
+        """The fid model with a trailing PC site, x3 at least one unit off
+        its prediction."""
+        model = port.make_mlp_model(*FID, output_pc=port.PC(
+            energy_fn=port.scaled_gaussian_energy(OUT_PC["output_var"])))
+        params = model.init(gen, device=dev)
+        lat = model.init_latents(params, torch.zeros(B, FID[0], device=dev), gen)
+        return params, off_prediction(torch, lat, gen)
+
+    def out_moments(m):
+        """(m, v, m3, v3) as handed out -> the per-latent moments a call takes."""
+        return {key: tuple(t[:, o : o + d] for o, d in zip(offs, FID[:3])) + (t3[:, :FID[3]],)
+                for key, t, t3 in (("warm_mu", m[0], m[2]), ("warm_nu", m[1], m[3]))}
+
+    for B in (OPT_B, BATCH):
+        p_in, lat = output_pc_case(B)
+        stage_kw = dict(OUT_PC, warm_T=50, warm_lr=0.1, T=0, lr=0.05, emit_warm_opt_state=True,
+                        return_scalars=True)
+        for name in ("warm phase handing its moments out", "continuation from them",
+                     "Langevin steps with noise, gradients and captures"):
+            got = chain.mcpc_chain(p_in, lat, None, SEED, **stage_kw)
+            torch.cuda.synchronize()
+            ref = chain.mcpc_chain_reference(p_in, lat, None, SEED, **stage_kw)
+            ref64 = chain.mcpc_chain_reference(*to_double(p_in, lat, None), SEED,
+                                               **doubled(stage_kw))
+            text, failed = held(f"output-PC {name}", got, ref, ref64, stage_kw)
+            print(f"phase 1: output-PC site, {name}: B={B} warm {stage_kw.get('warm_T', 0)} + "
+                  f"T {stage_kw['T']} [{plan_text(FID, B, stage_kw)}] {text}")
+            check(not failed, "phase 1 " + "; ".join(failed))
+            check(len(got[0]) == 4 and tuple(got[0][3].shape) == (B, FID[3]),
+                  f"phase 1 output-PC {name}: no x3 of [{B}, {FID[3]}]")
+            lat, parts = got[0], option_parts(got, stage_kw)
+            if "moments" in parts:   # the next call resumes them
+                stage_kw = dict(OUT_PC, warm_T=30, warm_lr=0.1, T=0, lr=0.05,
+                                emit_warm_opt_state=True, return_scalars=True,
+                                warm_count=stage_kw.get("warm_count", 0) + stage_kw["warm_T"],
+                                **out_moments(parts["moments"]))
+            if name.startswith("continuation"):
+                stage_kw = dict(OUT_PC, T=100, lr=0.05, noise_var=2.0, with_pgrads=True,
+                                mixing=50, capture_stride=5, return_scalars=True)
+            del got, ref, ref64
+
+    print(f"phase 1 ends at {time.perf_counter() - t_start:.1f} s")
     # ---------------------------------------------------------- phase 2
     gen_model = get_model(MODEL_CONFIG, SEED, device=dev)
     params = gen_model.params
@@ -657,6 +800,7 @@ def main() -> int:
     print("phase 2: library_ms null: no single PyTorch call computes a "
           "whole Langevin chain")
 
+    print(f"phase 2 ends at {time.perf_counter() - t_start:.1f} s")
     # ---------------------------------------------------------- phase 3
     config = train_mnist.mcpc_training_config()
     sampling = config["sampling"]
@@ -782,6 +926,7 @@ def main() -> int:
           f"{1e3 * (chain_pg_ms - chain_nopg_ms) / sampling:.3f} us each; the Adam step and "
           f"the rest of one_batch {train_ms - chain_pg_ms:.3f} ms {tag}")
 
+    print(f"phase 3 ends at {time.perf_counter() - t_start:.1f} s")
     # ---------------------------------------------------------- phase 4
     from montecarlopredictivecoding_tpu_torch.core.trainer import PCTrainer
     from montecarlopredictivecoding_tpu_torch.experiments import common, figure_2
@@ -921,7 +1066,280 @@ def main() -> int:
           f"(the trajectory's scalars recomputed included), no capture {nocap_ms:.3f} ms, "
           f"{1e3 * nocap_ms / mc_kw['T']:.3f} us/step {tag}")
 
-    launches = [s + t + f for s, t, f in zip(serve_counts, train_counts, fig_counts)]
+    print(f"phase 4 ends at {time.perf_counter() - t_start:.1f} s")
+    # ---------------------------------------------------------- phase 5
+    from montecarlopredictivecoding_tpu_torch.core.trainer import LangevinStep
+    from montecarlopredictivecoding_tpu_torch.eval import metrics
+    from montecarlopredictivecoding_tpu_torch.experiments import figure_3
+    from montecarlopredictivecoding_tpu_torch.models import get_mcpc_trainer, get_pc_trainer
+
+    for name in ("pc_mse_1", "mcpc_mse_1", "pc_ml_1", "mcpc_ml_1", "mcpc_fid_3"):
+        check(os.path.isfile(os.path.join(here, "models", name + ".msgpack")),
+              f"models/{name}.msgpack is missing")
+
+    def eval_config(dims, activation, lr):
+        """Table 1's MSE and ML configurations (experiments/table_1.py of the
+        JAX package): 250 Adam MAP steps at ``lr``, Bernoulli, B=1024."""
+        return {"batch_size_train": 128, "batch_size_val": 1024, "batch_size_test": 1024,
+                "input_size": dims[0], "hidden_size": dims[1], "hidden2_size": dims[2],
+                "output_size": dims[3], "loss_fn": port.bernoulli_fn,
+                "activation_fn": activation, "input_var": None, "T_pc": 250,
+                "optimizer_x_fn_pc": "adam", "optimizer_x_kwargs_pc": {"lr": lr}}
+
+    mse_models = [("pc_mse_1", eval_config(PC_MSE, "tanh", 0.7), PC_MSE),
+                  ("mcpc_mse_1", eval_config(MSE, "relu", 0.7), MSE)]
+    ml_models = [("pc_ml_1", eval_config(PC_ML, "tanh", 0.3)),
+                 ("mcpc_ml_1", eval_config(FID, "relu", 0.7))]
+    _, val_split, test_split = get_mnist_data(mse_models[0][1], device=dev)
+    test_batches = [b for _, b in zip(range(EVAL_BATCHES), test_split)]
+    val_batches = [b for _, b in zip(range(EVAL_BATCHES), val_split)]
+    check(all(tuple(x.shape) == (1024, 784) for x, _ in test_batches + val_batches),
+          "an evaluation batch is not [1024, 784]")
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    calls = []
+    recorder = ChainRecorder(torch, chain.mcpc_chain)
+    PCTrainer.train_on_batch = timed
+    chain.mcpc_chain = recorder
+    parts5, times5 = {}, {}
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+
+        def part(name, fn):
+            """Run one path; remember its PCTrainer calls and its time."""
+            first = len(calls)
+            start, end = events()
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            parts5[name] = (first, len(calls))
+            times5[name] = start.elapsed_time(end)
+            return out
+
+        trained = part("PC training", lambda: train_mnist.train_pc(
+            1, os.path.join(here, "build", "chip_smoke", "pc_ml_smoke.msgpack"),
+            seed=SEED, batches_per_epoch=PC_TRAIN_BATCHES, log=False, preset="ml",
+            device=dev))
+        mse = {}
+        for name, cfg, _ in mse_models:
+            gen_e = common.load_generative_checkpoint(ctx, name, cfg)
+            mse[name] = part(f"MSE-rec {name}",
+                             lambda: metrics.get_mse_rec(gen_e, cfg, test_batches))
+        ml = {}
+        for name, cfg in ml_models:
+            gen_e = common.load_generative_checkpoint(ctx, name, cfg)
+            ml[name] = part(f"ML {name}", lambda: metrics.get_marginal_likelihood(
+                gen_e, cfg, val_batches, n_samples=ML_SAMPLES,
+                generator=torch.Generator().manual_seed(SEED + 5)))
+
+        # the output-PC joint sampler: figure 3's recipe at MNIST width
+        joint_cfg = dict(MODEL_CONFIG, loss_fn=port.zero_fn, T_pc=250,
+                         optimizer_x_fn_pc="adam", optimizer_x_kwargs_pc={"lr": 0.7},
+                         mixing=0, sampling=10000, optimizer_x_kwargs_mcpc={"lr": JOINT_LR})
+        joint = get_model(joint_cfg, SEED, device=dev, output_pc=port.PC(
+            energy_fn=port.scaled_gaussian_energy(1.0)))
+        joint.params = load_checkpoint(os.path.join(here, "models", "mcpc_fid_3.msgpack"),
+                                       joint.params, device=dev)
+        check(chain.output_pc_var(joint.model) == 1.0, "the joint sampler has no output-PC site")
+        pseudo_j = torch.zeros(BATCH, FID[0], device=dev)
+
+        def joint_sampler():
+            get_pc_trainer(joint, joint_cfg, is_mcpc=True, training=False).train_on_batch(
+                pseudo_j, loss_fn=None)
+            return get_mcpc_trainer(joint, joint_cfg, training=False).train_on_batch(
+                pseudo_j, loss_fn=None, callback_after_t=LangevinStep(var=2.0),
+                is_sample_x_at_batch_start=False, is_return_results_every_t=False)
+
+        joint_res = part("joint sampler", joint_sampler)
+        fig_ctx = common.ExperimentContext(os.path.join(here, "models"),
+                                           os.path.join(here, "build", "chip_smoke", "figures"),
+                                           scale=1.0, device="cuda")
+        fig3b = part("figure 3b", lambda: figure_3.generation_non_linear_model(fig_ctx))
+        torch.cuda.synchronize()
+        counts5 = read_counts()
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+        chain.mcpc_chain = recorder.fn
+    # figure 3a's model is outside the chain's family: the step engine runs it
+    engine_before = chain.mcpc_chain.launches
+    t3a = time.perf_counter()
+    fig3a = figure_3.generation_linear_model(
+        common.ExperimentContext(fig_ctx.path_models, fig_ctx.path_figures, scale=SCALE_3A,
+                                 device="cuda"))
+    torch.cuda.synchronize()
+    t3a = time.perf_counter() - t3a
+    check(chain.mcpc_chain.launches == engine_before, "figure 3a launched the chain kernel")
+
+    trainers5 = {id(c["trainer"]): c["trainer"] for c in calls}.values()
+    fallbacks5 = sum(t.engine_calls for t in trainers5)
+    print(f"phase 5: main path launches: mcpc_chain {counts5[0]}, sum_block_partials "
+          f"{counts5[2]}; PCTrainer calls {len(calls)}, engine fallbacks {fallbacks5}")
+    expect = {"PC training": PC_TRAIN_BATCHES, "MSE-rec pc_mse_1": EVAL_BATCHES,
+              "MSE-rec mcpc_mse_1": EVAL_BATCHES, "ML pc_ml_1": 0, "ML mcpc_ml_1": 0,
+              "joint sampler": 2, "figure 3b": 2}
+    for name, n in expect.items():
+        a, b = parts5[name]
+        check(b - a == n, f"phase 5 {name}: {b - a} PCTrainer calls, expected {n}")
+    check(fallbacks5 == 0 and all(c["kernel"] for c in calls),
+          "a phase-5 PCTrainer call ran in the step engine")
+    check(counts5[0] == len(calls) == len(recorder.calls),
+          f"{counts5[0]} launches for {len(calls)} PCTrainer calls")
+    # a summing pass for each call's gradients and one for its scalar slots
+    sums5 = sum(bool(r["kw"].get("with_pgrads")) + bool(r["kw"].get("scalar_stride"))
+                for r in recorder.calls)
+    check(counts5[2] == sums5 and sums5 >= PC_TRAIN_BATCHES,
+          f"{counts5[2]} summing passes for {sums5} calls with gradients or scalar slots")
+
+    bounds5 = {"PC training": (PC_ML, 128, 250, 1), "MSE-rec pc_mse_1": (PC_MSE, 1024, 250, 0),
+               "MSE-rec mcpc_mse_1": (MSE, 1024, 250, 0), "joint sampler": (FID, BATCH, 0, 0),
+               "figure 3b": (FID, 1, 0, 0)}
+    for name, (a, b) in parts5.items():
+        for i in range(a, b):
+            c, rec = calls[i], recorder.calls[i]
+            dims, _, _, sampling = bounds5[name]
+            chain_call_ms = rec["events"][0].elapsed_time(rec["events"][1])
+            bound = chain_bound_ms(dims, c["B"], c["steps"], sampling)
+            print(f"phase 5: {name}, call {i - a + 1}: B={c['B']}, {c['steps']} {c['mode']} "
+                  f"steps, {c['ms']:.3f} ms, {1e3 * c['ms'] / c['steps']:.3f} us/step, bound "
+                  f"{bound:.3f} ms ({step_flops(dims, c['B']) * c['steps'] / 1e9:.2f} GFLOP, "
+                  f"operations); mcpc_chain {chain_call_ms:.3f} ms "
+                  f"[{plan_text(dims, c['B'], rec['kw'])}] {tag}")
+        print(f"phase 5: {name}: {times5[name]:.3f} ms in all (host work included) {tag}")
+
+    # what each path computed
+    for p_ in trained.params:
+        check(all(bool(torch.isfinite(v).all()) for v in p_.values()),
+              "PC training left a parameter not finite")
+    rec0 = recorder.calls[parts5["PC training"][0]]
+    check(not torch.equal(trained.params[3]["b"], rec0["inputs"][0][3]["b"]),
+          "PC training left b3 unchanged")
+    check(torch.equal(trained.params[0]["w"], rec0["inputs"][0][0]["w"]),
+          "PC training moved W0 although its gradient is zero")
+    for name, value in mse.items():
+        check(0.0 < value < 1.0, f"MSE-rec of {name} is {value}")
+    for name, value in ml.items():
+        check(np.isfinite(value) and value < 0.0, f"the marginal likelihood of {name} is {value}")
+    print(f"phase 5: masked-reconstruction MSE on {EVAL_BATCHES} x 1024 test images: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in mse.items())
+          + f"; marginal likelihood ({ML_SAMPLES} samples, {EVAL_BATCHES} x 1024 validation "
+          f"images): " + ", ".join(f"{k} {v:.3f} nats" for k, v in ml.items()))
+    x_j = joint.latents
+    check(len(x_j) == 4 and all(bool(torch.isfinite(x).all()) for x in x_j),
+          "the joint sampler's latents are not finite")
+    print(f"phase 5: joint sampler after 250 + 10000 steps: x0 (top latent) mean "
+          f"{float(x_j[0].mean()):.4f}, variance {float(x_j[0].var()):.4f}; x3 (sensory) mean "
+          f"{float(x_j[3].mean()):.4f}, variance {float(x_j[3].var()):.4f}; last step energy "
+          f"{float(joint_res['energy'][-1]):.1f}")
+    ims = fig3b["ims"]
+    check(ims.ndim == 3 and ims.shape[1:] == (28, 28) and bool(np.isfinite(ims).all())
+          and ims.min() >= 0.0 and ims.max() <= 1.0, f"figure 3b frames {ims.shape}")
+    check(abs(fig3a["mean"] - 1.0) < 0.5 and abs(fig3a["var"] - 5.0) < 2.0,
+          f"figure 3a marginal mean {fig3a['mean']} variance {fig3a['var']} (want 1, 5)")
+    print(f"phase 5: figure 3b: {ims.shape[0]} frames every {fig3b['stride']} steps, mean "
+          f"intensity {float(ims.mean()):.4f}; figure 3a (step engine, scale {SCALE_3A}, "
+          f"{len(fig3a['x0'])} samples): x0 mean {fig3a['mean']:.4f} (1.0), variance "
+          f"{fig3a['var']:.4f} (5.0), {t3a:.3f} s {tag}")
+
+    # chosen launches again on their recorded inputs (the same bits), then
+    # held against the plain version: a Langevin chain cut to 500 steps, as
+    # in phase 4; an Adam chain at the longest of a few lengths where the
+    # plain f32 version itself stays within P1_ATOL of float64.  Adam at
+    # lr 0.7 on trained weights leaves both f32 versions 0.3 to 7 from
+    # float64 within 250 steps, and there the rule would compare two
+    # roundings.  The length depends on the plain versions only.  Where even
+    # one step leaves the plain f32 version beyond P1_ATOL (an element whose
+    # first gradient lies within rounding of zero takes an Adam step of
+    # +-lr by its sign), the launch is not held; phase 1 holds that path.
+    held5 = [("PC training, batch 1", parts5["PC training"][0], PC_ML),
+             ("MSE-rec pc_mse_1, batch 1", parts5["MSE-rec pc_mse_1"][0], PC_MSE),
+             ("MSE-rec mcpc_mse_1, batch 1", parts5["MSE-rec mcpc_mse_1"][0], MSE),
+             ("joint sampler, PC warm start", parts5["joint sampler"][0], FID),
+             ("joint sampler, Langevin", parts5["joint sampler"][0] + 1, FID),
+             ("figure 3b, PC warm start", parts5["figure 3b"][0], FID),
+             ("figure 3b, Langevin", parts5["figure 3b"][0] + 1, FID)]
+    fig5_failed = []
+    for label, i, dims in held5:
+        rec = recorder.calls[i]
+        params_r, lat_r, target_r, seed_r = rec["inputs"]
+        kw = rec["kw"]
+        again = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **kw)
+        again_parts = option_parts(again, kw)
+        again_parts.pop("traj", None)
+        again_parts.pop("traj3", None)
+        same = bits_equal(torch, again_parts, rec["parts"])
+        if not same:
+            fig5_failed.append(f"{label}: the repeated launch differs")
+        del again, again_parts
+        # x3 starts at its prediction there (off_prediction says why the
+        # chain is held from x3 moved off it)
+        off = label == "joint sampler, PC warm start"
+        if off:
+            lat_r = off_prediction(torch, lat_r, torch.Generator().manual_seed(SEED + 6))
+        warm_only = kw["T"] == 0
+        steps = kw["warm_T"] if warm_only else kw["T"]
+        lengths = ([n for n in (250, 200, 50, 20, 5, 2, 1) if n <= steps] if warm_only
+                   else [min(500, steps)])
+        tried = []
+        for n in lengths:
+            short = dict(kw, **({"warm_T": n} if warm_only else
+                                {"T": n, "warm_T": min(kw.get("warm_T", 0), 200)}))
+            short["mixing"] = min(kw.get("mixing", 0), short["T"])
+            plain_ms, ref = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
+                params_r, lat_r, target_r, seed_r, **short), reps=1, warm_up=False)
+            ref64 = chain.mcpc_chain_reference(*to_double(params_r, lat_r, target_r), seed_r,
+                                               **doubled(short))
+            p64 = max_abs(ref[0], ref64[0])
+            tried.append(f"{n}: {p64:.2e}")
+            if p64 <= P1_ATOL or n == lengths[-1]:
+                break
+            del ref, ref64
+        if not warm_only:
+            p64 = 0.0   # a Langevin chain is held at its cut whatever the distance
+        shown = {k: v for k, v in kw.items() if k not in ("warm_mu", "warm_nu")}
+        head = (f"phase 5: {label}: options {shown}; the repeated launch gives the same "
+                f"bits: {same}; the plain f32 version's distance to float64 by length "
+                f"({', '.join(tried)})")
+        if p64 > P1_ATOL:
+            print(f"{head}; not held (the plain f32 version leaves float64 beyond "
+                  f"{P1_ATOL} in one step) {tag}")
+            del ref, ref64
+            continue
+        got = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **short)
+        text, failed = held(f"{label}, {n} steps", got, ref, ref64, short, dims)
+        print(f"{head}; held at {n} of {steps} steps"
+              f"{', x3 moved off its prediction' if off else ''}: {text}; the plain version "
+              f"{plain_ms:.3f} ms {tag}")
+        fig5_failed += failed
+        del got, ref, ref64
+    check(not fig5_failed, "phase 5 " + "; ".join(fig5_failed))
+
+    # tanh against relu on chain (a)'s inputs: the kernel (median of 3), the
+    # plain version cut to 1000 steps
+    tanh_a = dict(CHAIN_A, activation="tanh")
+    tanh_ms, out_tanh = cuda_ms(torch, lambda: chain.mcpc_chain(
+        params, latents, data, SEED, return_scalars=True, **tanh_a))
+    relu_ms, _ = cuda_ms(torch, run_a)
+    tanh_plain_ms, ref_t = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
+        params, latents, data, SEED, return_scalars=True, **dict(tanh_a, T=1000)),
+        reps=1, warm_up=False)
+    short_t = chain.mcpc_chain(params, latents, data, SEED, return_scalars=True,
+                               **dict(tanh_a, T=1000))
+    dx_t = max_abs(short_t[0], ref_t[0])
+    check(all(bool(torch.isfinite(x).all()) for x in out_tanh[0]), "tanh chain (a) not finite")
+    check(dx_t <= P2_ATOL, f"tanh chain (a), 1000 steps, latents differ by {dx_t}")
+    print(f"phase 5: chain (a) with tanh, B={BATCH} T={CHAIN_A['T']}: kernel {tanh_ms:.3f} ms, "
+          f"{1e3 * tanh_ms / CHAIN_A['T']:.3f} us/step; relu in the same run {relu_ms:.3f} ms "
+          f"({1e3 * relu_ms / CHAIN_A['T']:.3f} us/step); bound {bound_a:.3f} ms (operations); "
+          f"plain version at T=1000 {tanh_plain_ms:.3f} ms, max|dx| kernel-plain there "
+          f"{dx_t:.3e} (atol {P2_ATOL}) {tag}")
+
+    print(f"phase 5 ends at {time.perf_counter() - t_start:.1f} s")
+    launches = [s + t + f + g for s, t, f, g in zip(serve_counts, train_counts, fig_counts,
+                                                    counts5)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

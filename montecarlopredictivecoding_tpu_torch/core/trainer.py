@@ -23,17 +23,15 @@ import torch
 
 from .engine import EngineConfig, EngineState, build_train_on_batch, tree_scale
 from .model import PCModel
-from .modules import Activation, gaussian_energy
+from .modules import Activation, activation_fn, gaussian_energy
 from .optim import OptimizerSpec, ScaleByAdamState, apply_updates
 from .schedule import build_plan
 
 Tensor = torch.Tensor
 
 # what the JAX package's kernel takes and this port's does not yet: the
-# trainer raises for these instead of running them in the engine
+# trainer raises for it instead of running it in the engine
 _WAITING = {
-    "tanh": "queue 2 item e (tanh)",
-    "output_pc": "queue 2 item e (output-PC site)",
     "bf16": "queue 2, the bf16 opt-in",
 }
 _CANONICAL_KINDS = [
@@ -519,10 +517,6 @@ class PCTrainer:
     def _refuse_unported(self, dispatch: dict) -> None:
         """The JAX kernel would run this dispatch, the port's cannot yet."""
         waiting = []
-        if dispatch["activation"] == "tanh":
-            waiting.append("tanh")
-        if dispatch["output_var"] is not None:
-            waiting.append("output_pc")
         if self.use_kernel_bf16 is True:
             waiting.append("bf16")
         if waiting:
@@ -599,33 +593,50 @@ class PCTrainer:
                              warm_count=warm_cont[2])
         else:
             phase = dict(T=self.T, lr=lr_eff, noise_var=langevin_var)
+        output_pc = dispatch["output_var"] is not None
         outs = list(mcpc_chain(
             gen.params, gen.latents, target, seed,
             loss=dispatch["loss"], input_var=float(input_var),
             mixing=dispatch["mixing"], with_pgrads=dispatch["with_pgrads"],
             capture_stride=stride, scalar_stride=scalar_stride,
             activation=dispatch["activation"], return_scalars=True,
-            mask_perc=dispatch.get("mask_perc"), **phase,
+            mask_perc=dispatch.get("mask_perc"), output_var=dispatch["output_var"],
+            **phase,
         ))
         new_latents, pgrads = outs[0], outs[1]
-        traj = outs[2] if stride else None
-        scalars = outs[3 if stride else 2]
-        warm_mv = outs[-1] if dispatch["mode"] == "warm" else None
+        k = 2
+        traj = traj3 = None
+        if stride:
+            traj = outs[k]
+            k += 1
+            if output_pc:
+                traj3 = outs[k]
+                k += 1
+        scalars = outs[k]
+        warm_mv = outs[k + 1] if dispatch["mode"] == "warm" else None
         dims, (_, offs, _) = self._latent_layout()
+        D_out = gen.model.modules[gen.model.linear_indices[-1]].out_dim
         # the params in force DURING the chain (captures are pre-update)
         chain_last_linear = gen.params[-1]
         gen.latents = new_latents
         if warm_mv is not None:
-            def split(packed):
-                return tuple(packed[:, o : o + d].contiguous()
-                             for o, d in zip(offs, dims))
+            def split(packed, tail=None):
+                # aligned [B, XW] -> per-latent blocks, and the output-PC
+                # site's moments [B, pD] -> [B, D]
+                blocks = tuple(packed[:, o : o + d].contiguous()
+                               for o, d in zip(offs, dims))
+                if tail is not None:
+                    blocks += (tail[:, :D_out].contiguous(),)
+                return blocks
 
             # init through the spec so the state matches what the engine's
             # optimizer expects, then graft the chain's final moments into
             # its (unique) Adam state
             count = self.T + (warm_cont[2] if warm_cont is not None else 0)
-            grafted = ScaleByAdamState(count, {"latents": split(warm_mv[0])},
-                                       {"latents": split(warm_mv[1])})
+            grafted = ScaleByAdamState(
+                count,
+                {"latents": split(warm_mv[0], warm_mv[2] if output_pc else None)},
+                {"latents": split(warm_mv[1], warm_mv[3] if output_pc else None)})
 
             def graft(s):
                 if isinstance(s, ScaleByAdamState):
@@ -660,15 +671,23 @@ class PCTrainer:
         }
         if traj is not None:
             if dispatch.get("capture_xs"):
-                results["xs"] = tuple(traj[:, :, o : o + d] for o, d in zip(offs, dims))
+                xs = tuple(traj[:, :, o : o + d] for o, d in zip(offs, dims))
+                if output_pc:
+                    xs += (traj3[:, :, :D_out],)
+                results["xs"] = xs
             if dispatch.get("capture_representations"):
                 ri = cfg.rep_index
                 results["representations"] = traj[:, :, offs[ri] : offs[ri] + dims[ri]]
             if dispatch.get("capture_outputs"):
-                # outputs_t = act(x2_t) @ W3 + b3, the pre-update forward
-                x2 = traj[:, :, offs[2] : offs[2] + dims[2]]
-                results["outputs"] = (torch.relu(x2) @ chain_last_linear["w"]
-                                      + chain_last_linear["b"])
+                if output_pc:
+                    # the trailing PC site is the model's output in a
+                    # train-mode forward
+                    results["outputs"] = traj3[:, :, :D_out]
+                else:
+                    # outputs_t = act(x2_t) @ W3 + b3, the pre-update forward
+                    x2 = traj[:, :, offs[2] : offs[2] + dims[2]]
+                    results["outputs"] = (activation_fn(dispatch["activation"])(x2)
+                                          @ chain_last_linear["w"] + chain_last_linear["b"])
         return results
 
     # -- core entry point -------------------------------------------------------

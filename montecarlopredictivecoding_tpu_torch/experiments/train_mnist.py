@@ -1,23 +1,28 @@
-"""MNIST training entry point: MCPC through the fused chain kernel.
+"""MNIST training entry points: MCPC and PC through the fused chain kernel.
 
-Per batch: latents are sampled, one chain call runs the Adam MAP warm start
-on the latents (``T_pc`` steps), the Langevin chain (``mixing + sampling``
-steps) and the Hebbian gradient sums over the sampling steps, and one Adam
-step updates the parameters with the gradients divided by ``sampling·B``.
-On a CUDA device the chain is one launch of the hand-written kernel plus the
-pass that sums its blocks' partial gradients; there is no other path on the
-card.
+MCPC, per batch: latents are sampled, one chain call runs the Adam MAP warm
+start on the latents (``T_pc`` steps), the Langevin chain (``mixing +
+sampling`` steps) and the Hebbian gradient sums over the sampling steps, and
+one Adam step updates the parameters with the gradients divided by
+``sampling·B``.  On a CUDA device the chain is one launch of the
+hand-written kernel plus the pass that sums its blocks' partial gradients;
+there is no other path on the card.
+
+PC, per batch (``train_pc``): ``PCTrainer`` runs ``T_pc`` Adam MAP steps on
+the latents and takes the last step's parameter gradients (one chain launch
+with ``warm_pgrads``, and the summing pass), then one Adam step on the
+parameters.  The ``ml`` and ``mse`` presets are tanh models.
 
 Usage:
     python3 -m montecarlopredictivecoding_tpu_torch.experiments.train_mnist \\
         --model mcpc --epochs 10 --out models/mcpc_fid_1.msgpack
+    python3 -m ...train_mnist --model pc --preset ml --out models/pc_ml_1.msgpack
     python3 -m ...train_mnist --model mcpc --snapshot-epochs 0 5 10 \\
         --out models/epoch_save/mcpc_aging_0
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``--model pc`` and the engine path ``fused=False`` (queue 1 item 6),
-``--model dlgm`` (item 10), ``--model resnet9`` (item 5), ``--mesh`` (item
-8).
+item): the engine path ``fused=False`` (queue 1 item 6), ``--model dlgm``
+(item 10), ``--model resnet9`` (item 5), ``--mesh`` (item 8).
 """
 
 from __future__ import annotations
@@ -31,12 +36,12 @@ import torch
 from ..core.losses import bernoulli_fn
 from ..core.optim import OptimizerSpec, Transform, apply_updates
 from ..data import get_mnist_data
-from ..models.factory import get_model
+from ..models.factory import get_model, get_pc_trainer
 from ..ops.mcpc_chain import mcpc_chain
 from ..utils.checkpoint import save_checkpoint
 
+_ENGINE_ITEM = "queue 1 item 6 (the general engine and PCTrainer)"
 _WAITING = {
-    "pc": "queue 1 item 6 (the general engine and PCTrainer)",
     "dlgm": "queue 1 item 10 (the DLGM baselines)",
     "resnet9": "queue 1 item 5 (ResNet-9, with sample and score)",
     "resnet9_mask": "queue 1 item 5 (ResNet-9, with sample and score)",
@@ -82,6 +87,28 @@ def mcpc_training_config() -> dict:
         "optimizer_x_kwargs_mcpc": {"lr": 0.1},
         "optimizer_p_fn_mcpc": "adam",
         "optimizer_p_kwargs_mcpc": {"lr": 0.01},
+    }
+
+
+def pc_training_config() -> dict:
+    """PC training: ``T_pc`` Adam MAP steps on the latents at lr 0.1, then
+    one Adam step on the parameters at lr 0.001, B=128."""
+    return {
+        "batch_size_train": 128,
+        "batch_size_val": 1024,
+        "batch_size_test": 1024,
+        "input_size": 20,
+        "hidden_size": 128,
+        "hidden2_size": 128,
+        "output_size": 784,
+        "loss_fn": bernoulli_fn,
+        "activation_fn": "relu",
+        "input_var": None,
+        "T_pc": 250,
+        "optimizer_x_fn_pc": "adam",
+        "optimizer_x_kwargs_pc": {"lr": 0.1},
+        "optimizer_p_fn": "adam",
+        "optimizer_p_kwargs": {"lr": 0.001},
     }
 
 
@@ -147,7 +174,7 @@ def train_mcpc(
     if fused is not None and not fused:
         raise NotImplementedError(
             "train_mcpc(fused=False), the engine path, is not ported yet: "
-            "ROADMAP.md " + _WAITING["pc"])
+            "ROADMAP.md " + _ENGINE_ITEM)
     if mesh is not None:
         raise NotImplementedError(
             "train_mcpc(mesh=N), data-parallel training, is not ported yet: "
@@ -188,10 +215,43 @@ def train_mcpc(
     return gen
 
 
+def train_pc(epochs: int, out: str, seed: int = 0, batches_per_epoch=None, log=True,
+             preset: str = "fid", device="cuda"):
+    """PC MNIST training: per batch ``T_pc`` Adam MAP steps on fresh latents,
+    then one parameter update from the last step's gradients, through
+    ``PCTrainer`` (the fused chain: the kernel on CUDA, its plain version on
+    the CPU).  Latents are drawn from the model's generator, made from
+    ``seed``.  Saves the final parameters to ``out`` and returns the
+    :class:`GenerativeModel`."""
+    device = torch.device(device)
+    config = apply_preset(pc_training_config(), preset, "pc")
+    train, _, _ = get_mnist_data(config, seed=seed, device=device)
+    gen = get_model(config, seed, device=device)
+    trainer = get_pc_trainer(gen, config, is_mcpc=False, training=True)
+    for epoch in range(1, epochs + 1):
+        t0 = time.time()
+        for i, (data, _) in enumerate(train):
+            if batches_per_epoch is not None and i >= batches_per_epoch:
+                break
+            pseudo = torch.zeros((data.shape[0], config["input_size"]), device=device)
+            trainer.train_on_batch(
+                pseudo,
+                loss_fn=config["loss_fn"],
+                loss_fn_kwargs={"_target": data},
+                is_return_results_every_t=False,
+            )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # so the epoch's time is honest
+        if log:
+            print(f"epoch {epoch}: {time.time() - t0:.1f}s")
+    save_checkpoint(out if out.endswith(".msgpack") else out + ".msgpack", gen.params)
+    return gen
+
+
 def main(argv: tp.Optional[tp.Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", choices=["mcpc", *_WAITING], required=True)
+    p.add_argument("--model", choices=["mcpc", "pc", *_WAITING], required=True)
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--out", required=True)
     p.add_argument("--seed", type=int, default=0)
@@ -204,9 +264,16 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernel) or 'cpu' (the plain version)")
     args = p.parse_args(argv)
-    if args.model != "mcpc":
+    if args.model in _WAITING:
         raise NotImplementedError(
             f"--model {args.model} is not ported yet: ROADMAP.md {_WAITING[args.model]}")
+    if args.model == "pc":
+        if args.mesh is not None:
+            p.error("--mesh is only supported for --model mcpc")
+        train_pc(args.epochs, args.out, seed=args.seed,
+                 batches_per_epoch=args.batches_per_epoch, preset=args.preset,
+                 device=args.device)
+        return
     train_mcpc(
         args.epochs,
         args.out,

@@ -3,6 +3,7 @@ from .mcpc_chain import (
     mcpc_chain,
     mcpc_chain_reference,
     model_activation,
+    output_pc_var,
     sum_block_partials,
     sum_block_partials_reference,
     supports_model,
@@ -13,6 +14,7 @@ __all__ = [
     "mcpc_chain",
     "mcpc_chain_reference",
     "model_activation",
+    "output_pc_var",
     "sum_block_partials",
     "sum_block_partials_reference",
     "supports_model",

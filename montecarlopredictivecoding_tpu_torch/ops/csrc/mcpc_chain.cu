@@ -7,28 +7,37 @@
 // the Hebbian parameter gradients (accum_pgrads, with_pgrads / warm_pgrads,
 // summed across batch tiles), the per-step scalar slots (emit_scal_slot,
 // scalar_stride), the trajectory captures (capture_stride, the make_async_copy
-// into traj_ref), the masked losses (_loss_mask, mask_k) and the Adam-state
-// hand-off (emit_warm_opt_state, warm_init with m_in / v_in / bias0).
-// Activation relu; sensory loss bernoulli, gaussian or none, each optionally
-// masked.
+// into traj_ref), the masked losses (_loss_mask, mask_k), the Adam-state
+// hand-off (emit_warm_opt_state, warm_init with m_in / v_in / bias0) and the
+// trailing output-PC site (output_pc: sensory_s, the x3 steps, traj3, m3/v3).
+// Activation relu or tanh (act); sensory loss bernoulli, gaussian or none,
+// each optionally masked.
 //
 // What it computes, per batch row (rows never read each other on this path):
 //
-//   err0 = x0 - b0;  err_l = x_l - (relu(x_{l-1}) W_l + b_l);
-//   logits = relu(x2) W3 + b3;  S = sigmoid(logits) - y | (logits - y)/var | 0
-//   G = [err0 | err1 | err2] - relu'(x) * [err1 W1^T | err2 W2^T | -S W3^T]
+//   err0 = x0 - b0;  err_l = x_l - (act(x_{l-1}) W_l + b_l);
+//   logits = act(x2) W3 + b3;  S = sigmoid(logits) - y | (logits - y)/var | 0
+//   G = [err0 | err1 | err2] - act'(x) * [err1 W1^T | err2 W2^T | -S W3^T]
+//   act' = relu'(x), or 1 - H^2 from the H = tanh(x) the block holds
 //   warm step:     Adam, optax operation order, bias powers carried in f32
 //   Langevin step: x <- x - lr G + sqrt(lr var) z
 //   sampling step (Langevin t >= mixing, or the last warm step), from the
 //   state BEFORE the update, summed over the batch:
-//     gW1 += -relu(x0)^T err1   gW2 += -relu(x1)^T err2   gW3 += relu(x2)^T S
+//     gW1 += -act(x0)^T err1   gW2 += -act(x1)^T err2   gW3 += act(x2)^T S
 //     gb0 += -err0   gb1 += -err1   gb2 += -err2   gb3 += S
+//
+// With an output-PC site the sensory layer is a fourth latent x3 [B, D]
+// with energy 0.5 inv_var3 |x3 - logits|^2 and no loss: S = (logits - x3)
+// inv_var3 (the Gaussian form with y := x3), its energy joins the layers',
+// and x3 takes the same Adam or Langevin step with the gradient -S.
 //
 // The noise z is the counter hash of the JAX package (_fmix32, _mock_bits,
 // _uniforms, _sincos_2pi) evaluated per element at (seed + batch tile,
 // draw, local_row * XW + 128-padded packed column), so this kernel can be
 // held element by element against mcpc_chain_pallas(..., interpret=True).
 // Step pair p reads draws 2p and 2p+1; step 2p takes r*cos, step 2p+1 r*sin.
+// With an output-PC site a pair takes four draws: the latents 4p and 4p+1,
+// x3 4p+2 and 4p+3 at local_row * pD + output column (pD = D padded to 128).
 // A draw depends on the global row and column only, never on which block
 // computes it.
 //
@@ -56,7 +65,7 @@
 //    chain (119,296 floats / 8 at 20-128-128-784: 66 KB with the padding of
 //    slice_stride; 146 KB at 10-256-256-784).  Weights are read from device
 //    memory once, in the prologue.
-//  * Every block holds the full relu(X) of the cluster's rows, H [n][rows],
+//  * Every block holds the full act(X) of the cluster's rows, H [n][rows],
 //    feature-major.  Forward is one phase with no exchange: block k computes
 //    err_l[:, slice k] and S[:, slice k] of all layers from H and its own
 //    weights.
@@ -67,7 +76,7 @@
 //    barrier the owner adds the 8 partials in rank order (a fixed order: two
 //    runs give the same bits), takes the Adam or Langevin step on its own
 //    columns of X (the Box-Muller work and the Adam moments split 8 ways
-//    too) and writes its slice of the new relu(X) into every block's H.  A
+//    too) and writes its slice of the new act(X) into every block's H.  A
 //    second cluster barrier ends the step.  Per step: two cluster barriers
 //    and one __syncthreads (between forward and backward).
 //  * A cluster barrier costs over a thousand clocks (its release is a
@@ -118,8 +127,19 @@
 //  * Adam state: with m_in / v_in the prologue loads the own columns'
 //    moments instead of zeros, and the bias powers start at (b1p0, b2p0),
 //    computed by the host; with m_out / v_out the epilogue stores them.
+//  * Output-PC site (x3 not null): the owner of output column j keeps x3[:, j]
+//    (and in the warm phase its Adam moments) in shared memory beside its
+//    S.  Nothing else reads them, so its update needs no exchange: it runs
+//    between the arrive and the wait of the step's first cluster barrier,
+//    from the S of this step, as the latents' noise does.  Captures go to
+//    traj3 [n_cap, B, pD], the moments to m3 / v3 [B, pD], pad lanes zeroed
+//    by the wrapper; the loss is "none" and no mask applies.
 //  Every block reaches every barrier as before: none of these adds a
 //  barrier or a rank-dependent exit, and pad rows are skipped in stores.
+//
+// Activation.  A template argument, ACT, picks relu or tanh, so a
+// relu chain runs the code it ran before tanh existed.  tanh is tanhf, and
+// its derivative 1 - H^2 is taken from the H = tanh(x) every block holds.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -136,15 +156,17 @@ using namespace mcpc;
 constexpr int CS = 8;             // blocks a cluster
 
 // Rows a cluster for which the kernel is built (CLUSTER_ROWS of the wrapper,
-// whose plan picks among them): each is one instantiation of 200 to 255
-// registers a thread, so the list is kept to what the plan's rule needs.
+// whose plan picks among them): each is four instantiations (with and
+// without the options, relu and tanh) of 200 to 255 registers a thread, so
+// the list is kept to what the plan's rule needs.
 #define MCPC_CLUSTER_ROWS(X) X(18) X(10) X(4) X(2)
 constexpr int PG_ROWS = 16;       // rows of gW one gradient job covers
+constexpr int ACT_RELU = 0, ACT_TANH = 1;   // the activation, a template argument
 
 // With ChainArgs::clocks, thread 0 of every block adds up the SM clocks it
 // spends in each part of a step, waits at the barriers included: forward up
 // to its barrier, gradient jobs, backward jobs, the wait for the peers'
-// partials, the update, the wait for the peers' new relu(x).
+// partials, the update, the wait for the peers' new act(x).
 constexpr int N_PHASE = 6;
 
 struct ChainArgs {
@@ -175,6 +197,12 @@ struct ChainArgs {
   int cap_stride, scal_stride, n_slots;
   int mask_lo;                 // output columns below it are not clamped
   float b1p0, b2p0;            // bias-correction powers of the first warm step
+  // output-PC site: x3 in, o3 out ([B, D]); pD-wide [B, pD] arrays, as the
+  // JAX package's: the moments in and out, and the captures [n_cap, B, pD]
+  const float* x3; float* o3;
+  const float* m3_in; const float* v3_in; float* m3_out; float* v3_out;
+  float* traj3;
+  int pD;
 };
 
 // ------------------------------------------------------------- slices
@@ -233,15 +261,17 @@ struct Layout {
                            // own latent columns, and how many those are
   int LD1, LD2, LD3;       // row strides of the weight slices (8 * odd)
   size_t H, X, E, S, P, M, V;   // [..][row_pitch(R)] arrays
+  size_t X3, M3, V3;            // the same: an output-PC site's own columns, moments
   size_t W1, W2, W3, BI;        // weight slices, own biases [OWN + ND]
   size_t OT;                    // owner and own-column index of every latent column [n]
   size_t G1, G2, G3, GB;        // gradient slices, own bias gradients
   size_t total;
 };
 
-// grads: 0 none, 1 bias gradients only (weights' in device memory), 2 all
+// grads: 0 none, 1 bias gradients only (weights' in device memory), 2 all;
+// outpc: an output-PC site
 __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
-                                              int R, int warm, int grads) {
+                                              int R, int warm, int grads, int outpc) {
   Layout L;
   L.N0 = widest_slice(d0); L.N1 = widest_slice(d1);
   L.N2 = widest_slice(d2); L.ND = widest_slice(D);
@@ -257,6 +287,10 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
   L.P = o; o += (size_t)CS * L.OWN * RP;
   L.M = o; o += warm ? (size_t)L.OWN * RP : 0;
   L.V = o; o += warm ? (size_t)L.OWN * RP : 0;
+  // with the other [..][RP] arrays, whose sizes keep them 16-byte aligned
+  L.X3 = o; o += outpc ? (size_t)L.ND * RP : 0;
+  L.M3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
+  L.V3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
   L.W1 = o; o += (size_t)d0 * L.LD1;
   L.W2 = o; o += (size_t)d1 * L.LD2;
   L.W3 = o; o += (size_t)d2 * L.LD3;
@@ -271,9 +305,18 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
 }
 
 // Standard normal of Langevin step t at element index idx: Box-Muller over
-// draws 2p, 2p+1 of pair p = t/2; even steps take the cos branch, odd the sin.
-__device__ __forceinline__ float langevin_normal(uint32_t seed, int t, uint32_t idx) {
-  return box_muller(seed, (uint32_t)(t >> 1) * 2u, idx, (t & 1) != 0);
+// draws DP*p + off and the next of pair p = t/2 (DP draws a pair: 2, or 4
+// with an output-PC site, whose x3 takes off = 2); even steps take the cos
+// branch, odd the sin.
+__device__ __forceinline__ float langevin_normal(uint32_t seed, int t, uint32_t idx,
+                                                 uint32_t dp = 2u, uint32_t off = 0u) {
+  return box_muller(seed, (uint32_t)(t >> 1) * dp + off, idx, (t & 1) != 0);
+}
+
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+  if constexpr (ACT == ACT_TANH) return tanhf(x);
+  else return fmaxf(x, 0.f);
 }
 
 // The two halves of a cluster barrier.  Writes made before the arrive (a
@@ -388,9 +431,9 @@ constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
 // -------------------------------------------------------------- kernel
 
 // OPT: the instantiation that takes the options (captures, scalar slots,
-// masks, Adam state; see "Options" in the header); without it the kernel
-// carries none of their code.
-template <int RG, bool OPT>
+// masks, Adam state, the output-PC site; see "Options" in the header);
+// without it the kernel carries none of their code.  ACT: relu or tanh.
+template <int RG, bool OPT, int ACT>
 __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   using RW = Rows<RG>;
   constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
@@ -408,9 +451,10 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   const int n = d0 + d1 + d2;        // packed latent width (unpadded)
   const int c1 = d0, c2 = d0 + d1;   // packed columns where x1 and x2 start
   const bool with_pg = a.partials != nullptr;
+  const bool out_pc = OPT && a.x3 != nullptr;   // an output-PC site
   const Layout L = make_layout(d0, d1, d2, D, R, a.warm_T > 0,
-                               with_pg ? (a.grads_resident ? 2 : 1) : 0);
-  float* H = smem + L.H;     // [n][RP] relu(latents), all columns
+                               with_pg ? (a.grads_resident ? 2 : 1) : 0, out_pc);
+  float* H = smem + L.H;     // [n][RP] act(latents), all columns
   float* X = smem + L.X;     // [OWN][RP] own latent columns
   float* E = smem + L.E;     // [OWN][RP] their errors
   float* S = smem + L.S;     // [ND][RP] dLoss/dlogits of the own output columns
@@ -423,6 +467,9 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   float* BI = smem + L.BI;   // own b0 | b1 | b2 (at 0, J1, J2) | b3 (at OWN)
   float* GB = smem + L.GB;   // own bias gradients, laid out as BI
   int* OT = reinterpret_cast<int*>(smem + L.OT);   // [n] owner << 16 | own-column index
+  float* X3 = smem + L.X3;   // [ND][RP] own columns of x3 (output-PC site)
+  float* M3 = smem + L.M3;   // [ND][RP] their Adam moments (warm only)
+  float* V3 = smem + L.V3;
 
   // own slices: first column and width, per layer
   const int lo0 = a.lo[0][rank], n0 = a.lo[0][rank + 1] - lo0;
@@ -442,6 +489,15 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       else if (j < L.J2) { if (j - L.J1 >= n1) continue; pc = a.O1 + lo1 + j - L.J1; }
       else { if (j - L.J2 >= n2) continue; pc = a.O2 + lo2 + j - L.J2; }
       dst[(size_t)row * a.XW + pc] = src[j * RP + RW::pos(r)];
+    }
+  };
+  // dst[row][loD + j] = src[j][row] for the own output columns and valid
+  // rows; dst has rows of `ld` floats
+  auto store_out = [&](float* dst, int ld, const float* src) {
+    for (int e = tid; e < nD * R; e += NT) {
+      const int r = e / nD, j = e - r * nD;
+      const int row = row0 + r;
+      if (row < a.B) dst[(size_t)row * ld + loD + j] = src[j * RP + RW::pos(r)];
     }
   };
 
@@ -475,7 +531,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       else if (c < c2) x = a.x1[(size_t)row * d1 + (c - c1)];
       else x = a.x2[(size_t)row * d2 + (c - c2)];
     }
-    H[c * RP + RW::pos(r)] = fmaxf(x, 0.f);
+    H[c * RP + RW::pos(r)] = activate<ACT>(x);
     int j = -1;   // own column?
     if (c < c1) { if (c >= lo0 && c < lo0 + n0) j = c - lo0; }
     else if (c < c2) { if (c - c1 >= lo1 && c - c1 < lo1 + n1) j = L.J1 + c - c1 - lo1; }
@@ -509,6 +565,20 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     OT[c] = owner << 16 |
             ((layer == 0 ? 0 : layer == 1 ? L.J1 : L.J2) + col - a.lo[layer][owner]);
   }
+  if (out_pc) {   // the own columns of x3 and, warm, their moments
+    for (int e = tid; e < R * nD; e += NT) {
+      const int r = e / nD, j = e - r * nD;
+      const int row = row0 + r;
+      const bool valid = row < a.B;
+      X3[j * RP + RW::pos(r)] = valid ? a.x3[(size_t)row * D + loD + j] : 0.f;
+      if (a.warm_T > 0) {
+        const bool resume = a.m3_in != nullptr && valid;
+        const size_t at = (size_t)row * a.pD + loD + j;
+        M3[j * RP + RW::pos(r)] = resume ? a.m3_in[at] : 0.f;
+        V3[j * RP + RW::pos(r)] = resume ? a.v3_in[at] : 0.f;
+      }
+    }
+  }
   for (int c = tid; c < n0; c += NT) BI[c] = a.b0[lo0 + c];
   for (int c = tid; c < n1; c += NT) BI[L.J1 + c] = a.b1[lo1 + c];
   for (int c = tid; c < n2; c += NT) BI[L.J2 + c] = a.b2[lo2 + c];
@@ -538,7 +608,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     }
   };
 
-  const bool has_s = a.loss != 0;
+  const bool has_s = a.loss != 0 || out_pc;
   const int total = a.warm_T + a.T;
   float b1p = a.b1p0, b2p = a.b2p0;   // Adam bias-correction powers
   double loss_acc = 0.0, en_acc = 0.0;
@@ -582,11 +652,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     else { layer = 2; col = jj - L.J2; if (col >= n2) return; col += lo2; }
     j = jj;
   };
+  const uint32_t dp = out_pc ? 4u : 2u;   // draws a step pair
   auto noise = [&](int t, int r, int layer, int col) {
     const int row = row0 + RW::row_at(r);
     const uint32_t pc = (uint32_t)((layer == 0 ? 0 : layer == 1 ? a.O1 : a.O2) + col);
     return langevin_normal((uint32_t)a.seed + (uint32_t)(row / a.tile_B), t,
-                           (uint32_t)(row % a.tile_B) * (uint32_t)a.XW + pc);
+                           (uint32_t)(row % a.tile_B) * (uint32_t)a.XW + pc, dp);
   };
   const int slots = (L.OWN * R + NT - 1) / NT;
   // The noise of a step touches registers only, so it is drawn while the
@@ -616,8 +687,10 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 
     // ---- capture: the pre-update latents of the own columns
     if constexpr (OPT) {
-      if (a.traj != nullptr && cs >= 0 && cs % a.cap_stride == 0)
+      if (a.traj != nullptr && cs >= 0 && cs % a.cap_stride == 0) {
         store_own(a.traj + (size_t)(cs / a.cap_stride) * a.B * a.XW, X);
+        if (out_pc) store_out(a.traj3 + (size_t)(cs / a.cap_stride) * a.B * a.pD, a.pD, X3);
+      }
     }
 
     // ---- forward: the own columns' errors and S, from H and the own weights
@@ -633,11 +706,15 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       else if (qq < fq2) { K = d0; ld = L.LD1; ncols = n1; NQ = fq2 - fq1; q = qq - fq1; jbase = L.J1; }
       const int col = q + part * NQ;            // this lane's column after the reduce
       const bool mine = live && col < ncols;
-      float yv[RG];
+      float yv[RG];   // the target, or x3 at an output-PC site
+      if (out_pc && mine && jbase < 0) {
+        load_rows<RG>(yv, X3 + col * RP, g);
+      } else {
 #pragma unroll
-      for (int r = 0; r < RG; ++r) {
-        const int row = row0 + rg + r;
-        yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
+        for (int r = 0; r < RG; ++r) {
+          const int row = row0 + rg + r;
+          yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
+        }
       }
       int off[4];
 #pragma unroll
@@ -662,9 +739,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
                                  : (lg - yv[r]) * a.inv_var;
           if (sums_now && clamped && row0 + rg + r < a.B) {
             const double l = lg, yd = yv[r];
-            loss_acc += a.loss == 1
-                ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
-                : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
+            if (out_pc)   // the site's energy; the 0.5 comes with the layers'
+              en_acc += (double)a.inv_var * (l - yd) * (l - yd);
+            else
+              loss_acc += a.loss == 1
+                  ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
+                  : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
           }
         }
         store_rows<RG>(S + col * RP, g, out);
@@ -815,11 +895,37 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 #pragma unroll
       for (int p = NOISE_EARLY; p < NOISE_SLOTS; ++p) z[p] = draw(t, p);
     }
+    if (out_pc) {
+      // the own columns of x3 take their step, with the gradient
+      // inv_var3 (x3 - logits) = -S of this step (nothing else reads X3, M3,
+      // V3 or this block's S until the next step)
+      for (int e = tid; e < nD * R; e += NT) {
+        const int j = e / R, r = e - j * R;
+        const float g3 = -S[j * RP + r];
+        float x = X3[j * RP + r];
+        if (warm) {
+          const float m = a.wb1 * M3[j * RP + r] + a.one_m_b1 * g3;
+          const float v = a.wb2 * V3[j * RP + r] + a.one_m_b2 * g3 * g3;
+          M3[j * RP + r] = m;
+          V3[j * RP + r] = v;
+          x = x - a.warm_lr * (m / cw1) / (sqrtf(v / cw2) + a.weps);
+        } else {
+          x = x - a.lr * g3;
+          if (noisy) {
+            const int row = row0 + RW::row_at(r);
+            x = x + a.noise_std * langevin_normal(
+                (uint32_t)a.seed + (uint32_t)(row / a.tile_B), t,
+                (uint32_t)(row % a.tile_B) * (uint32_t)a.pD + (uint32_t)(loD + j), 4u, 2u);
+          }
+        }
+        X3[j * RP + r] = x;
+      }
+    }
     cluster_wait();
     lap(3);
 
     // ---- the own latent columns: add the partials in rank order, update,
-    // and write the new relu(x) into every block's H
+    // and write the new act(x) into every block's H
     auto update = [&](int p, float zp, bool have_z) {
       int j, r, layer, col;
       own_element(p, j, r, layer, col);
@@ -832,7 +938,15 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         if (layer == 2) back = -back;    // back2 = -(S W3^T)
       }
       float x = X[j * RP + r];
-      const float g = E[j * RP + r] - (x > 0.f ? 1.f : 0.f) * back;
+      float dh;   // act'(x)
+      if constexpr (ACT == ACT_TANH) {
+        // tanh(x) as this block holds it, not yet overwritten
+        const float h = H[((layer == 0 ? 0 : layer == 1 ? c1 : c2) + col) * RP + r];
+        dh = 1.f - h * h;
+      } else {
+        dh = x > 0.f ? 1.f : 0.f;
+      }
+      const float g = E[j * RP + r] - dh * back;
       if (warm) {
         const float m = a.wb1 * M[j * RP + r] + a.one_m_b1 * g;
         const float v = a.wb2 * V[j * RP + r] + a.one_m_b2 * g * g;
@@ -844,7 +958,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         if (noisy) x = x + a.noise_std * (have_z ? zp : noise(t, r, layer, col));
       }
       X[j * RP + r] = x;
-      const float h = fmaxf(x, 0.f);
+      const float h = activate<ACT>(x);
       const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
 #pragma unroll
       for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
@@ -913,7 +1027,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   if (OPT && a.m_out != nullptr) {   // the Adam moments after the warm phase
     store_own(a.m_out, M);
     store_own(a.v_out, V);
+    if (out_pc) {
+      store_out(a.m3_out, a.pD, M3);
+      store_out(a.v3_out, a.pD, V3);
+    }
   }
+  if (out_pc) store_out(a.o3, D, X3);
 
   if (a.clocks != nullptr && tid == 0) {
 #pragma unroll
@@ -971,47 +1090,56 @@ inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   cfg.numAttrs = 1;
 }
 
-template <int RG, bool OPT>
+template <int RG, bool OPT, int ACT>
 cudaError_t launch_kernel(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   constexpr int R = 2 * RG;
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, OPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mcpc_chain_kernel<RG, OPT, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, (a.B + R - 1) / R, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT>, a);
+  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT, ACT>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int RG>
-cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream) {
+template <int RG, int ACT>
+cudaError_t launch_opt(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   const bool opt = a.traj != nullptr || a.slots != nullptr || a.mask_lo > 0 ||
-                   a.m_in != nullptr || a.m_out != nullptr;
-  return opt ? launch_kernel<RG, true>(a, smem, stream)
-             : launch_kernel<RG, false>(a, smem, stream);
+                   a.m_in != nullptr || a.m_out != nullptr || a.x3 != nullptr;
+  return opt ? launch_kernel<RG, true, ACT>(a, smem, stream)
+             : launch_kernel<RG, false, ACT>(a, smem, stream);
+}
+
+template <int RG>
+cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream, int act) {
+  return act == ACT_TANH ? launch_opt<RG, ACT_TANH>(a, smem, stream)
+                         : launch_opt<RG, ACT_RELU>(a, smem, stream);
 }
 
 // clusters of this kernel the device can run at once, or -cudaError_t (the
-// options' instantiation takes the same shared memory and no more registers
+// other instantiations take the same shared memory and no more registers
 // than the 255 a thread that one block an SM allows)
 template <int RG>
 int max_clusters(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mcpc_chain_kernel<RG, false, ACT_RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, 1, smem, nullptr);
   int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false, ACT_RELU>, &cfg);
   return err != cudaSuccess ? -(int)err : count;
 }
 
 template <int RG>
 int static_smem_bytes() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false>) != cudaSuccess) return -1;
+  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false, ACT_RELU>) != cudaSuccess)
+    return -1;
   return (int)attr.sharedSizeBytes;
 }
 
@@ -1029,10 +1157,10 @@ int mcpc_chain_phase_count() { return N_PHASE; }
 
 // dynamic shared memory of one block of a cluster of `rows` rows; grads: 0
 // no parameter gradients, 1 the block's gradient slice in device memory, 2
-// in shared memory
+// in shared memory; outpc: an output-PC site
 size_t mcpc_chain_smem_bytes(int d0, int d1, int d2, int D, int rows, int warm,
-                             int grads) {
-  return make_layout(d0, d1, d2, D, rows, warm, grads).total * sizeof(float);
+                             int grads, int outpc) {
+  return make_layout(d0, d1, d2, D, rows, warm, grads, outpc).total * sizeof(float);
 }
 
 // dynamic shared memory a block may use on `device`, or -1
@@ -1078,15 +1206,20 @@ const char* mcpc_chain_error_string(int err) {
 // grads_resident keeps a block's slice in shared memory until the end.  With
 // clocks not null (room for [n_clusters * cluster size, 6] 64-bit integers)
 // every block leaves there the SM clocks its thread 0 spent in each part of
-// the steps.  The options (header of this file): m_in / v_in resume the Adam
+// the steps.  act: 0 relu, 1 tanh.  The options (header of this file):
+// m_in / v_in resume the Adam
 // moments ([B, XW], XW the 128-padded packed width) with the bias powers
 // starting at (b1p0, b2p0); m_out / v_out receive them after the warm phase;
 // traj ([ceil(steps / cap_stride), B, XW], steps = T, or warm_T when T == 0)
 // receives the pre-update latents every cap_stride steps; slots
 // ([n_clusters * cluster size, n_slots, 2]) the per-step (loss, energy) sums
 // every scal_stride steps plus the last step's in slot n_slots - 1, instead
-// of scal; output columns below mask_lo are not clamped.  Returns a
-// cudaError_t (0 on success).
+// of scal; output columns below mask_lo are not clamped.  With x3 not null
+// the model has an output-PC site: x3 ([B, D]) is its latent, o3 receives
+// it, inv_var is its 1 / variance, the loss must be none (0) and mask_lo 0;
+// m3_in / v3_in, m3_out / v3_out ([B, pD], pD = D padded to 128) go with
+// m_in / v_in, m_out / v_out, and traj3 ([n_cap, B, pD]) with traj.
+// Returns a cudaError_t (0 on success).
 int mcpc_chain_launch(
     const float* x0, const float* x1, const float* x2,
     float* o0, float* o1, float* o2,
@@ -1095,24 +1228,38 @@ int mcpc_chain_launch(
     const float* w1, const float* w2, const float* w3,
     double* scal, float* partials, long long* clocks,
     const float* m_in, const float* v_in, float* m_out, float* v_out,
-    float* traj, double* slots, const int* slices,
+    float* traj, double* slots,
+    const float* x3, float* o3, const float* m3_in, const float* v3_in,
+    float* m3_out, float* v3_out, float* traj3,
+    const int* slices,
     int B, int d0, int d1, int d2, int D,
     int T, int warm_T, int loss, int want_scalars, int mixing, int pg_warm,
     int rows, int grads_resident,
-    int cap_stride, int scal_stride, int n_slots, int mask_lo,
+    int cap_stride, int scal_stride, int n_slots, int mask_lo, int act,
     float inv_var, float lr, float noise_std,
     float warm_lr, float wb1, float wb2, float one_m_b1, float one_m_b2,
     float weps, float b1p0, float b2p0,
     int seed, int tile_B, size_t smem_bytes, void* stream) {
   if (B <= 0 || d0 <= 0 || d1 <= 0 || d2 <= 0 || D <= 0 || T < 0 ||
       warm_T < 0 || tile_B <= 0 || loss < 0 || loss > 2 || slices == nullptr ||
-      mask_lo < 0 || mask_lo >= D)
+      mask_lo < 0 || mask_lo >= D || (act != ACT_RELU && act != ACT_TANH))
     return (int)cudaErrorInvalidValue;
   // each option needs what it works on
   if ((traj != nullptr && (cap_stride <= 0 || T + warm_T == 0)) ||
       (slots != nullptr && (scal_stride <= 0 || n_slots < 1 || !want_scalars)) ||
       ((m_in != nullptr || m_out != nullptr) && warm_T == 0) ||
       ((m_in == nullptr) != (v_in == nullptr)) || ((m_out == nullptr) != (v_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // the output-PC site's arrays come with the site and with their options
+  const bool outpc = x3 != nullptr;
+  if ((outpc && (o3 == nullptr || loss != 0 || mask_lo != 0)) ||
+      (!outpc && (o3 != nullptr || traj3 != nullptr || m3_in != nullptr ||
+                  v3_in != nullptr || m3_out != nullptr || v3_out != nullptr)) ||
+      (outpc && ((traj == nullptr) != (traj3 == nullptr) ||
+                 (m_in == nullptr) != (m3_in == nullptr) ||
+                 (v_in == nullptr) != (v3_in == nullptr) ||
+                 (m_out == nullptr) != (m3_out == nullptr) ||
+                 (v_out == nullptr) != (v3_out == nullptr))))
     return (int)cudaErrorInvalidValue;
   ChainArgs a;
   const int widths[4] = {d0, d1, d2, D};
@@ -1126,7 +1273,7 @@ int mcpc_chain_launch(
   }
   const size_t smem = mcpc_chain_smem_bytes(
       d0, d1, d2, D, rows, warm_T > 0,
-      partials == nullptr ? 0 : grads_resident ? 2 : 1);
+      partials == nullptr ? 0 : grads_resident ? 2 : 1, outpc);
   if (smem != smem_bytes) return (int)cudaErrorInvalidValue;
   a.x0 = x0; a.x1 = x1; a.x2 = x2;
   a.o0 = o0; a.o1 = o1; a.o2 = o2;
@@ -1152,9 +1299,12 @@ int mcpc_chain_launch(
   a.cap_stride = cap_stride; a.scal_stride = scal_stride; a.n_slots = n_slots;
   a.mask_lo = mask_lo;
   a.b1p0 = b1p0; a.b2p0 = b2p0;
+  a.x3 = x3; a.o3 = o3; a.m3_in = m3_in; a.v3_in = v3_in;
+  a.m3_out = m3_out; a.v3_out = v3_out; a.traj3 = traj3;
+  a.pD = pad128(D);
   cudaStream_t st = (cudaStream_t)stream;
   switch (rows) {
-#define MCPC_CASE(R) case R: return (int)launch_rows<R / 2>(a, smem, st);
+#define MCPC_CASE(R) case R: return (int)launch_rows<R / 2>(a, smem, st, act);
     MCPC_CLUSTER_ROWS(MCPC_CASE)
 #undef MCPC_CASE
     default: return (int)cudaErrorInvalidValue;

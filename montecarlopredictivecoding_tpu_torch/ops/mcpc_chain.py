@@ -4,21 +4,28 @@ version, and the counter-hash noise all of them use.
 ``mcpc_chain`` runs (optionally) ``warm_T`` Adam MAP steps on the latents,
 then ``T`` Langevin steps, and (optionally) accumulates the Hebbian
 parameter gradients over the sampling steps, over the canonical generative
-MLP
+MLP (``act`` is relu or tanh)
 
-    zeros -> Linear(d0,d0) -> PC(x0) -> relu -> Linear(d0,d1) -> PC(x1)
-          -> relu -> Linear(d1,d2) -> PC(x2) -> relu -> Linear(d2,D) -> loss
+    zeros -> Linear(d0,d0) -> PC(x0) -> act -> Linear(d0,d1) -> PC(x1)
+          -> act -> Linear(d1,d2) -> PC(x2) -> act -> Linear(d2,D) -> loss
 
 with the closed-form energy gradient
 
-    err0 = x0 - b0;  err_l = x_l - (relu(x_{l-1}) W_l + b_l)
+    err0 = x0 - b0;  err_l = x_l - (act(x_{l-1}) W_l + b_l)
     S    = sigmoid(logits) - y | (logits - y)/input_var | 0
-    G    = [err0 | err1 | err2] - relu'(x) * [err1 W1ᵀ | err2 W2ᵀ | -S W3ᵀ]
+    G    = [err0 | err1 | err2] - act'(x) * [err1 W1ᵀ | err2 W2ᵀ | -S W3ᵀ]
 
-and, on a sampling step, from the state before the update,
+(``act' = 1 - tanh(x)²`` for tanh) and, on a sampling step, from the state
+before the update,
 
-    gW1 += -relu(x0)ᵀ err1   gW2 += -relu(x1)ᵀ err2   gW3 += relu(x2)ᵀ S
+    gW1 += -act(x0)ᵀ err1   gW2 += -act(x1)ᵀ err2   gW3 += act(x2)ᵀ S
     gb0 += Σ -err0   gb1 += Σ -err1   gb2 += Σ -err2   gb3 += Σ S
+
+With ``output_var`` the model ends in a trailing PC site (the JAX package's
+output-PC joint sampler): the sensory layer is a fourth latent ``x3`` with
+energy ``0.5/output_var·|x3 - logits|²`` and no loss, so ``S = (logits -
+x3)/output_var`` and ``x3`` takes the same Adam or Langevin steps with the
+gradient ``-S``.
 
 Options, as the JAX wrapper's: captures of the pre-update latents every
 ``capture_stride`` steps, per-step scalar slots every ``scalar_stride``
@@ -45,7 +52,9 @@ hash of the JAX package's interpret mode (``_fmix32``, ``_mock_bits``,
 is ``seed + tile_i``, an element's index is ``local_row * XW + padded_col``
 over the 128-padded packed layout of :func:`aligned_layout`, and Langevin
 step pair ``p`` reads draws ``2p`` and ``2p+1`` (step ``2p`` takes ``r·cos``,
-step ``2p+1`` ``r·sin``).  So the port's chain equals
+step ``2p+1`` ``r·sin``); with an output-PC site the latents read ``4p`` and
+``4p+1`` and ``x3`` reads ``4p+2`` and ``4p+3`` at ``local_row * pD + col``
+(``pD`` = D padded to 128).  So the port's chain equals
 ``mcpc_chain_pallas(..., interpret=True)`` element by element, up to f32
 rounding.  Nothing is stored padded: the padding enters only the index.
 The unpacked baseline has its own indexing (:func:`_unpacked_normals`).
@@ -69,11 +78,12 @@ import numpy as np
 import torch
 
 from ..core.model import PCModel
-from ..core.modules import PC, Activation, gaussian_energy
+from ..core.modules import PC, Activation, activation_fn, gaussian_energy
 
 Tensor = torch.Tensor
 
-_SUPPORTED_ACTS = ("relu",)  # tanh: ROADMAP.md queue 2 item e
+_SUPPORTED_ACTS = ("relu", "tanh")
+_ACT_CODES = {"relu": 0, "tanh": 1}
 _M32 = 0xFFFFFFFF
 
 _CANONICAL_KINDS = [
@@ -109,6 +119,26 @@ def supports_model(model: PCModel, activation: tp.Optional[str] = None) -> bool:
         for m in model.modules
         if isinstance(m, PC)
     )
+
+
+def output_pc_var(model: PCModel) -> tp.Optional[float]:
+    """The trailing PC site's Gaussian variance when ``model`` is the
+    canonical MLP plus a trailing PC site (the output-PC joint sampler of
+    figure 3: ``make_mlp_model(..., output_pc=PC(energy_fn=
+    scaled_gaussian_energy(var)))``), else None.  The trailing energy must be
+    a (scaled) Gaussian with no S/M masks, the hidden sites as
+    :func:`supports_model` asks."""
+    kinds = [type(m).__name__ for m in model.modules]
+    if kinds != _CANONICAL_KINDS + ["PC"] or model_activation(model) is None:
+        return None
+    pcs = model.pc_layers
+    if not all(m.energy_fn is gaussian_energy and m.S is None and m.M is None
+               for m in pcs[:-1]):
+        return None
+    var = getattr(pcs[-1].energy_fn, "gaussian_var", None)
+    if var is None or pcs[-1].S is not None or pcs[-1].M is not None:
+        return None
+    return float(var)
 
 
 def _pad128(d: int) -> int:
@@ -221,10 +251,8 @@ def box_muller(bits1: Tensor, bits2: Tensor) -> tp.Tuple[Tensor, Tensor]:
 
 # keyword -> (value that means "off", the ROADMAP.md item that ports it)
 _UNPORTED = {
-    "output_var": (None, "queue 2 item e (output-PC site)"),
     "bf16_matmul": (False, "queue 2, the bf16 opt-in"),
 }
-_TANH_ITEM = "queue 2 item e (tanh)"
 
 _LOSS_CODES = {"none": 0, "bernoulli": 1, "gaussian": 2}
 
@@ -261,6 +289,13 @@ class _Chain:
     # Adam bias powers of the first warm step: (b1, b2), or b^(count+1) when
     # resuming an optimizer that has taken ``count`` steps
     bias0: tp.Tuple[float, float] = (0.9, 0.999)
+    activation: str = "relu"
+    # 1 / the output-PC site's variance, or None without the site
+    inv_var3: tp.Optional[float] = None
+
+    @property
+    def output_pc(self) -> bool:
+        return self.inv_var3 is not None
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,8 +348,20 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
                 mask_perc: tp.Optional[float] = None,
                 scalar_stride: int = 0,
                 warm_mu=None, warm_nu=None, warm_count=None,
+                output_var: tp.Optional[float] = None,
                 **unported) -> _Chain:
     # what the JAX wrapper refuses, in its order and its words
+    output_pc = output_var is not None
+    if output_pc:
+        if len(latents) != 4:
+            raise ValueError("output_var requires 4 latents (trailing PC)")
+        if loss != "none":
+            raise ValueError(
+                "output_var models are unclamped joint samplers (loss='none')"
+            )
+        if not packed:
+            raise ValueError("output_var requires packed=True")
+    n_sites = 4 if output_pc else 3
     if warm_T and not packed:
         raise ValueError("the Adam warm-start phase requires packed=True")
     if warm_pgrads and not warm_T:
@@ -327,8 +374,10 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
             raise ValueError("warm_mu/warm_nu require warm_T > 0")
         if warm_nu is None or warm_count is None:
             raise ValueError("warm_mu requires warm_nu and warm_count")
-        if len(warm_mu) != 3 or len(warm_nu) != 3:
-            raise ValueError("warm moments must cover all 3 latent sites")
+        if len(warm_mu) != n_sites or len(warm_nu) != n_sites:
+            raise ValueError(
+                f"warm moments must cover all {n_sites} latent sites"
+            )
     if activation != "relu" and not packed:
         raise ValueError("packed=False supports relu only")
     if capture_stride > 0 and T == 0 and warm_T == 0:
@@ -371,18 +420,15 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
             raise NotImplementedError(
                 f"mcpc_chain({name}={value!r}) is not ported yet: ROADMAP.md {item}"
             )
-    if activation == "tanh":
-        raise NotImplementedError(
-            f"mcpc_chain(activation='tanh') is not ported yet: ROADMAP.md {_TANH_ITEM}"
-        )
     base = loss[: -len("_mask")] if masked else loss
     if base not in _LOSS_CODES or (masked and base == "none"):
         raise ValueError(f"unknown loss {loss!r}")
-    if activation != "relu":
+    if activation not in _SUPPORTED_ACTS:
         raise ValueError(f"unsupported activation {activation!r}")
-    if len(params) != 4 or len(latents) != 3:
-        raise ValueError("mcpc_chain needs 4 Linear params and 3 latents")
-    x0, x1, x2 = latents
+    if len(params) != 4 or len(latents) != n_sites:
+        raise ValueError(
+            f"mcpc_chain needs 4 Linear params and {n_sites} latents")
+    x0, x1, x2 = latents[:3]
     B = x0.shape[0]
     w3 = params[3]["w"]
     dims = (x0.shape[1], x1.shape[1], x2.shape[1], w3.shape[1])
@@ -399,6 +445,8 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         raise ValueError("latents must share one batch size of at least 1")
     if target is not None and tuple(target.shape) != (B, dims[3]):
         raise ValueError(f"target must be [{B}, {dims[3]}]")
+    if output_pc and tuple(latents[3].shape) != (B, dims[3]):
+        raise ValueError(f"the output-PC latent must be [{B}, {dims[3]}]")
     if T < 0 or warm_T < 0:
         raise ValueError("T and warm_T must be >= 0")
     if warm_init:
@@ -441,15 +489,19 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         emit_opt_state=bool(emit_warm_opt_state),
         bias0=(bias_powers(warm_b1, warm_b2, int(warm_count)) if warm_init
                else (float(np.float32(warm_b1)), float(np.float32(warm_b2)))),
+        activation=activation,
+        inv_var3=(1.0 / output_var) if output_pc else None,
     )
 
 
-def _result(c: _Chain, latents, pgrads, traj, scalars, moments):
-    """The JAX wrapper's return order: ``latents, pgrads[, traj][,
-    scalars][, (m, v)]``."""
+def _result(c: _Chain, latents, pgrads, traj, traj3, scalars, moments):
+    """The JAX wrapper's return order: ``latents, pgrads[, traj[, traj3]][,
+    scalars][, (m, v[, m3, v3])]``."""
     out = [latents, pgrads]
     if c.capture_stride:
         out.append(traj)
+        if c.output_pc:
+            out.append(traj3)
     if c.return_scalars:
         out.append(scalars)
     if c.emit_opt_state:
@@ -474,9 +526,9 @@ _SCALAR_RECOMPUTE_ROWS = 16384
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """TF32 off for the products inside (the recomputed scalars are held to
-    the kernel's f32 ones)."""
+    the kernel's f32 ones; the metrics' products sum hundreds of terms)."""
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -485,19 +537,21 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def traj_scalar_rows(traj: Tensor, params, target, c: _Chain):
+def traj_scalar_rows(traj: Tensor, params, target, c: _Chain,
+                     traj3: tp.Optional[Tensor] = None):
     """Pre-update ``(loss [n_cap], energy [n_cap])`` sums of every captured
-    step, recomputed from the aligned trajectory ``[n_cap, B, XW]`` (the JAX
-    wrapper's ``_traj_scalar_rows``), in chunks of
-    ``_SCALAR_RECOMPUTE_ROWS`` rows."""
+    step, recomputed from the aligned trajectory ``[n_cap, B, XW]`` (and,
+    with an output-PC site, ``traj3 [n_cap, B, pD]``; the JAX wrapper's
+    ``_traj_scalar_rows``), in chunks of ``_SCALAR_RECOMPUTE_ROWS`` rows."""
     n_cap, B = traj.shape[0], traj.shape[1]
     chunk = max(1, _SCALAR_RECOMPUTE_ROWS // B)
-    parts = [_traj_scalar_block(traj[i : i + chunk], params, target, c)
+    parts = [_traj_scalar_block(traj[i : i + chunk], params, target, c,
+                                None if traj3 is None else traj3[i : i + chunk])
              for i in range(0, n_cap, chunk)]
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
 
 
-def _traj_scalar_block(traj: Tensor, params, target, c: _Chain):
+def _traj_scalar_block(traj: Tensor, params, target, c: _Chain, traj3=None):
     d0, d1, d2, D = c.dims
     _, offs, _ = aligned_layout((d0, d1, d2))
     b0 = params[0]["b"]
@@ -506,14 +560,18 @@ def _traj_scalar_block(traj: Tensor, params, target, c: _Chain):
     x0 = traj[:, :, offs[0] : offs[0] + d0]
     x1 = traj[:, :, offs[1] : offs[1] + d1]
     x2 = traj[:, :, offs[2] : offs[2] + d2]
-    with _full_f32_matmul():
+    act = activation_fn(c.activation)
+    with full_f32_matmul():
         err0 = x0 - b0
-        err1 = x1 - (torch.matmul(torch.relu(x0), w1) + b1)
-        err2 = x2 - (torch.matmul(torch.relu(x1), w2) + b2)
-        logits = torch.matmul(torch.relu(x2), w3) + b3
+        err1 = x1 - (torch.matmul(act(x0), w1) + b1)
+        err2 = x2 - (torch.matmul(act(x1), w2) + b2)
+        logits = torch.matmul(act(x2), w3) + b3
     energy = 0.5 * (torch.sum(err0 * err0, dim=(1, 2))
                     + torch.sum(err1 * err1, dim=(1, 2))
                     + torch.sum(err2 * err2, dim=(1, 2)))
+    if traj3 is not None:
+        err3 = traj3[:, :, :D] - logits
+        energy = energy + 0.5 * c.inv_var3 * torch.sum(err3 * err3, dim=(1, 2))
     if c.loss == "none":
         return torch.zeros_like(energy), energy
     y = (target if target is not None else torch.zeros_like(logits[0]))[None]
@@ -565,6 +623,15 @@ def _noise_index(c: _Chain, B: int, device) -> tp.Tuple[Tensor, Tensor]:
     return idx, seeds
 
 
+def _noise_index3(c: _Chain, B: int, device) -> Tensor:
+    """The output-PC latent's element index [B, D]: ``local_row * pD + col``
+    over the JAX kernel's ``[tile_B, pD]`` tile."""
+    D = c.dims[3]
+    rows = torch.arange(B, dtype=torch.int64, device=device)
+    cols = torch.arange(D, dtype=torch.int64, device=device)
+    return (rows % c.tile)[:, None] * _pad128(D) + cols[None, :]
+
+
 def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
     """Step ``t``'s normals ``[B, d0+d1+d2]`` of the unpacked baseline: per
     latent the JAX package's ``_normals`` over a ``[B, half]`` grid
@@ -588,7 +655,9 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
     b0 = params[0]["b"]
     (w1, b1), (w2, b2), (w3, b3) = ((params[i]["w"], params[i]["b"])
                                     for i in (1, 2, 3))
-    X = torch.cat(latents, dim=1)
+    act = activation_fn(c.activation)
+    X = torch.cat(latents[:3], dim=1)
+    X3 = latents[3] if c.output_pc else None  # the output-PC site's latent
     B = X.shape[0]
     y = target if target is not None else torch.zeros(
         (B, D), dtype=X.dtype, device=X.device)
@@ -601,15 +670,23 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
         flat = torch.zeros(sum(_partial_sizes(c.dims)), dtype=X.dtype,
                            device=X.device)
 
-    def grads(X, want_scalars: bool, sample: bool = False):
-        x0, x1, x2 = X.split((d0, d1, d2), dim=1)
-        h0, h1, h2 = torch.relu(x0), torch.relu(x1), torch.relu(x2)
-        err0 = x0 - b0
-        e1 = x1 - (h0 @ w1 + b1)
-        e2 = x2 - (h1 @ w2 + b2)
-        if c.loss == "none":
+    def grads(X, X3, want_scalars: bool, sample: bool = False):
+        """(G of the latents, G3 of x3 or None, scalars or None)."""
+        H = act(X)
+        h0, h1, h2 = H.split((d0, d1, d2), dim=1)
+        err0 = X[:, :d0] - b0
+        e1 = X[:, d0 : d0 + d1] - (h0 @ w1 + b1)
+        e2 = X[:, d0 + d1 :] - (h1 @ w2 + b2)
+        G3 = err3 = None
+        if c.output_pc:
+            logits = h2 @ w3 + b3
+            err3 = X3 - logits
+            S = -err3 * c.inv_var3
+            G3 = c.inv_var3 * err3
+            back2 = (-S) @ w3.T
+        elif c.loss == "none":
             S = None
-            back2 = torch.zeros_like(x2)
+            back2 = torch.zeros_like(h2)
         else:
             logits = h2 @ w3 + b3
             if c.loss == "bernoulli":
@@ -620,7 +697,7 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
                 S = S * clamped
             back2 = (-S) @ w3.T
         back = torch.cat([e1 @ w1.T, e2 @ w2.T, back2], dim=1)
-        dH = (X > 0).to(X.dtype)
+        dH = (X > 0).to(X.dtype) if c.activation == "relu" else 1.0 - H * H
         G = torch.cat([err0, e1, e2], dim=1) - dH * back
         if sample:
             # Hebbian gradients from this (pre-update) state, over the batch
@@ -634,9 +711,11 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
                 gw3 += (h2.T @ S).reshape(-1)
                 gb3 += S.sum(dim=0)
         if not want_scalars:
-            return G, None
+            return G, G3, None
         energy = 0.5 * (torch.sum(err0 * err0) + torch.sum(e1 * e1)
                         + torch.sum(e2 * e2))
+        if err3 is not None:
+            energy = energy + 0.5 * c.inv_var3 * torch.sum(err3 * err3)
         if c.loss == "bernoulli":
             elem = (torch.clamp(logits, min=0.0) - logits * y
                     + torch.log1p(torch.exp(-torch.abs(logits))))
@@ -646,20 +725,25 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
             loss_s = torch.zeros((), dtype=X.dtype, device=X.device)
         else:
             loss_s = torch.sum(elem if clamped is None else elem * clamped)
-        return G, (loss_s, energy)
+        return G, G3, (loss_s, energy)
 
-    traj = None
+    traj = traj3 = None
+    pD = _pad128(D)
     if c.capture_stride:
         _, _, XW = aligned_layout((d0, d1, d2))
         traj = X.new_zeros((c.n_cap, B, XW))
+        if c.output_pc:
+            traj3 = X.new_zeros((c.n_cap, B, pD))
     slots = [None] * c.n_slots
     final = None
 
-    def observe(X, cs: int, last: bool) -> bool:
+    def observe(X, X3, cs: int, last: bool) -> bool:
         """Capture the step's pre-update latents; whether it wants sums."""
         if traj is not None and cs >= 0 and cs % c.capture_stride == 0:
             traj[cs // c.capture_stride] = _pack_aligned(
                 X.split((d0, d1, d2), dim=1), (d0, d1, d2))
+            if traj3 is not None:
+                traj3[cs // c.capture_stride, :, :D] = X3
         slot = c.scalar_stride and cs >= 0 and cs % c.scalar_stride == 0
         return bool(slot) or (c.return_scalars and last)
 
@@ -673,54 +757,83 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
         elif last:
             final = sc
 
+    def padded(t):  # [B, D] -> [B, pD], pad lanes zero
+        out = t.new_zeros((B, pD))
+        out[:, :D] = t
+        return out
+
     total = c.warm_T + c.T
     moments = None
     if c.warm_T > 0:
+        sites = 4 if c.output_pc else 3
         if warm_mu is not None:
-            m = torch.cat(warm_mu, dim=1).to(X.dtype)
-            v = torch.cat(warm_nu, dim=1).to(X.dtype)
+            m = torch.cat(warm_mu[:3], dim=1).to(X.dtype)
+            v = torch.cat(warm_nu[:3], dim=1).to(X.dtype)
+            m3, v3 = ((warm_mu[3].to(X.dtype), warm_nu[3].to(X.dtype))
+                      if sites == 4 else (None, None))
         else:
             m = torch.zeros_like(X)
             v = torch.zeros_like(X)
+            m3, v3 = (torch.zeros_like(X3), torch.zeros_like(X3)) if sites == 4 else (None, None)
         # bias-correction powers carried step to step in f32, as the kernel
         b1p, b2p = np.float32(c.bias0[0]), np.float32(c.bias0[1])
+
+        def adam(x, m, v, G, c1, c2):
+            m = c.warm_b1 * m + (1.0 - c.warm_b1) * G
+            v = c.warm_b2 * v + (1.0 - c.warm_b2) * G * G
+            # optax's operation order: (m / c1) / (sqrt(v / c2) + eps)
+            return x - c.warm_lr * (m / c1) / (torch.sqrt(v / c2) + c.warm_eps), m, v
+
         for s in range(c.warm_T):
             cs, last = (s if c.T == 0 else -1), s == total - 1
-            want = observe(X, cs, last)
-            G, sc = grads(X, want, c.warm_pgrads and s == c.warm_T - 1)
+            want = observe(X, X3, cs, last)
+            G, G3, sc = grads(X, X3, want, c.warm_pgrads and s == c.warm_T - 1)
             if want:
                 record(cs, last, sc)
             c1 = float(np.float32(1.0) - b1p)
             c2 = float(np.float32(1.0) - b2p)
-            m = c.warm_b1 * m + (1.0 - c.warm_b1) * G
-            v = c.warm_b2 * v + (1.0 - c.warm_b2) * G * G
-            # optax's operation order: (m / c1) / (sqrt(v / c2) + eps)
-            X = X - c.warm_lr * (m / c1) / (torch.sqrt(v / c2) + c.warm_eps)
+            X, m, v = adam(X, m, v, G, c1, c2)
+            if G3 is not None:
+                X3, m3, v3 = adam(X3, m3, v3, G3, c1, c2)
             b1p = np.float32(b1p * np.float32(c.warm_b1))
             b2p = np.float32(b2p * np.float32(c.warm_b2))
         if c.emit_opt_state:
             moments = tuple(_pack_aligned(t.split((d0, d1, d2), dim=1), (d0, d1, d2))
                             for t in (m, v))
+            if c.output_pc:
+                moments += (padded(m3), padded(v3))
 
     noisy = c.noise_std > 0.0
+    dp = 4 if c.output_pc else 2  # draws a step pair
     if noisy and c.packed and c.T > 0:
         idx, seeds = _noise_index(c, B, X.device)
-    z_cos = z_sin = None
+        if c.output_pc:
+            idx3 = _noise_index3(c, B, X.device)
+    z_cos = z_sin = z3_cos = z3_sin = None
     for t in range(c.T):
         if noisy and c.packed and t % 2 == 0:
             p = t // 2
             z_cos, z_sin = box_muller(
-                counter_bits_at(idx, seeds, 2 * p),
-                counter_bits_at(idx, seeds, 2 * p + 1),
+                counter_bits_at(idx, seeds, dp * p),
+                counter_bits_at(idx, seeds, dp * p + 1),
             )
+            if c.output_pc:
+                z3_cos, z3_sin = box_muller(
+                    counter_bits_at(idx3, seeds, dp * p + 2),
+                    counter_bits_at(idx3, seeds, dp * p + 3),
+                )
         last = t == c.T - 1
-        want = observe(X, t, last)
-        G, sc = grads(X, want, c.with_pgrads and t >= c.mixing)
+        want = observe(X, X3, t, last)
+        G, G3, sc = grads(X, X3, want, c.with_pgrads and t >= c.mixing)
         if want:
             record(t, last, sc)
         X = X - c.lr * G
+        if G3 is not None:
+            X3 = X3 - c.lr * G3
         if noisy and c.packed:
             X = X + c.noise_std * (z_cos if t % 2 == 0 else z_sin)
+            if G3 is not None:
+                X3 = X3 + c.noise_std * (z3_cos if t % 2 == 0 else z3_sin)
         elif noisy:
             X = X + c.noise_std * _unpacked_normals(c, B, t, X.device)
 
@@ -731,16 +844,18 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
         scalars = {"loss": torch.stack([r[0] for r in rows]),
                    "energy": torch.stack([r[1] for r in rows])}
         if traj is not None:
-            scalars = _with_capture_rows(scalars, traj, params, target, c)
+            scalars = _with_capture_rows(scalars, traj, params, target, c, traj3)
     new = tuple(x.contiguous() for x in X.split((d0, d1, d2), dim=1))
+    if c.output_pc:
+        new += (X3.contiguous(),)
     pgrads = None if flat is None else _pgrads_from_flat(flat, params, c.dims)
-    return _result(c, new, pgrads, traj, scalars, moments)
+    return _result(c, new, pgrads, traj, traj3, scalars, moments)
 
 
-def _with_capture_rows(final, traj, params, target, c: _Chain):
+def _with_capture_rows(final, traj, params, target, c: _Chain, traj3=None):
     """A capture run's scalars: the recomputed rows of the captured steps,
     then the kernel's final-step row (the JAX wrapper's order)."""
-    loss, energy = traj_scalar_rows(traj, params, target, c)
+    loss, energy = traj_scalar_rows(traj, params, target, c, traj3)
     return {"loss": torch.cat([loss.to(final["loss"].dtype), final["loss"]]),
             "energy": torch.cat([energy.to(final["energy"].dtype), final["energy"]])}
 
@@ -817,11 +932,14 @@ def column_slices(d: int, ranks: int = CLUSTER_SIZE) -> tp.Tuple[tp.Tuple[int, i
     return tuple((lo[k], lo[k + 1]) for k in range(ranks))
 
 
-def chain_smem_bytes(dims, rows: int, warm: bool, grads: int) -> int:
+def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
+                     output_pc: bool = False) -> int:
     """Dynamic shared memory of one block of the packed kernel (the layout of
     ``make_layout`` in ``csrc/mcpc_chain.cu``, which refuses a launch whose
     plan was sized otherwise).  ``grads``: 0 no parameter gradients, 1 the
-    block's gradient slice in device memory, 2 in shared memory."""
+    block's gradient slice in device memory, 2 in shared memory;
+    ``output_pc``: the own columns of an output-PC latent (and, warm, their
+    Adam moments)."""
     d0, d1, d2, D = dims
     n0, n1, n2, nD = (-(-d // CLUSTER_SIZE) for d in dims)  # widest slices
     own = n0 + n1 + n2
@@ -838,6 +956,8 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int) -> int:
         + (2 + (2 if warm else 0)) * own * pitch  # own X, errors, Adam moments
         + nD * pitch                       # own S
         + CLUSTER_SIZE * own * pitch       # the ranks' partial backward products
+        # an output-PC site's own columns and, warm, their Adam moments
+        + ((3 if warm else 1) * nD * pitch if output_pc else 0)
         + weights + own + nD               # weight slices, own biases
         + d0 + d1 + d2                     # every latent column's owner
         + (weights if grads == 2 else 0)
@@ -848,7 +968,8 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int) -> int:
 
 def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
                max_clusters: int,
-               row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
+               row_counts: tp.Sequence[int] = CLUSTER_ROWS,
+               output_pc: bool = False) -> ChainPlan:
     """The packed kernel's plan for ``dims = (d0, d1, d2, D)`` and batch
     ``B``, given ``budget`` bytes of dynamic shared memory a block and the
     ``max_clusters`` the card runs at once (15 on an H100 SXM: its 132 SMs
@@ -862,15 +983,15 @@ def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
     (16 rows would be 16 clusters and a second wave for the last one).  A
     small batch takes few rows a cluster and so more SMs.  The gradient
     slice is resident when it fits beside the weights at that row count,
-    else it stays in device memory.  Raises ``ValueError`` when not even two
-    rows fit."""
+    else it stays in device memory.  ``output_pc`` sizes the blocks for an
+    output-PC site.  Raises ``ValueError`` when not even two rows fit."""
     if B < 1 or max_clusters < 1:
         raise ValueError("chain_plan needs a batch and a cluster count of at least 1")
     dims = tuple(int(d) for d in dims)
     options = (2, 1) if with_pgrads else (0,)
     best = None
     for rows in row_counts:
-        fits = [(g, chain_smem_bytes(dims, rows, warm, g)) for g in options]
+        fits = [(g, chain_smem_bytes(dims, rows, warm, g, output_pc)) for g in options]
         fits = [(g, need) for g, need in fits if need <= budget]
         if not fits:
             continue
@@ -879,7 +1000,7 @@ def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
         if best is None or cost < best[0]:
             best = (cost, rows, clusters) + fits[0]
     if best is None:
-        least = chain_smem_bytes(dims, min(row_counts), warm, options[-1])
+        least = chain_smem_bytes(dims, min(row_counts), warm, options[-1], output_pc)
         raise ValueError(
             f"dims {dims} need {least} bytes of shared memory a block at "
             f"{min(row_counts)} rows a cluster; the budget is {budget}")
@@ -912,9 +1033,9 @@ def _library(packed: bool = True) -> ctypes.CDLL:
     budget = getattr(lib, name + "_smem_budget")
     budget.restype = _I
     if packed:
-        launch.argtypes = ([_P] * 23 + [ctypes.POINTER(_I)] + [_I] * 17 + [_F] * 11
+        launch.argtypes = ([_P] * 30 + [ctypes.POINTER(_I)] + [_I] * 18 + [_F] * 11
                            + [_I, _I, _Z, _P])
-        smem_bytes.argtypes = [_I] * 7
+        smem_bytes.argtypes = [_I] * 8
         budget.argtypes = [_I]
         lib.mcpc_chain_max_clusters.restype = _I
         lib.mcpc_chain_max_clusters.argtypes = [_I, _Z]
@@ -1012,18 +1133,18 @@ def max_active_clusters(device, plan: tp.Optional[ChainPlan] = None) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _device_plan_of(index: int, dims, B: int, warm: bool, with_pgrads: bool,
-                    row_counts: tp.Tuple[int, ...]) -> ChainPlan:
+                    row_counts: tp.Tuple[int, ...], output_pc: bool) -> ChainPlan:
     return chain_plan(dims, B, warm=warm, with_pgrads=with_pgrads,
                       budget=_smem_budget_of(index),
                       max_clusters=max_active_clusters(index),
-                      row_counts=row_counts)
+                      row_counts=row_counts, output_pc=output_pc)
 
 
 def device_plan(c: _Chain, B: int, device,
                 row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
     """:func:`chain_plan` of a validated call on the CUDA ``device``."""
     return _device_plan_of(_device_index(device), c.dims, B, c.warm_T > 0,
-                           c.with_pgrads, tuple(row_counts))
+                           c.with_pgrads, tuple(row_counts), c.output_pc)
 
 
 def unpacked_rows(dims, device) -> int:
@@ -1107,10 +1228,12 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
         if t.dtype != torch.float32:
             raise TypeError(f"mcpc_chain takes float32 tensors, got {t.dtype}")
     B = latents[0].shape[0]
-    x0, x1, x2 = (x.contiguous() for x in latents)
+    x0, x1, x2 = (x.contiguous() for x in latents[:3])
+    x3 = latents[3].contiguous() if c.output_pc else None
     b0, b1, b2, b3 = (p["b"].contiguous() for p in params)
     w1, w2, w3 = (params[i]["w"].contiguous() for i in (1, 2, 3))
-    y = (target.contiguous() if target is not None
+    # the output-PC site reads x3 where the loss reads the target
+    y = (target.contiguous() if target is not None else x3 if x3 is not None
          else torch.zeros((B, D), dtype=torch.float32, device=device))
     outs = [torch.empty_like(x) for x in (x0, x1, x2)]
     pointers = [t.data_ptr() for t in (x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3)]
@@ -1133,21 +1256,31 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     partials_ptr = None if partials is None else partials.data_ptr()
     lib = _library(c.packed)
     XW = aligned_layout((d0, d1, d2))[2]
+    pD = _pad128(D)
     # the options' buffers: the kernel writes only real columns and rows, so
     # the aligned outputs start at zero
-    m_in = v_in = moments = traj = slots = None
+    m_in = v_in = moments = traj = traj3 = slots = None
+    m3_in = v3_in = o3 = None
     if c.packed:
         if warm_mu is not None:
-            m_in, v_in = (_pack_aligned([m.contiguous() for m in ms], (d0, d1, d2))
+            m_in, v_in = (_pack_aligned([m.contiguous() for m in ms[:3]], (d0, d1, d2))
                           for ms in (warm_mu, warm_nu))
+            if c.output_pc:
+                m3_in, v3_in = (_pack_aligned([ms[3].contiguous()], (D,))
+                                for ms in (warm_mu, warm_nu))
         if c.emit_opt_state:
-            moments = (torch.zeros((B, XW), dtype=torch.float32, device=device),
-                       torch.zeros((B, XW), dtype=torch.float32, device=device))
+            widths = (XW, XW, pD, pD) if c.output_pc else (XW, XW)
+            moments = tuple(torch.zeros((B, w), dtype=torch.float32, device=device)
+                            for w in widths)
         if c.capture_stride:
             traj = torch.zeros((c.n_cap, B, XW), dtype=torch.float32, device=device)
+            if c.output_pc:
+                traj3 = torch.zeros((c.n_cap, B, pD), dtype=torch.float32, device=device)
         if c.scalar_stride:
             slots = torch.empty((plan.blocks, 2 * c.n_slots), dtype=torch.float64,
                                 device=device)
+        if c.output_pc:
+            o3 = torch.empty_like(x3)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -1157,17 +1290,20 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
         if c.packed:
             scal = torch.zeros((plan.blocks, 2), dtype=torch.float64, device=device)
             bounds = plan.slice_bounds()
+            m_out = (None,) * 4 if moments is None else tuple(moments) + (None,) * 2
             err = lib.mcpc_chain_launch(
                 *pointers, scal.data_ptr(), partials_ptr, ptr(clocks),
-                ptr(m_in), ptr(v_in),
-                *((None, None) if moments is None else (ptr(moments[0]), ptr(moments[1]))),
+                ptr(m_in), ptr(v_in), ptr(m_out[0]), ptr(m_out[1]),
                 ptr(traj), ptr(slots),
+                ptr(x3), ptr(o3), ptr(m3_in), ptr(v3_in), ptr(m_out[2]), ptr(m_out[3]),
+                ptr(traj3),
                 (_I * len(bounds))(*bounds),
                 B, d0, d1, d2, D,
                 c.T, c.warm_T, _LOSS_CODES[c.loss], int(c.return_scalars),
                 c.mixing, int(c.warm_pgrads), plan.rows, int(plan.grads_resident),
                 c.capture_stride, c.scalar_stride, c.n_slots, c.mask_lo,
-                c.inv_var, c.lr, c.noise_std,
+                _ACT_CODES[c.activation],
+                c.inv_var3 if c.output_pc else c.inv_var, c.lr, c.noise_std,
                 c.warm_lr, c.warm_b1, c.warm_b2,
                 1.0 - c.warm_b1, 1.0 - c.warm_b2, c.warm_eps,
                 c.bias0[0], c.bias0[1],
@@ -1193,11 +1329,12 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
         sums = scal.sum(dim=0).to(torch.float32)
         scalars = {"loss": sums[0:1], "energy": sums[1:2]}
         if traj is not None:
-            scalars = _with_capture_rows(scalars, traj, params, target, c)
+            scalars = _with_capture_rows(scalars, traj, params, target, c, traj3)
     pgrads = None
     if partials is not None:
         pgrads = _pgrads_from_flat(sum_block_partials(partials), params, c.dims)
-    return _result(c, tuple(outs), pgrads, traj, scalars, moments)
+    new = tuple(outs) + ((o3,) if o3 is not None else ())
+    return _result(c, new, pgrads, traj, traj3, scalars, moments)
 
 
 def chain_phase_clocks(params, latents, target, seed, *,
@@ -1227,7 +1364,8 @@ def mcpc_chain(params, latents, target, seed, **options):
     Args:
         params: 4 ``{"w": [in, out], "b": [out]}`` dicts (the canonical MLP;
             ``params[0]["w"]`` is unused, its input being zeros).
-        latents: ``(x0, x1, x2)``, each ``[B, d_l]`` float32.
+        latents: ``(x0, x1, x2)``, each ``[B, d_l]`` float32, and with
+            ``output_var`` the output-PC latent ``x3`` ``[B, D]`` fourth.
         target: ``[B, D]`` float32, or None for zeros.
         seed: int (or 0-d tensor) keying the noise stream.
 
@@ -1237,7 +1375,9 @@ def mcpc_chain(params, latents, target, seed, **options):
     (with ``mask_perc``: only the last ``round(D * mask_perc)`` output
     columns are clamped, all of them when that rounds to 0),
     ``input_var=1.0``, ``warm_T=0``, ``warm_lr=0.1``, ``warm_b1=0.9``,
-    ``warm_b2=0.999``, ``warm_eps=1e-8``, ``activation="relu"``,
+    ``warm_b2=0.999``, ``warm_eps=1e-8``, ``activation="relu"`` (or
+    ``"tanh"``), ``output_var=None`` (the variance of a trailing output-PC
+    site: ``loss="none"``, ``packed=True``, a fourth latent),
     ``return_scalars=False``, ``batch_tile=None`` (keys the per-tile noise
     seeds), and
     ``with_pgrads=False``: also sum the Hebbian parameter gradients over the
@@ -1253,16 +1393,18 @@ def mcpc_chain(params, latents, target, seed, **options):
     ``scalar_stride``-th step of that phase plus the final step's
     (:func:`scalar_slots` rows);
     ``emit_warm_opt_state=False``: also return the Adam moments after the
-    warm phase, ``(m, v)``, each ``[B, XW]`` aligned;
-    ``warm_mu``/``warm_nu`` (3 tensors shaped like the latents) and
+    warm phase, ``(m, v)``, each ``[B, XW]`` aligned (with an output-PC
+    site ``(m, v, m3, v3)``, the last two ``[B, pD]``, pD = D padded to 128);
+    ``warm_mu``/``warm_nu`` (tensors shaped like the latents) and
     ``warm_count``: resume an Adam state of ``warm_count`` steps;
     ``packed=True``: False runs the unpacked baseline, which has relu, no
     warm phase, no scalars, no options, one batch tile and a noise stream of
     its own.
-    ``output_var``, ``bf16_matmul`` and tanh are not ported yet and raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    ``bf16_matmul`` is not ported yet and raises ``NotImplementedError``
+    naming its ROADMAP.md item.
 
-    Returns ``latents', pgrads[, traj][, scalars][, (m, v)]``, in that
+    Returns ``latents', pgrads[, traj[, traj3]][, scalars][, moments]``
+    (``traj3`` ``[n_cap, B, pD]``: the output-PC latent's captures), in that
     order, each present only with its option.  ``pgrads`` is None unless
     ``with_pgrads``; else a tuple of four ``{"w", "b"}`` dicts shaped like
     ``params``, sums over the whole batch and the sampling steps (not

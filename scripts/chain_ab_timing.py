@@ -7,9 +7,11 @@ checkouts can be compared in one call.
 imported and its kernel built from its own sources.  Prints one JSON line:
 chain (a) (B=256, T=10000, 20-128-128-784, Bernoulli, noise variance 2; 7
 chains), the training chain of ``train_mnist.chain_options`` with and
-without the parameter gradients (21 chains each) and the whole training
-batch, ``train_mnist.one_batch`` with its Adam step (21 batches), each as
-``[median, min, max]`` ms between CUDA events after one warm-up.  To compare a change with
+without the parameter gradients (21 chains each), the whole training
+batch, ``train_mnist.one_batch`` with its Adam step (21 batches), and chain
+(a) with the tanh activation (7 chains; null for a checkout whose kernel has
+no tanh), each as ``[median, min, max]`` ms between CUDA events after one
+warm-up.  To compare a change with
 its parent, unpack the parent into an ignored directory and run both trees
 in turns (parent, change, change, parent, ...) in one call: the card's speed
 moves between calls.  Needs a CUDA device and nvcc; there is no CPU mode.
@@ -61,6 +63,16 @@ def main() -> None:
     latents = gen.model.init_latents(gen.params, torch.zeros(B, 20, device=dev),
                                      torch.Generator().manual_seed(1235))
     opts = train_mnist.chain_options(config)
+    chain_a = dict(T=10000, lr=0.01, noise_var=2.0, loss="bernoulli", return_scalars=True)
+
+    def chain_a_tanh():
+        try:
+            chain.mcpc_chain(gen.params, latents, data, 1234, activation="tanh", **chain_a)
+        except NotImplementedError:
+            return None
+        return ms(lambda: chain.mcpc_chain(gen.params, latents, data, 1234,
+                                           activation="tanh", **chain_a), 7)
+
     if hasattr(train_mnist, "param_optimizer"):
         state = train_mnist.param_optimizer(config).init(gen.params)
     else:  # an older checkout, whose one_batch takes adam_init's state
@@ -68,14 +80,13 @@ def main() -> None:
         state = adam_init(gen.params)
     print(json.dumps({
         "tree": args.label or args.tree,
-        "chain_a": ms(lambda: chain.mcpc_chain(
-            gen.params, latents, data, 1234, return_scalars=True,
-            T=10000, lr=0.01, noise_var=2.0, loss="bernoulli"), 7),
+        "chain_a": ms(lambda: chain.mcpc_chain(gen.params, latents, data, 1234, **chain_a), 7),
         "train_chain": ms(lambda: chain.mcpc_chain(gen.params, latents, data, 99, **opts), 21),
         "train_chain_nopg": ms(lambda: chain.mcpc_chain(
             gen.params, latents, data, 99, **dict(opts, with_pgrads=False)), 21),
         "train_batch": ms(lambda: train_mnist.one_batch(
             gen.params, state, latents, 99, data, config=config), 21),
+        "chain_a_tanh": chain_a_tanh(),
     }))
 
 

@@ -138,21 +138,25 @@ def test_two_runs_of_a_training_chain_are_bit_identical(cuda_device, dims):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,warm,with_pgrads", [
-    ((20, 128, 128, 784), True, True),
-    ((20, 128, 128, 784), False, False),
-    ((10, 256, 256, 784), True, True),
-    ((4, 8, 8, 16), True, True),
+@pytest.mark.parametrize("dims,warm,with_pgrads,output_pc", [
+    ((20, 128, 128, 784), True, True, False),
+    ((20, 128, 128, 784), False, False, False),
+    ((10, 256, 256, 784), True, True, False),
+    ((4, 8, 8, 16), True, True, False),
+    ((20, 128, 128, 784), True, False, True),
+    ((30, 256, 256, 784), True, True, True),
 ])
 def test_plan_agrees_with_the_kernel_and_the_card_runs_it(cuda_device, dims, warm,
-                                                          with_pgrads):
+                                                          with_pgrads, output_pc):
     plan = chain_mod.chain_plan(dims, 256, warm=warm, with_pgrads=with_pgrads,
                                 budget=chain_mod.smem_budget(cuda_device),
-                                max_clusters=chain_mod.max_active_clusters(cuda_device))
+                                max_clusters=chain_mod.max_active_clusters(cuda_device),
+                                output_pc=output_pc)
     lib = chain_mod._library()
     assert lib.mcpc_chain_cluster_size() == plan.cluster_size
     grads = (2 if plan.grads_resident else 1) if with_pgrads else 0
-    assert lib.mcpc_chain_smem_bytes(*dims, plan.rows, int(warm), grads) == plan.smem_bytes
+    assert lib.mcpc_chain_smem_bytes(*dims, plan.rows, int(warm), grads,
+                                     int(output_pc)) == plan.smem_bytes
     assert chain_mod.max_active_clusters(cuda_device, plan) >= 1
 
 
@@ -369,3 +373,108 @@ def test_continuation_in_three_calls_matches_one_call(cuda_device):
         torch.testing.assert_close(u, v, rtol=0, atol=1e-4)
     for a, b in zip(state, one[2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+# ----------------------------------------- tanh and the output-PC site
+
+TANH_CASES = {
+    "tanh_warm_langevin_pgrads": dict(activation="tanh", warm_T=6, T=20, mixing=5,
+                                      with_pgrads=True, return_scalars=True),
+    "tanh_warm_only_warm_pgrads": dict(activation="tanh", warm_T=12, T=0,
+                                       with_pgrads=True, warm_pgrads=True,
+                                       return_scalars=True),
+    "tanh_masked_captured": dict(activation="tanh", warm_T=4, T=15, capture_stride=2,
+                                 loss="bernoulli_mask", mask_perc=0.5,
+                                 return_scalars=True),
+    "tanh_scalar_stride": dict(activation="tanh", warm_T=4, T=15, scalar_stride=4,
+                               return_scalars=True),
+}
+
+
+def _output_pc_case(dims, B, device, var=0.5, seed=3):
+    """An output-PC model's parameters and latents, x3 at least one unit off
+    its prediction: where |x3 - logits| is within the rounding of two
+    different sums, Adam's first step on x3 (lr * sign(x3 - logits)) would
+    follow the sign of that rounding (at the prediction every element is
+    such a case)."""
+    gen = torch.Generator().manual_seed(seed)
+    model = mt.make_mlp_model(*dims, output_pc=mt.PC(energy_fn=mt.scaled_gaussian_energy(var)))
+    params = model.init(gen, device=device)
+    latents = model.init_latents(params, torch.zeros(B, dims[0], device=device), gen)
+    z = torch.randn(latents[3].shape, generator=gen).to(device)
+    return params, latents[:3] + (latents[3] + torch.where(z >= 0, 1.0 + z, z - 1.0),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TANH_CASES))
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_tanh_matches_plain_version(cuda_device, case, rows):
+    """tanh at every built row count, B = 37 (pad rows), at 20-128-128-784
+    and at the mse preset's 30-256-256-784 (whose blocks hold 18 rows only
+    without a warm phase)."""
+    for dims in ((20, 128, 128, 784), (30, 256, 256, 784)):
+        if rows == 18 and dims[1] == 256:
+            continue
+        params, latents, target = _case(dims, 37, cuda_device)
+        kw = dict(TANH_CASES[case], lr=0.03)
+        c = chain_mod._chain_args(params, latents, target, 9, **kw)
+        plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+        assert plan.rows == rows
+        before = chain_mod.mcpc_chain.launches
+        got = chain_mod._kernel(c, params, latents, target, plan=plan)
+        torch.cuda.synchronize()
+        assert chain_mod.mcpc_chain.launches == before + 1
+        want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+        _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_output_pc_matches_plain_version(cuda_device, rows):
+    """The output-PC site at every built row count, B = 37: a warm phase that
+    hands its moments out, a continuation from them, then a Langevin phase
+    with noise, gradients and captures (``traj3`` too), each held against
+    the plain version on the same inputs."""
+    dims = (20, 128, 128, 784)
+    params, latents = _output_pc_case(dims, 37, cuda_device)
+    out = dict(output_var=0.5, loss="none", lr=0.05)
+
+    def run(inputs, **kw):
+        kw = dict(out, **kw)
+        c = chain_mod._chain_args(params, inputs, None, 9, **kw)
+        plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+        assert plan.rows == rows
+        got = chain_mod._kernel(c, params, inputs, None, plan=plan,
+                                warm_mu=kw.get("warm_mu"), warm_nu=kw.get("warm_nu"))
+        want = chain_mod.mcpc_chain_reference(params, inputs, None, 9, **kw)
+        _assert_same_outputs(got, want)
+        return got
+
+    warm = run(latents, warm_T=8, T=0, emit_warm_opt_state=True, return_scalars=True)
+    _, offs, _ = chain_mod.aligned_layout(dims[:3])
+    split = lambda m, m3: tuple(m[:, o : o + d] for o, d in zip(offs, dims[:3])) + (
+        m3[:, : dims[3]],)
+    m, v, m3, v3 = warm[3]
+    assert m3.shape == (37, 896) and not m3[:, dims[3]:].any()
+    cont = run(warm[0], warm_T=5, T=0, emit_warm_opt_state=True, warm_count=8,
+               warm_mu=split(m, m3), warm_nu=split(v, v3))
+    lang = run(cont[0], T=21, mixing=5, with_pgrads=True, capture_stride=4,
+               return_scalars=True)
+    traj3 = lang[3]
+    assert traj3.shape == (6, 37, 896) and not traj3[:, :, dims[3]:].any()
+    assert len(lang[0]) == 4 and lang[0][3].shape == (37, 784)
+
+
+@pytest.mark.cuda
+def test_output_pc_at_the_joint_sampler_batch(cuda_device):
+    """B = 256 (15 clusters of 18 rows), a warm start and a Langevin phase
+    with noise, as the joint sampler runs them, against the plain version."""
+    params, latents = _output_pc_case((20, 128, 128, 784), 256, cuda_device, var=1.0)
+    kw = dict(output_var=1.0, loss="none", warm_T=10, warm_lr=0.7, T=20, lr=0.1,
+              return_scalars=True)
+    got = chain_mod.mcpc_chain(params, latents, None, 4, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, None, 4, **kw)
+    _assert_same_outputs(got, want)
+    again = chain_mod.mcpc_chain(params, latents, None, 4, **kw)
+    for u, w in zip(got[0], again[0]):
+        assert torch.equal(u, w)

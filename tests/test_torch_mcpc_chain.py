@@ -96,11 +96,12 @@ def test_supports_model_matches_jax():
         for m in relu.modules
     ])
     assert not chain_mod.supports_model(masked)
-    # tanh is supported by the JAX kernel but not ported yet
+    # tanh is supported, as by the JAX kernel
     tanh = mt.make_mlp_model(4, 8, 8, 16, activation="tanh")
-    assert jops.supports_model(mcpc.make_mlp_model(4, 8, 8, 16, activation="tanh"))
-    assert not chain_mod.supports_model(tanh)
-    assert chain_mod.model_activation(tanh) is None
+    jtanh = mcpc.make_mlp_model(4, 8, 8, 16, activation="tanh")
+    assert jops.supports_model(jtanh) and chain_mod.supports_model(tanh)
+    assert chain_mod.model_activation(tanh) == jops.model_activation(jtanh) == "tanh"
+    assert not chain_mod.supports_model(tanh, activation="relu")
 
 
 # ------------------------------------------------------- chain vs JAX
@@ -324,14 +325,14 @@ _MU = tuple(np.zeros((8, d), np.float32) for d in (4, 8, 8))
 UNPORTED = {
     "capture_stride": (dict(T=0, capture_stride=2), ValueError, "requires steps"),
     "scalar_stride": (dict(scalar_stride=2), ValueError, "return_scalars"),
-    "output_var": (dict(output_var=1.0), NotImplementedError, "ROADMAP.md"),
+    "output_var": (dict(output_var=1.0), ValueError, "4 latents"),
     "mask_perc": (dict(loss="gaussian_mask"), ValueError, "mask_perc"),
     "bf16_matmul": (dict(bf16_matmul=True), NotImplementedError, "ROADMAP.md"),
     "warm_mu": (dict(warm_mu=_MU, warm_nu=_MU, warm_count=1), ValueError, "warm_T > 0"),
     "warm_nu": (dict(warm_T=2, warm_mu=_MU, warm_count=1), ValueError, "warm_nu"),
     "warm_count": (dict(warm_T=2, warm_mu=_MU, warm_nu=_MU), ValueError, "warm_count"),
     "emit_warm_opt_state": (dict(emit_warm_opt_state=True), ValueError, "warm_T > 0"),
-    "activation": (dict(activation="tanh"), NotImplementedError, "ROADMAP.md"),
+    "activation": (dict(activation="tanh", packed=False), ValueError, "relu only"),
     "loss": (dict(loss="bernoulli_mask"), ValueError, "mask_perc"),
 }
 

@@ -178,7 +178,7 @@ def test_train_mcpc_unported_paths_name_their_item(kwargs, item, tmp_path):
 
 
 @pytest.mark.parametrize("model,item", [
-    ("pc", "item 6"), ("dlgm", "item 10"), ("resnet9", "item 5"),
+    ("dlgm", "item 10"), ("resnet9", "item 5"),
 ])
 def test_main_refuses_unported_models(model, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):

@@ -269,7 +269,7 @@ def test_trainer_masked_dispatch_matches_engine(warm):
 def test_eligibility_matrix():
     """The dispatch decision and the fallback reason, config class by config
     class, as the JAX trainer takes them (``use_pallas=True``).  What the JAX
-    kernel takes and the port's does not yet raises instead."""
+    kernel takes and the port's does not yet (bf16) raises instead."""
     params, latents, target = _arrays()
 
     def decide(trainer_kw, batch_kw, tmodel=None, jmodel=None, bf16=False):
@@ -336,13 +336,16 @@ def test_eligibility_matrix():
     masked = lambda pkg: pkg.PCModel([m if not isinstance(m, pkg.PC) else pkg.PC(
         M=(1.0,) * 8) if i == 4 else m for i, m in enumerate(pkg.make_mlp_model(*DIMS).modules)])
     assert not decide(sgd, bern, tmodel=masked(mt), jmodel=masked(mcpc))
-    # the JAX kernel takes these; the port raises, naming the ROADMAP item
+    # tanh and the output-PC site ride the chain, as in the JAX package
     tanh = lambda pkg: pkg.make_mlp_model(*DIMS, activation="tanh")
-    assert decide(sgd, bern, tmodel=tanh(mt), jmodel=tanh(mcpc)) == "raised"
+    assert decide(sgd, bern, tmodel=tanh(mt), jmodel=tanh(mcpc)) is True
     out_pc = lambda pkg: pkg.make_mlp_model(
         *DIMS, output_pc=pkg.PC(energy_fn=pkg.scaled_gaussian_energy(0.5)))
     assert decide(sgd, lambda pkg, np_, y: dict(loss_fn=pkg.zero_fn),
-                  tmodel=out_pc(mt), jmodel=out_pc(mcpc)) == "raised"
+                  tmodel=out_pc(mt), jmodel=out_pc(mcpc)) is True
+    # a sensory loss on an output-PC joint sampler goes to the engine
+    assert not decide(sgd, bern, tmodel=out_pc(mt), jmodel=out_pc(mcpc))
+    # the JAX kernel takes bf16; the port raises, naming the ROADMAP item
     assert decide(sgd, bern, bf16=True) == "raised"
 
 
