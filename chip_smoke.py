@@ -5,7 +5,9 @@
 Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          matrix product of the plain versions is full f32) and builds every
          CUDA kernel of the port from the sources in this checkout, one
-         ``nvcc`` per source, all started together.
+         ``nvcc`` per library (each source for f32 and for bf16 products),
+         all started together.  The synthetic MNIST set that stands in for
+         the IDX files is made once and shared by every phase.
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
          main paths give it: the chain with and without parameter gradients
@@ -46,7 +48,7 @@ Phase 2  drives the serving path at full width through the entry points a
          launch counts are zeroed just before and read just after; then (a)
          and (c) are held against the plain version and the chains are timed
          with CUDA events (kernel: median of 3 after one warm-up; plain
-         version: once).
+         version: once, (b)'s cut to a tenth of its steps).
 Phase 3  drives the training path at full width: ``get_model`` ->
          ``get_mnist_data`` (train split, B=256) -> ``one_batch`` for
          TRAIN_BATCHES batches (250 Adam MAP steps at lr 0.7, 50 + 100
@@ -105,6 +107,29 @@ Phase 5  drives this slice's paths at full width (synthetic MNIST; the
          the plain f32 version stays within P1_ATOL of float64 (none: not
          held, and said so).
 
+Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
+(bf16)   (20-128-128-784, Bernoulli).  It holds both kernels' bf16 builds
+         against the plain bf16 version by two rules (BF16_* below): one
+         Langevin step of relu, tanh and the unpacked kernel, with gradients,
+         at B=37 and B=256; then relu and tanh with 50 Adam and 100 Langevin
+         steps and gradients, relu warm-only with ``warm_pgrads`` and the
+         unpacked chain with gradients (150 steps), at B=37 and B=256, and
+         the options' instantiation at B=37 (masked and captured, tanh with
+         scalar slots, a continuation handing its moments out, the output-PC
+         site), in f32 and float64, with the per-row mean energy beside each.
+         Then, counts zeroed just before and read just after: ``PCTrainer``
+         with ``use_kernel_bf16=True`` (a PC training batch at preset ml;
+         ``"auto"`` must stay f32), bench.py's bf16 rows with f32 beside bf16
+         (chain (a) at B=256 and B=1024, T=10000; the training step, 250
+         Adam + 50 + 100 Langevin steps + the Adam step on the parameters,
+         at B=256 and B=1024; CUDA events, median), and the unpacked chain
+         (c) in bf16.  Chain (a) and (c) in bf16 are held and timed against
+         the plain version at T=1000.  Last, ``train_mcpc(fused=False)``:
+         10 batches at B=256 through ``PCTrainer``, 2 chain launches and one
+         summing pass a batch, no engine call, the parameters finite and
+         changed, the test batch's loss lower; ms a batch beside phase 3's
+         ``one_batch``.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -113,7 +138,9 @@ script exits non-zero.
 
 from __future__ import annotations
 
+import functools
 import importlib
+import itertools
 import json
 import os
 import statistics
@@ -190,10 +217,48 @@ OUT_PC = dict(output_var=0.5, loss="none")
 # phase 5: PC training batches, the batches of each metric, figure 3a's scale
 # (its 10,250 steps run one small autograd step at a time on the host)
 PC_TRAIN_BATCHES, EVAL_BATCHES, ML_SAMPLES, SCALE_3A = 10, 2, 5000, 0.2
+# phase 6: batches of train_mcpc(fused=False)
+TRAINER_BATCHES = 10
 # the joint sampler's Langevin step: with the output site's variance 1, x2
 # sees the curvature sigma_max(W3)^2 = 4478 of mcpc_fid_3, so a step above
 # 2 / 4478 diverges (at lr 0.1 the latents pass 1e6 within 30 steps)
 JOINT_LR = 1e-4
+# phase 6, bf16 products.  Two correct implementations sum a product in
+# different orders; where a sum lands near a bf16 rounding boundary the next
+# product's operand rounds the other way (one bf16 ulp, 2^-8 relative) and a
+# chain amplifies that, so a bf16 kernel is held to the plain bf16 version
+# by two rules.  (i) After one Langevin step without noise: at least
+# BF16_AGREE of the latents within BF16_STEP_ATOL and of the gradient
+# entries within BF16_STEP_GRAD_REL of their tensor's largest (f32
+# summation size; the rest are where an operand rounded the other way), and
+# no part further from the plain bf16 version than BF16_SHARE of the bf16
+# effect (the plain bf16 version's distance from the plain f32 one).  (ii)
+# On longer chains every part within BF16_SHARE of the bf16 effect of the
+# plain bf16 version run in f32, or within phase 1's allowance where the
+# effect is smaller; and, as phase 1 does, at most that much further from
+# the plain bf16 version run in float64 (the same rounding points) than the
+# plain bf16 version run in f32 is.  Run in float64, the plain bf16 version
+# is not the exact answer the f32 ones approach: its sums too land on the
+# other side of a bf16 boundary now and then.  Rule (ii) measures a distance
+# as the root mean square over a part's elements (gradients and moments
+# relative to their tensor's largest entry; the scalars by their largest
+# relative difference): a flip moves a few rows, the bf16 effect every
+# element, and one element near relu's kink can carry either as far.  By
+# the largest difference, chain (c) in bf16 sat 0.101 from its plain version
+# after 1000 steps against a bf16 effect of 0.103, and both f32 versions of
+# a 300-step unpacked chain sat 0.057 from the float64 one against 0.065.
+# A kernel that ignores the flag sits at the whole effect, and the script
+# checks that rule (i) would fail the plain f32 version; one that takes
+# tanh' from the rounded H left about half the latents beyond
+# BF16_STEP_ATOL after one step (the plain version so broken, on the CPU).
+# The training batch's 250 Adam steps at lr 0.7 part any two summation
+# orders as far as bf16 does (on the CPU, the plain version with its sums
+# taken in double instead: 1.3 times the effect), so it is held only at
+# cut length.
+BF16_AGREE, BF16_STEP_ATOL, BF16_STEP_GRAD_REL, BF16_SHARE = 0.98, 1e-5, 2e-6, 0.5
+# the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
+# sheet, 700 W): the least time the card could take for bf16 products
+PEAK_BF16_FLOPS = 989e12
 
 
 class SmokeFailure(RuntimeError):
@@ -255,16 +320,18 @@ def step_flops(dims, B: int) -> int:
     return 2 * 2 * B * (d0 * d1 + d1 * d2 + d2 * D)
 
 
-def chain_bound_ms(dims, B: int, steps: int, sampling: int = 0) -> float:
+def chain_bound_ms(dims, B: int, steps: int, sampling: int = 0,
+                   peak: float = PEAK_F32_FLOPS) -> float:
     """Least time an H100 could take: the larger of the matrix-product FLOPs
-    over the f32 peak (a sampling step adds the Hebbian products, half a
-    step's worth) and the bytes read and written once over HBM's rate."""
+    over the ``peak`` (f32 outside the tensor cores unless told otherwise; a
+    sampling step adds the Hebbian products, half a step's worth) and the
+    bytes read and written once over HBM's rate."""
     d0, d1, d2, D = dims
     flops = step_flops(dims, B) * steps + step_flops(dims, B) // 2 * sampling
     n = d0 + d1 + d2
     params = d0 + d0 * d1 + d1 + d1 * d2 + d2 + d2 * D + D
     nbytes = 4 * (params + 2 * B * n + B * D + (params if sampling else 0))
-    return 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S)
+    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES_PER_S)
 
 
 def max_abs(a, b) -> float:
@@ -324,6 +391,48 @@ def off_prediction(torch, latents, generator):
     return latents[:3] + (latents[3] + torch.where(z >= 0, 1.0 + z, z - 1.0),)
 
 
+def mean_row_energy(torch, params, latents, activation: str) -> float:
+    """The latent layers' energy of each batch row, 0.5 |err0|^2 + 0.5
+    |err1|^2 + 0.5 |err2|^2 in f32 from the f32 parameters, averaged over the
+    rows: a per-row statistic of where a chain ended."""
+    act = torch.tanh if activation == "tanh" else torch.relu
+    x0, x1, x2 = latents[:3]
+    e = ((x0 - params[0]["b"]).pow(2).sum(1)
+         + (x1 - (act(x0) @ params[1]["w"] + params[1]["b"])).pow(2).sum(1)
+         + (x2 - (act(x1) @ params[2]["w"] + params[2]["b"])).pow(2).sum(1))
+    return float(0.5 * e.mean())
+
+
+def rms_abs(a, b) -> float:
+    """Root mean square of the differences of two tuples of tensors, over all
+    their elements."""
+    sq = n = 0.0
+    for x, y in zip(a, b):
+        sq += float(((x.double() - y.double()) ** 2).sum())
+        n += y.numel()
+    return (sq / n) ** 0.5
+
+
+def rms_rel(a, b) -> float:
+    """The same with each tensor's differences divided by its largest entry
+    in ``b`` (gradients, given as dicts, and Adam moments)."""
+    if a and isinstance(a[0], dict):
+        a = [x[k] for x in a for k in ("w", "b")]
+        b = [y[k] for y in b for k in ("w", "b")]
+    return rms_abs([x / y.abs().max().clamp_min(1e-30) for x, y in zip(a, b)],
+                   [y / y.abs().max().clamp_min(1e-30) for y in b])
+
+
+def agree_share(pairs, tol_of) -> float:
+    """Share of the elements of the (got, want) tensor pairs with |got -
+    want| <= tol_of(want)."""
+    inside = total = 0
+    for a, b in pairs:
+        inside += int(((a - b).abs() <= tol_of(b)).sum())
+        total += b.numel()
+    return inside / total
+
+
 def grads_equal(torch, ga, gb) -> bool:
     return all(torch.equal(a[k], b[k]) for a, b in zip(ga, gb) for k in ("w", "b"))
 
@@ -357,6 +466,11 @@ class ChainRecorder:
                         lambda self, n: setattr(self.fn, "launches", n))
     launches_unpacked = property(lambda self: self.fn.launches_unpacked,
                                  lambda self, n: setattr(self.fn, "launches_unpacked", n))
+    launches_bf16 = property(lambda self: self.fn.launches_bf16,
+                             lambda self, n: setattr(self.fn, "launches_bf16", n))
+    launches_unpacked_bf16 = property(
+        lambda self: self.fn.launches_unpacked_bf16,
+        lambda self, n: setattr(self.fn, "launches_unpacked_bf16", n))
 
     def _segments(self) -> int:
         return self.torch.cuda.memory_stats().get("segment.all.allocated", 0)
@@ -402,15 +516,24 @@ def main() -> int:
 
     chain = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
     dev = torch.device("cuda")
+    # the repo holds no IDX files, so every get_mnist_data call makes the
+    # synthetic set anew (about 5 s of numpy on the host); the phases share
+    # one, made once, as the same seeds would make it every time
+    mnist = importlib.import_module("montecarlopredictivecoding_tpu_torch.data.mnist")
+    mnist._synthetic_mnist = functools.lru_cache(maxsize=None)(mnist._synthetic_mnist)
 
     def zero_counts():
         chain.mcpc_chain.launches = 0
         chain.mcpc_chain.launches_unpacked = 0
         chain.sum_block_partials.launches = 0
+        chain.mcpc_chain.launches_bf16 = 0
+        chain.mcpc_chain.launches_unpacked_bf16 = 0
 
     def read_counts():
+        """(packed, unpacked, summing pass, packed bf16, unpacked bf16)"""
         return (chain.mcpc_chain.launches, chain.mcpc_chain.launches_unpacked,
-                chain.sum_block_partials.launches)
+                chain.sum_block_partials.launches, chain.mcpc_chain.launches_bf16,
+                chain.mcpc_chain.launches_unpacked_bf16)
 
     # ---------------------------------------------------------- phase 0
     card = card_line()
@@ -423,12 +546,16 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t_start = time.perf_counter()
     t0 = time.perf_counter()
-    sources = ["mcpc_chain", "mcpc_chain_unpacked"]
-    lib_paths = _build.build_all(sources)
+    # every source twice, f32 and bf16 products: four nvcc started together
+    libraries = [(name, bf16) for name in ("mcpc_chain", "mcpc_chain_unpacked")
+                 for bf16 in (False, True)]
+    lib_paths = _build.build_all(libraries)
     print(f"phase 0: built {', '.join(os.path.relpath(p, here) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name, lib_path in zip(sources, lib_paths):
+    for (source, bf16), lib_path in zip(libraries, lib_paths):
+        name = source + ("_bf16" if bf16 else "")
         with open(str(lib_path) + ".log") as log:
+            print(f"phase 0: {name}: {log.readline().strip()}")
             for line in log:
                 # "Compiling entry function" names the kernel and, as its
                 # template argument, the rows per block
@@ -772,8 +899,10 @@ def main() -> int:
     # the plain versions take 12-15 s a chain: timed once, without a warm-up
     pa_ms, ref_a = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
         params, latents, data, SEED, return_scalars=True, **CHAIN_A), reps=1, warm_up=False)
+    # (b)'s plain version cut to a tenth of its steps (warm 200 + T 1000)
+    b_cut = dict(CHAIN_B, warm_T=CHAIN_B["warm_T"] // 10, T=CHAIN_B["T"] // 10)
     pb_ms, _ = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-        params, latents, data, SEED, return_scalars=True, **CHAIN_B), reps=1, warm_up=False)
+        params, latents, data, SEED, return_scalars=True, **b_cut), reps=1, warm_up=False)
     pc_ms, ref_c = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
         params, latents, data, SEED, **CHAIN_C), reps=1, warm_up=False)
     dx, rel = max_abs(out_a[0], ref_a[0]), scalar_rel(out_a[2], ref_a[2])
@@ -788,15 +917,16 @@ def main() -> int:
     bound_a = chain_bound_ms(FID, BATCH, CHAIN_A["T"])
     bound_b = chain_bound_ms(FID, BATCH, CHAIN_B["T"] + CHAIN_B["warm_T"])
     bound_c = chain_bound_ms(FID, BATCH, CHAIN_C["T"])
-    for name, ms, pms, bound, steps in (
-        ("a", a_ms, pa_ms, bound_a, CHAIN_A["T"]),
-        ("b", b_ms, pb_ms, bound_b, CHAIN_B["T"] + CHAIN_B["warm_T"]),
-        ("c, unpacked", c_ms, pc_ms, bound_c, CHAIN_C["T"]),
+    for name, ms, pms, bound, steps, plain_steps in (
+        ("a", a_ms, pa_ms, bound_a, CHAIN_A["T"], CHAIN_A["T"]),
+        ("b", b_ms, pb_ms, bound_b, CHAIN_B["T"] + CHAIN_B["warm_T"],
+         b_cut["T"] + b_cut["warm_T"]),
+        ("c, unpacked", c_ms, pc_ms, bound_c, CHAIN_C["T"], CHAIN_C["T"]),
     ):
         print(f"phase 2: chain ({name}) B={BATCH} steps={steps}: kernel "
               f"{ms:.3f} ms/chain, {1e3 * ms / steps:.3f} us/step, "
-              f"{steps / (ms / 1e3):.1f} steps/s; plain {pms:.3f} ms/chain; "
-              f"bound {bound:.3f} ms (operations) {tag}")
+              f"{steps / (ms / 1e3):.1f} steps/s; plain {pms:.3f} ms for {plain_steps} "
+              f"steps; bound {bound:.3f} ms (operations) {tag}")
     print("phase 2: library_ms null: no single PyTorch call computes a "
           "whole Langevin chain")
 
@@ -1338,8 +1468,301 @@ def main() -> int:
           f"{dx_t:.3e} (atol {P2_ATOL}) {tag}")
 
     print(f"phase 5 ends at {time.perf_counter() - t_start:.1f} s")
-    launches = [s + t + f + g for s, t, f, g in zip(serve_counts, train_counts, fig_counts,
-                                                    counts5)]
+    # ---------------------------------------------------------- phase 6
+    # bf16 products: both kernels' bf16 builds against the plain bf16
+    # version, by the rules of BF16_* (module top)
+    bf = dict(bf16_matmul=True)
+    bf16_failed = []
+
+    def bf16_runs(p_in, l_in, t_in, kw):
+        """(kernel bf16, plain bf16, plain bf16 in float64, plain f32)"""
+        kb = dict(kw, **bf)
+        got = chain.mcpc_chain(p_in, l_in, t_in, SEED, **kb)
+        torch.cuda.synchronize()
+        ref = chain.mcpc_chain_reference(p_in, l_in, t_in, SEED, **kb)
+        ref64 = chain.mcpc_chain_reference(*to_double(p_in, l_in, t_in), SEED, **doubled(kb))
+        f32 = chain.mcpc_chain_reference(p_in, l_in, t_in, SEED, **kw)
+        return got, ref, ref64, f32
+
+    def one_step_held(name, runs):
+        """Rule (i): (the report, what failed)."""
+        got, ref, _, f32 = runs
+        lat_tol = lambda b: BF16_STEP_ATOL   # noqa: E731
+        grad_tol = lambda b: BF16_STEP_GRAD_REL * b.abs().max()   # noqa: E731
+
+        def grad_pairs(a):
+            return [(x[k], y[k]) for x, y in zip(a[1], ref[1]) for k in ("w", "b")]
+
+        share, share_f32 = (agree_share(zip(o[0], ref[0]), lat_tol) for o in (got, f32))
+        gshare, gshare_f32 = (agree_share(grad_pairs(o), grad_tol) for o in (got, f32))
+        d, eff = max_abs(got[0], ref[0]), max_abs(f32[0], ref[0])
+        g, geff = grad_rel(got[1], ref[1]), grad_rel(f32[1], ref[1])
+        text = (f"latents within {BF16_STEP_ATOL} of the plain bf16 version: kernel "
+                f"{share:.5f}, plain f32 {share_f32:.5f}; gradient entries within "
+                f"{BF16_STEP_GRAD_REL} of their largest: kernel {gshare:.5f}, plain f32 "
+                f"{gshare_f32:.5f}; max|dx| kernel-plain {d:.3e} (bf16 effect {eff:.3e}); "
+                f"gradients kernel-plain {g:.3e} (bf16 effect {geff:.3e})")
+        failed = []
+        if not (share >= BF16_AGREE and gshare >= BF16_AGREE):
+            failed.append(f"{name}: {share} of the latents, {gshare} of the gradients agree")
+        if not (d <= BF16_SHARE * eff and g <= BF16_SHARE * geff):
+            failed.append(f"{name}: latents {d} (effect {eff}), gradients {g} (effect {geff})")
+        if share_f32 >= BF16_AGREE:
+            failed.append(f"{name}: the rule does not tell f32 from bf16 here")
+        return text, failed
+
+    def share_held(name, runs, kw, dims=FID):
+        """Rule (ii): (the report, what failed)."""
+        got, ref, ref64, f32 = (option_parts(o, kw) for o in runs)
+        line, failed = [], []
+        for part, err, floor in (("latents", rms_abs, P1_ATOL), ("traj", rms_abs, P1_ATOL),
+                                 ("traj3", rms_abs, P1_ATOL),
+                                 ("scalars", scalar_rel, P1_RTOL),
+                                 ("pgrads", rms_rel, P1_GRAD_REL),
+                                 ("moments", rms_rel, P1_MOMENT_REL)):
+            if got.get(part) is None:
+                continue
+            if part in ("traj", "traj3"):
+                g, r, r64, f = ([o[part]] for o in (got, ref, ref64, f32))
+            else:
+                g, r, r64, f = (o[part] for o in (got, ref, ref64, f32))
+            e, e64, p64 = err(g, r), err(g, r64), err(r, r64)
+            eff, eff64 = err(f, r), err(f, r64)
+            line.append(f"{part} kernel-plain {e:.3e} (bf16 effect {eff:.3e}), "
+                        f"kernel-plain64 {e64:.3e}, plain-plain64 {p64:.3e} (effect "
+                        f"{eff64:.3e})")
+            if part == "latents":
+                line.append(f"latents' largest difference kernel-plain "
+                            f"{max_abs(g, r):.3e} (bf16 effect {max_abs(f, r):.3e})")
+            if not (e <= BF16_SHARE * eff or e <= floor):
+                failed.append(f"{name}: {part} kernel-plain {e}, bf16 effect {eff}")
+            if not (e64 <= p64 + BF16_SHARE * eff64 or e64 <= floor):
+                failed.append(f"{name}: {part} kernel-plain64 {e64}, plain-plain64 {p64}, "
+                              f"bf16 effect {eff64}")
+        act = kw.get("activation", "relu")
+        energies = [mean_row_energy(torch, p_row, o["latents"], act) for o in (got, ref, f32)]
+        line.append("mean row energy kernel {:.4f}, plain bf16 {:.4f}, plain f32 {:.4f}"
+                    .format(*energies))
+        return "; ".join(line), failed
+
+    one_step = dict(T=1, lr=0.1, noise_var=None, with_pgrads=True, mixing=0)
+    long_kw = dict(warm_T=50, warm_lr=0.1, T=100, lr=0.03, noise_var=2.0, with_pgrads=True,
+                   mixing=20, return_scalars=True)
+    draw6 = torch.Generator().manual_seed(SEED + 6)
+    bf16_cases = [
+        ("relu, one step", one_step, 1),
+        ("tanh, one step", dict(one_step, activation="tanh"), 1),
+        ("unpacked, one step", dict(one_step, packed=False), 1),
+        ("relu, warm 50 + Langevin 100, gradients", long_kw, 2),
+        ("tanh, warm 50 + Langevin 100, gradients", dict(long_kw, activation="tanh"), 2),
+        ("relu, warm-only 50, warm_pgrads",
+         dict(warm_T=50, warm_lr=0.1, T=0, lr=0.1, with_pgrads=True, warm_pgrads=True,
+              return_scalars=True), 2),
+        ("unpacked, Langevin 150, gradients",
+         dict(T=150, lr=0.01, noise_var=2.0, with_pgrads=True, mixing=50, packed=False), 2),
+    ]
+    for B in (OPT_B, BATCH):
+        p_in, l_in, t_in = random_case(FID, B)
+        mu6 = tuple((0.1 * torch.randn(x.shape, generator=draw6)).to(dev) for x in l_in)
+        nu6 = tuple((0.01 * torch.rand(x.shape, generator=draw6)).to(dev) for x in l_in)
+        cases = [(n, kw, rule, (p_in, l_in, t_in)) for n, kw, rule in bf16_cases]
+        if B == OPT_B:   # the options' instantiation
+            cases += [
+                ("options: masked perc 0.5, captured every 5 steps",
+                 dict(long_kw, loss="bernoulli_mask", mask_perc=0.5, capture_stride=5), 2,
+                 (p_in, l_in, t_in)),
+                ("options: tanh, scalars every 7 steps",
+                 dict(long_kw, activation="tanh", scalar_stride=7), 2, (p_in, l_in, t_in)),
+                ("options: continuation from given moments, handing them out",
+                 dict(warm_T=50, warm_lr=0.1, T=0, lr=0.1, warm_mu=mu6, warm_nu=nu6,
+                      warm_count=7, emit_warm_opt_state=True, return_scalars=True), 2,
+                 (p_in, l_in, t_in)),
+                ("options: the output-PC site, gradients, captures",
+                 dict(long_kw, capture_stride=10, **OUT_PC), 2,
+                 output_pc_case(B) + (None,)),
+            ]
+        for name, kw, rule, (p_row, l_row, t_row) in cases:
+            runs = bf16_runs(p_row, l_row, t_row, kw)
+            if rule == 1:
+                text, failed = one_step_held(name, runs)
+            else:
+                text, failed = share_held(name, runs, kw)
+            mapping = (plan_text(FID, B, kw) if kw.get("packed", True)
+                       else f"rows/block={chain.unpacked_rows(FID, dev)}")
+            print(f"phase 6: bf16 {name}: B={B} [{mapping}] rule ({'i' * rule}): {text}")
+            bf16_failed += failed
+            del runs
+    check(not bf16_failed, "phase 6 " + "; ".join(bf16_failed))
+    print(f"phase 6: the holds end at {time.perf_counter() - t_start:.1f} s")
+
+    # the bf16 path as users take it, the counts zeroed just before and read
+    # just after: PCTrainer's opt-in, bench.py's bf16 rows, chain (c) in bf16
+    cfg_ml = train_mnist.apply_preset(train_mnist.pc_training_config(), "ml", "pc")
+    gen_ml = get_model(cfg_ml, SEED, device=dev)
+    pc_batch = data[: cfg_ml["batch_size_train"]]
+    pc_pseudo = torch.zeros(pc_batch.shape[0], cfg_ml["input_size"], device=dev)
+    data_1024 = torch.cat([b for b, _ in itertools.islice(iter(test), 4)])
+    check(tuple(data_1024.shape) == (1024, 784), f"a batch of {tuple(data_1024.shape)}")
+    lat_1024 = gen_model.model.init_latents(
+        params, torch.zeros(1024, FID[0], device=dev), torch.Generator().manual_seed(SEED + 7))
+    bench_in = {BATCH: (latents, data), 1024: (lat_1024, data_1024)}
+    train_opts = train_mnist.chain_options(config)
+    param_opt6 = train_mnist.param_optimizer(config)
+
+    def train_step(lat, d, bf16):
+        """bench.py's training step: one_batch with the flag"""
+        _, pg = chain.mcpc_chain(params, lat, d, SEED, **dict(train_opts, bf16_matmul=bf16))
+        scale = config["sampling"] * d.shape[0]
+        upd, _ = param_opt6.update(tuple({k: v / scale for k, v in g.items()} for g in pg),
+                                   param_opt6.init(params), params)
+        return apply_updates(params, upd)
+
+    zero_counts()
+    trainers = {}
+    for mode in (True, "auto"):
+        trainer = train_mnist.get_pc_trainer(gen_ml, cfg_ml, is_mcpc=False, training=True)
+        trainer.use_kernel_bf16 = mode
+        before = read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_on_batch(pc_pseudo, loss_fn=cfg_ml["loss_fn"],
+                               loss_fn_kwargs={"_target": pc_batch},
+                               is_return_results_every_t=False)
+        end.record()
+        end.synchronize()
+        trainers[mode] = (trainer, [a - b for a, b in zip(read_counts(), before)],
+                          start.elapsed_time(end))
+    for mode, (trainer, counts, ms) in trainers.items():
+        print(f"phase 6: PCTrainer use_kernel_bf16={mode!r}, a PC training batch at preset "
+              f"ml (B={pc_batch.shape[0]}, {cfg_ml['T_pc']} Adam steps): kernel calls "
+              f"{trainer.kernel_calls}, engine calls {trainer.engine_calls}; launches f32 "
+              f"{counts[0]}, bf16 {counts[3]}; {ms:.3f} ms {tag}")
+        check(trainer.kernel_calls == 1 and trainer.engine_calls == 0,
+              f"PCTrainer use_kernel_bf16={mode!r} did not take the kernel")
+    check(trainers[True][1][3] == 1 and trainers[True][1][0] == 0,
+          "use_kernel_bf16=True did not launch the bf16 kernel")
+    check(trainers["auto"][1][0] == 1 and trainers["auto"][1][3] == 0,
+          "use_kernel_bf16='auto' did not stay f32")
+
+    bench_rows = {}
+    for B in (BATCH, 1024):
+        lat_b, d_b = bench_in[B]
+        for bf16 in (False, True):
+            ms, out = cuda_ms(torch, lambda: chain.mcpc_chain(
+                params, lat_b, d_b, SEED, return_scalars=True, bf16_matmul=bf16, **CHAIN_A))
+            check(all(bool(torch.isfinite(x).all()) for x in out[0]),
+                  f"chain (a) B={B} bf16={bf16} not finite")
+            step_ms, new_p = cuda_ms(torch, lambda: train_step(lat_b, d_b, bf16), reps=5)
+            check(all(bool(torch.isfinite(p[k]).all()) for p in new_p for k in ("w", "b")),
+                  f"training step B={B} bf16={bf16} not finite")
+            bench_rows[B, bf16] = (ms, step_ms)
+        for bf16 in (False, True):
+            ms, step_ms = bench_rows[B, bf16]
+            steps = train_opts["warm_T"] + train_opts["T"]
+            print(f"phase 6: bench row {'bf16' if bf16 else 'f32 '} B={B}: chain (a) T="
+                  f"{CHAIN_A['T']} {ms:.3f} ms, {1e3 * ms / CHAIN_A['T']:.3f} us/step, "
+                  f"{CHAIN_A['T'] / (ms / 1e3):.1f} steps/s; training step {step_ms:.3f} ms, "
+                  f"{1e3 * step_ms / steps:.3f} us/step, {B / (step_ms / 1e3):.1f} images/s; "
+                  f"bound (a) {chain_bound_ms(FID, B, CHAIN_A['T'], peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS):.3f} ms; "
+                  f"[{plan_text(FID, B, CHAIN_A)}] {tag}")
+    # chains (a) and (c) in bf16 cut to T=1000, held by rule (ii) and timed
+    # beside the plain version and their bounds
+    bf16_a = dict(CHAIN_A, T=1000, **bf)
+    bf16_c = dict(CHAIN_C, **bf)
+    a16_ms, out_a16 = cuda_ms(torch, lambda: chain.mcpc_chain(params, latents, data, SEED,
+                                                              **bf16_a))
+    c16_ms, out_c16 = cuda_ms(torch, lambda: chain.mcpc_chain(params, latents, data, SEED,
+                                                              **bf16_c))
+    torch.cuda.synchronize()
+    counts6 = read_counts()
+    print(f"phase 6: main path launches: mcpc_chain_bf16 {counts6[3]}, "
+          f"mcpc_chain_unpacked_bf16 {counts6[4]}, mcpc_chain {counts6[0]}, "
+          f"sum_block_partials {counts6[2]}")
+    check(counts6[3] >= 1, "the bf16 path did not launch the packed bf16 kernel")
+    check(counts6[4] >= 1, "the bf16 path did not launch the unpacked bf16 kernel")
+    chains16 = {}
+    for name, kw16, out16, ms16 in (("a", bf16_a, out_a16, a16_ms),
+                                    ("c, unpacked", bf16_c, out_c16, c16_ms)):
+        plain_ms16, ref16 = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
+            params, latents, data, SEED, **kw16), reps=1, warm_up=False)
+        # chain (c)'s plain f32 version ran in phase 2 on the same inputs
+        f32_16 = ref_c if kw16 is bf16_c else chain.mcpc_chain_reference(
+            params, latents, data, SEED, **dict(kw16, bf16_matmul=False))
+        err16, eff16 = max_abs(out16[0], ref16[0]), max_abs(f32_16[0], ref16[0])
+        rms16, rms_eff16 = rms_abs(out16[0], ref16[0]), rms_abs(f32_16[0], ref16[0])
+        bound16 = chain_bound_ms(FID, BATCH, kw16["T"], peak=PEAK_BF16_FLOPS)
+        bound16_f32 = chain_bound_ms(FID, BATCH, kw16["T"])
+        chains16[name] = (ms16, plain_ms16, err16, bound16, bound16_f32)
+        print(f"phase 6: chain ({name}) bf16, B={BATCH} T={kw16['T']}: kernel {ms16:.3f} ms, "
+              f"{1e3 * ms16 / kw16['T']:.3f} us/step; plain bf16 {plain_ms16:.3f} ms; rms|dx| "
+              f"kernel-plain {rms16:.3e}, bf16 effect {rms_eff16:.3e} (share {BF16_SHARE}); "
+              f"max|dx| kernel-plain {err16:.3e}, bf16 effect {eff16:.3e}; mean "
+              f"row energy kernel {mean_row_energy(torch, params, out16[0], 'relu'):.4f}, plain "
+              f"{mean_row_energy(torch, params, ref16[0], 'relu'):.4f}; bound {bound16:.3f} ms "
+              f"at the bf16 tensor-core peak, {bound16_f32:.3f} ms at the f32 peak of the FMA "
+              f"route (operations) {tag}")
+        check(rms16 <= BF16_SHARE * rms_eff16,
+              f"phase 6: chain ({name}) bf16 {rms16} (rms) from the plain version, "
+              f"effect {rms_eff16}")
+
+    # train_mcpc's trainer path: two PCTrainer calls a batch, both to the chain
+    made, spans = [], []
+
+    def recording(factory, kind):
+        def make(*args, **kwargs):
+            trainer = factory(*args, **kwargs)
+            call = trainer.train_on_batch
+
+            def timed(*a, **k):
+                if kind == "warm":
+                    spans.append([torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True)])
+                    spans[-1][0].record()
+                out = call(*a, **k)
+                if kind == "mcpc":
+                    spans[-1][1].record()
+                return out
+
+            trainer.train_on_batch = timed
+            made.append(trainer)
+            return trainer
+        return make
+
+    factories = train_mnist.get_pc_trainer, train_mnist.get_mcpc_trainer
+    train_mnist.get_pc_trainer = recording(factories[0], "warm")
+    train_mnist.get_mcpc_trainer = recording(factories[1], "mcpc")
+    initial = get_model(config, SEED, device=dev).params
+    loss_before6 = test_loss(initial)
+    zero_counts()
+    try:
+        trained = train_mnist.train_mcpc(
+            1, os.path.join(here, "build", "chip_smoke", "mcpc_trainer_path"), seed=SEED,
+            batches_per_epoch=TRAINER_BATCHES, log=False, fused=False, device="cuda")
+    finally:
+        train_mnist.get_pc_trainer, train_mnist.get_mcpc_trainer = factories
+    torch.cuda.synchronize()
+    counts_tp = read_counts()
+    loss_after6 = test_loss(trained.params)
+    path_ms = [s.elapsed_time(e) for s, e in spans]
+    engine_calls = sum(t.engine_calls for t in made)
+    print(f"phase 6: train_mcpc(fused=False), {TRAINER_BATCHES} batches of B={BATCH}: chain "
+          f"launches {counts_tp[0]}, summing passes {counts_tp[2]}, kernel calls "
+          f"{sum(t.kernel_calls for t in made)}, engine calls {engine_calls}; "
+          f"{statistics.median(path_ms[1:]):.3f} ms/batch (median of {len(path_ms) - 1}, "
+          f"first {path_ms[0]:.3f}) against one_batch's {train_ms:.3f} ms (phase 3); test "
+          f"batch's Bernoulli loss {loss_before6:.1f} -> {loss_after6:.1f} {tag}")
+    check(counts_tp[0] == 2 * TRAINER_BATCHES and counts_tp[2] == TRAINER_BATCHES,
+          f"train_mcpc(fused=False): {counts_tp[0]} chain launches and {counts_tp[2]} summing "
+          f"passes for {TRAINER_BATCHES} batches")
+    check(engine_calls == 0 and len(made) == 2, "train_mcpc(fused=False) ran the engine")
+    for p, p0 in zip(trained.params, initial):
+        check(all(bool(torch.isfinite(p[k]).all()) for k in ("w", "b")),
+              "train_mcpc(fused=False): parameters not finite")
+        check(not torch.equal(p["b"], p0["b"]), "train_mcpc(fused=False) left a bias unchanged")
+    check(loss_after6 < loss_before6, "train_mcpc(fused=False) did not lower the test loss")
+    print(f"phase 6 ends at {time.perf_counter() - t_start:.1f} s")
+    launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
+                                        counts6, counts_tp)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [
@@ -1363,6 +1786,26 @@ def main() -> int:
             "replaces": pallas + ":1013", "launches": launches[1],
             "max_abs_err": dx_c, "ms": c_ms, "plain_ms": pc_ms,
             "bound_ms": bound_c, "bound_by": "operations", "library_ms": None,
+        },
+        # the bf16 builds, at chain (a)'s inputs cut to T=1000 and chain (c):
+        # bound by operations at the bf16 tensor-core peak, which is what
+        # the card could do for this work; bound_f32_ms is the FMA route's
+        {
+            "name": "mcpc_chain_bf16", "route": "cuda", "source": csrc + "mcpc_chain.cu",
+            "replaces": pallas + ":426", "launches": launches[3],
+            "max_abs_err": chains16["a"][2], "ms": chains16["a"][0],
+            "plain_ms": chains16["a"][1], "bound_ms": chains16["a"][3],
+            "bound_by": "operations", "library_ms": None,
+            "bound_f32_ms": chains16["a"][4], "steps": bf16_a["T"],
+        },
+        {
+            "name": "mcpc_chain_unpacked_bf16", "route": "cuda",
+            "source": csrc + "mcpc_chain_unpacked.cu",
+            "replaces": pallas + ":1013", "launches": launches[4],
+            "max_abs_err": chains16["c, unpacked"][2], "ms": chains16["c, unpacked"][0],
+            "plain_ms": chains16["c, unpacked"][1], "bound_ms": chains16["c, unpacked"][3],
+            "bound_by": "operations", "library_ms": None,
+            "bound_f32_ms": chains16["c, unpacked"][4], "steps": bf16_c["T"],
         },
     ]}))
     print(f"chain (a): {plan_text(FID, BATCH, CHAIN_A)} {tag}")

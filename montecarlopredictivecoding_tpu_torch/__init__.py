@@ -15,6 +15,7 @@ from . import core
 from .core import (
     PC,
     Activation,
+    EngineConfig,
     GenerativeModel,
     LangevinStep,
     Linear,

@@ -29,11 +29,6 @@ from .schedule import build_plan
 
 Tensor = torch.Tensor
 
-# what the JAX package's kernel takes and this port's does not yet: the
-# trainer raises for it instead of running it in the engine
-_WAITING = {
-    "bf16": "queue 2, the bf16 opt-in",
-}
 _CANONICAL_KINDS = [
     "Linear", "PC", "Activation", "Linear", "PC", "Activation",
     "Linear", "PC", "Activation", "Linear",
@@ -161,9 +156,11 @@ class PCTrainer:
     ``use_kernel``: ``"auto"`` (default) sends every configuration the fused
     chain covers to ``ops.mcpc_chain``, whatever the device; ``False`` sends
     everything to the engine.  ``use_kernel_capture=False`` keeps captures
-    in the engine.  ``use_kernel_bf16=True`` (bf16 products) is not ported
-    yet and raises.  ``kernel_calls`` and ``engine_calls`` count the
-    ``train_on_batch`` calls each path took.
+    in the engine.  ``use_kernel_bf16=True`` runs the chain with bf16
+    products (``mcpc_chain(..., bf16_matmul=True)``: bf16 operands, f32
+    sums, f32 state); ``"auto"`` (default) and ``False`` keep f32, as the
+    JAX trainer's ``use_pallas_bf16`` does.  ``kernel_calls`` and
+    ``engine_calls`` count the ``train_on_batch`` calls each path took.
     """
 
     def __init__(
@@ -514,17 +511,6 @@ class PCTrainer:
             mixing = plan.T - 1
         return {**base, "with_pgrads": True, "mixing": mixing, **cap}
 
-    def _refuse_unported(self, dispatch: dict) -> None:
-        """The JAX kernel would run this dispatch, the port's cannot yet."""
-        waiting = []
-        if self.use_kernel_bf16 is True:
-            waiting.append("bf16")
-        if waiting:
-            raise NotImplementedError(
-                "PCTrainer: this configuration runs in the fused kernel, whose "
-                + ", ".join(waiting) + " path is not ported yet: ROADMAP.md "
-                + "; ".join(_WAITING[w] for w in waiting))
-
     def _adam_moments(self, opt_state):
         """``(mu, nu, count)`` of the latents from a live optimizer-x state,
         or None unless the state holds a single Adam state over exactly the
@@ -594,6 +580,8 @@ class PCTrainer:
         else:
             phase = dict(T=self.T, lr=lr_eff, noise_var=langevin_var)
         output_pc = dispatch["output_var"] is not None
+        # "auto" is f32, as in the JAX trainer: bf16 is an explicit opt-in
+        bf16 = self.use_kernel_bf16 is True
         outs = list(mcpc_chain(
             gen.params, gen.latents, target, seed,
             loss=dispatch["loss"], input_var=float(input_var),
@@ -601,7 +589,7 @@ class PCTrainer:
             capture_stride=stride, scalar_stride=scalar_stride,
             activation=dispatch["activation"], return_scalars=True,
             mask_perc=dispatch.get("mask_perc"), output_var=dispatch["output_var"],
-            **phase,
+            bf16_matmul=bf16, **phase,
         ))
         new_latents, pgrads = outs[0], outs[1]
         k = 2
@@ -801,7 +789,6 @@ class PCTrainer:
         if dispatch is None:
             self._warn_kernel_fallback(inputs.device)
         else:
-            self._refuse_unported(dispatch)
             self.kernel_calls += 1
             results = self._run_kernel(
                 dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, generator)

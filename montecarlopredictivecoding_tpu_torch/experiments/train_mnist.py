@@ -5,8 +5,10 @@ start on the latents (``T_pc`` steps), the Langevin chain (``mixing +
 sampling`` steps) and the Hebbian gradient sums over the sampling steps, and
 one Adam step updates the parameters with the gradients divided by
 ``sampling·B``.  On a CUDA device the chain is one launch of the
-hand-written kernel plus the pass that sums its blocks' partial gradients;
-there is no other path on the card.
+hand-written kernel plus the pass that sums its blocks' partial gradients.
+``train_mcpc(fused=False)`` takes the trainer path instead, as the JAX
+package's does: a PC warm start and an MCPC chain, two ``PCTrainer`` calls a
+batch, which ``PCTrainer`` sends to the same kernel (two launches a batch).
 
 PC, per batch (``train_pc``): ``PCTrainer`` runs ``T_pc`` Adam MAP steps on
 the latents and takes the last step's parameter gradients (one chain launch
@@ -21,8 +23,8 @@ Usage:
         --out models/epoch_save/mcpc_aging_0
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the engine path ``fused=False`` (queue 1 item 6), ``--model dlgm``
-(item 10), ``--model resnet9`` (item 5), ``--mesh`` (item 8).
+item): ``--model dlgm`` (item 10), ``--model resnet9`` (item 5), ``--mesh``
+(item 8).
 """
 
 from __future__ import annotations
@@ -35,12 +37,12 @@ import torch
 
 from ..core.losses import bernoulli_fn
 from ..core.optim import OptimizerSpec, Transform, apply_updates
+from ..core.trainer import LangevinStep
 from ..data import get_mnist_data
-from ..models.factory import get_model, get_pc_trainer
+from ..models.factory import get_mcpc_trainer, get_model, get_pc_trainer
 from ..ops.mcpc_chain import mcpc_chain
 from ..utils.checkpoint import save_checkpoint
 
-_ENGINE_ITEM = "queue 1 item 6 (the general engine and PCTrainer)"
 _WAITING = {
     "dlgm": "queue 1 item 10 (the DLGM baselines)",
     "resnet9": "queue 1 item 5 (ResNet-9, with sample and score)",
@@ -158,23 +160,24 @@ def train_mcpc(
     device="cuda",
 ):
     """MCPC MNIST training: per batch a PC warm start, then an MCPC chain
-    with the Monte-Carlo-accumulated weight update, all in :func:`one_batch`.
+    with the Monte-Carlo-accumulated weight update.
 
-    Each batch's latents and its chain seed are drawn from the model's
-    ``torch.Generator``, made from ``seed``.  The last, smaller batch of an
-    epoch runs like any other.  ``langevin_var`` is the Langevin noise
-    variance; ``None`` makes the chain deterministic.  ``snapshot_epochs``
-    saves ``<out>_epoch<N>.msgpack`` after those epochs (0: before
-    training); without it the final parameters go to ``<out>``.  Returns the
+    ``fused`` None or True: all of it in :func:`one_batch`, one chain call
+    a batch; each batch's latents and its chain seed are drawn from the
+    model's ``torch.Generator``, made from ``seed``.  ``fused=False``: the
+    JAX package's trainer path, a PC trainer's warm start
+    (``get_pc_trainer(is_mcpc=True)``, ``T_pc`` Adam steps on fresh
+    latents) and then an MCPC trainer (``get_mcpc_trainer``) from its
+    latents, which takes the Adam step on the parameters; ``PCTrainer``
+    sends both to the chain.  The last, smaller batch of an epoch runs like
+    any other.  ``langevin_var`` is the Langevin noise variance; ``None``
+    makes the chain deterministic.  ``snapshot_epochs`` saves
+    ``<out>_epoch<N>.msgpack`` after those epochs (0: before training);
+    without it the final parameters go to ``<out>``.  Returns the
     :class:`GenerativeModel`.
 
-    ``fused`` may be None or True: the engine path (``fused=False``) and
-    ``mesh`` are not ported yet.
+    ``mesh`` is not ported yet.
     """
-    if fused is not None and not fused:
-        raise NotImplementedError(
-            "train_mcpc(fused=False), the engine path, is not ported yet: "
-            "ROADMAP.md " + _ENGINE_ITEM)
     if mesh is not None:
         raise NotImplementedError(
             "train_mcpc(mesh=N), data-parallel training, is not ported yet: "
@@ -183,7 +186,13 @@ def train_mcpc(
     config = apply_preset(mcpc_training_config(), preset, "mcpc")
     train, _, _ = get_mnist_data(config, seed=seed, device=device)
     gen = get_model(config, seed, device=device)
-    opt_state = param_optimizer(config).init(gen.params)
+    fused = True if fused is None else bool(fused)
+    if fused:
+        opt_state = param_optimizer(config).init(gen.params)
+    else:
+        pc_warm = get_pc_trainer(gen, config, is_mcpc=True, training=True)
+        mc = get_mcpc_trainer(gen, config, training=True)
+        langevin = None if langevin_var is None else LangevinStep(var=langevin_var)
 
     def snap(tag):
         path = out + (f"_epoch{tag}" if tag is not None else "")
@@ -199,6 +208,15 @@ def train_mcpc(
                 break
             pseudo = torch.zeros((data.shape[0], config["input_size"]),
                                  device=device)
+            if not fused:
+                pc_warm.train_on_batch(
+                    pseudo, loss_fn=config["loss_fn"], loss_fn_kwargs={"_target": data},
+                    is_return_results_every_t=False)
+                mc.train_on_batch(
+                    pseudo, loss_fn=config["loss_fn"], loss_fn_kwargs={"_target": data},
+                    callback_after_t=langevin, is_sample_x_at_batch_start=False,
+                    is_return_results_every_t=False)
+                continue
             latents = gen.model.init_latents(gen.params, pseudo, gen.generator)
             chain_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen.generator))
             gen.params, opt_state = one_batch(

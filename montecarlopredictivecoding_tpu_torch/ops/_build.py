@@ -2,11 +2,15 @@
 
 Each kernel source under ``csrc/`` has a plain ``extern "C"`` interface and
 is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
+(no PyTorch headers, so a build takes seconds).  A source is built twice:
+once for f32 products and once with ``-DMCPC_BF16`` for bf16 ones, into a
+library of its own (``<name>_bf16``), so each library holds only the
+instantiations of its kind and the two compile side by side.  Libraries go
+to ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of the source, the shared headers and the flags, so an
-edited source or header rebuilds and an unchanged one is reused.  The first use in a process builds or finds
-the library; nothing happens at import time.
+edited source or header rebuilds and an unchanged one is reused.  The first
+use in a process builds or finds the library; nothing happens at import
+time.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``, so
 ``tanhf``/``logf``/``expf``/``sqrtf`` and division stay IEEE.  No
@@ -23,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 import typing as tp
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -50,22 +55,29 @@ def nvcc_path() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives.  The name
-    carries a hash of the source, of every header under ``csrc/`` (a source
-    may include any of them) and of the flags."""
+def flags(bf16: bool = False) -> tp.Tuple[str, ...]:
+    """nvcc's flags for the f32 library of a source, or its bf16 one."""
+    return NVCC_FLAGS + (("-DMCPC_BF16",) if bf16 else ())
+
+
+def library_path(name: str, bf16: bool = False) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (with ``bf16``, its
+    bf16 library) lives.  The name carries a hash of the source, of every
+    header under ``csrc/`` (a source may include any of them) and of the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src + " ".join(flags(bf16)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}{'_bf16' if bf16 else ''}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library's path.  The compiler's report (registers, shared memory,
-    spills) is kept beside it as ``<library>.log``."""
-    out = library_path(name)
+def build(name: str, bf16: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``bf16``, for bf16 products) unless
+    its library exists; return the library's path.  nvcc's time and its
+    report (registers, shared memory, spills) are kept beside it as
+    ``<library>.log``."""
+    out = library_path(name, bf16)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -74,14 +86,17 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *flags(bf16), "-o", tmp, str(CSRC / f"{name}.cu")]
+        start = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - start
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu ({proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
-        Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+        Path(str(out) + ".log").write_text(
+            f"nvcc took {seconds:.1f} s\n" + proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -89,15 +104,17 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names: tp.Sequence[str]) -> tp.List[Path]:
-    """Build several sources at once, one ``nvcc`` each, all started
-    together; returns their libraries' paths in order."""
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return list(pool.map(build, names))
+def build_all(libraries: tp.Sequence[tp.Tuple[str, bool]]) -> tp.List[Path]:
+    """Build several ``(source name, bf16)`` libraries at once, one ``nvcc``
+    each, all started together; returns their paths in order."""
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        return list(pool.map(lambda lib: build(*lib), libraries))
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``csrc/<name>.cu`` once per
-    process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, bf16: bool = False) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu`` (with
+    ``bf16``, its bf16 library) once per process.  Both libraries of a
+    source export the same C names; ``ctypes`` loads each with its own
+    symbols."""
+    return ctypes.CDLL(str(build(name, bf16)))

@@ -140,6 +140,26 @@
 // Activation.  A template argument, ACT, picks relu or tanh, so a
 // relu chain runs the code it ran before tanh existed.  tanh is tanhf, and
 // its derivative 1 - H^2 is taken from the H = tanh(x) every block holds.
+//
+// bf16 products (the JAX kernel's bf16_matmul).  A fourth template argument,
+// BF16, which only the library built with -DMCPC_BF16 instantiates (it sets
+// kBF16, mcpc_common.cuh): the f32 library carries none of its code, and
+// the two build side by side.  Every product takes bf16 operands, rounded to
+// nearest even, and sums in f32, as the JAX kernel's mm / mmT:
+//  * the weights are rounded once by the wrapper, so the slices in shared
+//    memory, the layout and the plan are the f32 kernel's;
+//  * H holds act(x) rounded (the prologue and the owner's write into every
+//    block's H), which is what the forward and Hebbian products read;
+//  * the backward products round err1, err2 and S as they read them, and the
+//    Hebbian products round err_l and S into their register tiles;
+//  * act' is taken from the unrounded x: 1 - tanh(x)^2 is recomputed by the
+//    owner from its own x, since the H it holds is rounded;
+//  * errors, S, the bias gradients, the scalars, the Adam state, the x3 step
+//    and the noise stay f32.
+// The product of two bf16 values is exact in f32, so the FMAs differ from a
+// bf16 matrix unit only in the order of the sums.  The products still run on
+// the CUDA cores (tensor cores and bf16 slices in shared memory are later
+// work), so a bf16 chain costs what an f32 one does plus the roundings.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -386,7 +406,8 @@ __device__ __forceinline__ void load_feature(float (&v)[2 * RG], const float* fe
 
 // acc[u][r] += sum over k = part, part + KSPLIT, ... < K of
 //              A[k][row r of half g] * W[k * ldk + off[u]]
-template <int RG>
+// with ROUND, each A value rounded to bf16 as it is read
+template <int RG, bool ROUND = false>
 __device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, int g,
                                          const float* W, int ldk, const int (&off)[4],
                                          int part, int K) {
@@ -394,6 +415,10 @@ __device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, in
   for (int k = part; k < K; k += KSPLIT) {
     float av[RG], w[4];
     load_rows<RG>(av, A + k * Rows<RG>::PITCH, g);
+    if constexpr (ROUND) {
+#pragma unroll
+      for (int r = 0; r < RG; ++r) av[r] = operand<true>(av[r]);
+    }
 #pragma unroll
     for (int u = 0; u < 4; ++u) w[u] = W[k * ldk + off[u]];
 #pragma unroll
@@ -433,7 +458,8 @@ constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
 // OPT: the instantiation that takes the options (captures, scalar slots,
 // masks, Adam state, the output-PC site; see "Options" in the header);
 // without it the kernel carries none of their code.  ACT: relu or tanh.
-template <int RG, bool OPT, int ACT>
+// BF16: the products take bf16 operands (see "bf16 products" in the header).
+template <int RG, bool OPT, int ACT, bool BF16>
 __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   using RW = Rows<RG>;
   constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
@@ -454,7 +480,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   const bool out_pc = OPT && a.x3 != nullptr;   // an output-PC site
   const Layout L = make_layout(d0, d1, d2, D, R, a.warm_T > 0,
                                with_pg ? (a.grads_resident ? 2 : 1) : 0, out_pc);
-  float* H = smem + L.H;     // [n][RP] act(latents), all columns
+  float* H = smem + L.H;     // [n][RP] act(latents), all columns (BF16: rounded)
   float* X = smem + L.X;     // [OWN][RP] own latent columns
   float* E = smem + L.E;     // [OWN][RP] their errors
   float* S = smem + L.S;     // [ND][RP] dLoss/dlogits of the own output columns
@@ -531,7 +557,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       else if (c < c2) x = a.x1[(size_t)row * d1 + (c - c1)];
       else x = a.x2[(size_t)row * d2 + (c - c2)];
     }
-    H[c * RP + RW::pos(r)] = activate<ACT>(x);
+    H[c * RP + RW::pos(r)] = operand<BF16>(activate<ACT>(x));
     int j = -1;   // own column?
     if (c < c1) { if (c >= lo0 && c < lo0 + n0) j = c - lo0; }
     else if (c < c2) { if (c - c1 >= lo1 && c - c1 < lo1 + n1) j = L.J1 + c - c1 - lo1; }
@@ -823,7 +849,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
           load_feature<RG>(v[u], Vc + min(col, nk - 1) * RP);
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            v[u][r] = col < nk && RW::row_at(r) < nvalid ? sign * v[u][r] : 0.f;
+            v[u][r] = col < nk && RW::row_at(r) < nvalid ? operand<BF16>(sign * v[u][r]) : 0.f;
         }
         // gw[k][col] += dot; the resident slice is addressed as shared memory
         auto add = [&](int k, const float (&dot)[4]) {
@@ -879,7 +905,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG>(acc, A, g, W, 1, off, part, K);
+      quad_dot<RG, BF16>(acc, A, g, W, 1, off, part, K);
       float out[RG];
       quad_reduce<RG>(out, acc, lane);
       const int i = q + part * NQ;   // this lane's column after the reduce
@@ -939,7 +965,11 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       }
       float x = X[j * RP + r];
       float dh;   // act'(x)
-      if constexpr (ACT == ACT_TANH) {
+      if constexpr (ACT == ACT_TANH && BF16) {
+        // the H this block holds is rounded: tanh(x) again, from x
+        const float h = tanhf(x);
+        dh = 1.f - h * h;
+      } else if constexpr (ACT == ACT_TANH) {
         // tanh(x) as this block holds it, not yet overwritten
         const float h = H[((layer == 0 ? 0 : layer == 1 ? c1 : c2) + col) * RP + r];
         dh = 1.f - h * h;
@@ -958,7 +988,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         if (noisy) x = x + a.noise_std * (have_z ? zp : noise(t, r, layer, col));
       }
       X[j * RP + r] = x;
-      const float h = activate<ACT>(x);
+      const float h = operand<BF16>(activate<ACT>(x));
       const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
 #pragma unroll
       for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
@@ -1090,17 +1120,18 @@ inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
   cfg.numAttrs = 1;
 }
 
+// this build's kernel: f32 products, or bf16 ones with -DMCPC_BF16
 template <int RG, bool OPT, int ACT>
 cudaError_t launch_kernel(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   constexpr int R = 2 * RG;
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, OPT, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mcpc_chain_kernel<RG, OPT, ACT, kBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, (a.B + R - 1) / R, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT, ACT>, a);
+  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT, ACT, kBF16>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1124,21 +1155,23 @@ cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream, in
 template <int RG>
 int max_clusters(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, false, ACT_RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_config(cfg, attr, 1, smem, nullptr);
   int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false, ACT_RELU>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>,
+                                       &cfg);
   return err != cudaSuccess ? -(int)err : count;
 }
 
 template <int RG>
 int static_smem_bytes() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false, ACT_RELU>) != cudaSuccess)
+  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>) !=
+      cudaSuccess)
     return -1;
   return (int)attr.sharedSizeBytes;
 }
@@ -1218,7 +1251,8 @@ const char* mcpc_chain_error_string(int err) {
 // the model has an output-PC site: x3 ([B, D]) is its latent, o3 receives
 // it, inv_var is its 1 / variance, the loss must be none (0) and mask_lo 0;
 // m3_in / v3_in, m3_out / v3_out ([B, pD], pD = D padded to 128) go with
-// m_in / v_in, m_out / v_out, and traj3 ([n_cap, B, pD]) with traj.
+// m_in / v_in, m_out / v_out, and traj3 ([n_cap, B, pD]) with traj.  In the
+// bf16 build w1..w3 must be rounded to bf16 already.
 // Returns a cudaError_t (0 on success).
 int mcpc_chain_launch(
     const float* x0, const float* x1, const float* x2,

@@ -27,6 +27,13 @@
 // takes r*cos at col = c, column c >= half takes r*sin at col = c - half.
 // The hash itself is shared with the packed kernel (mcpc_common.cuh).
 //
+// bf16 products (the JAX kernel's bf16_matmul: its mm rounds both operands
+// of every product).  The build with -DMCPC_BF16 (mcpc_common.cuh) stores
+// h_l rounded to bf16 (relu' reads x_l), rounds err1, err2 and s as the
+// backward products and the gradient products read them, and takes W and
+// W^T rounded once by the wrapper; err_l and s themselves, the bias
+// gradients and the update stay f32.
+//
 // Bound on an H100: operations, as the packed kernel (4*B*(d0 d1 + d1 d2 +
 // d2 D) FLOP a step, plus half of that on a step that samples).
 //
@@ -74,7 +81,8 @@ __device__ __forceinline__ float latent_normal(uint32_t seed, uint32_t draw,
   return box_muller(seed, draw, idx, take_sin);
 }
 
-template <int R>
+// BF16: the products take bf16 operands (header)
+template <int R, bool BF16>
 __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const UnpackedArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int d0 = a.d0, d1 = a.d1, d2 = a.d2, D = a.D;
@@ -92,7 +100,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const Unpack
       const int r = e / d, c = e - r * d;
       const float x = row0 + r < a.B ? src[(size_t)(row0 + r) * d + c] : 0.f;
       X[c * R + r] = x;
-      H[c * R + r] = fmaxf(x, 0.f);
+      H[c * R + r] = operand<BF16>(fmaxf(x, 0.f));
     }
   };
   load(X0, H0, a.x0, d0);
@@ -118,7 +126,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const Unpack
       if (a.noise_std > 0.f)
         x = x + a.noise_std * latent_normal((uint32_t)a.seed, draw, row0 + r, c, d);
       X[c * R + r] = x;
-      H[c * R + r] = fmaxf(x, 0.f);
+      H[c * R + r] = operand<BF16>(fmaxf(x, 0.f));
     }
   };
 
@@ -164,9 +172,9 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const Unpack
     // ---- parameter gradients over the sampling window, from the state
     // before the update; the barrier keeps the backward pass off h_l
     if (a.partials != nullptr && t >= a.mixing) {
-      if (has_s) hebbian_accumulate<R>(pg.gw3, pg.gb3, H2, S, d2, D, 1.f, nvalid, tid);
-      hebbian_accumulate<R>(pg.gw2, pg.gb2, H1, E2, d1, d2, -1.f, nvalid, tid);
-      hebbian_accumulate<R>(pg.gw1, pg.gb1, H0, E1, d0, d1, -1.f, nvalid, tid);
+      if (has_s) hebbian_accumulate<R, BF16>(pg.gw3, pg.gb3, H2, S, d2, D, 1.f, nvalid, tid);
+      hebbian_accumulate<R, BF16>(pg.gw2, pg.gb2, H1, E2, d1, d2, -1.f, nvalid, tid);
+      hebbian_accumulate<R, BF16>(pg.gw1, pg.gb1, H0, E1, d0, d1, -1.f, nvalid, tid);
       prior_bias_accumulate<R>(pg.gb0, E0, d0, nvalid, tid);
       __syncthreads();
     }
@@ -179,21 +187,21 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const Unpack
 #pragma unroll
       for (int r = 0; r < R; ++r) back[r] = 0.f;
       if (j < d0) {
-        rows_dot<R>(back, E1, a.w1t, 0, d1, d0, j);
+        rows_dot<R, BF16>(back, E1, a.w1t, 0, d1, d0, j);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           g[r] = E0[j * R + r] - (X0[j * R + r] > 0.f ? 1.f : 0.f) * back[r];
         update(X0, H0, j, g, d0, draw);
       } else if (j < d0 + d1) {
         const int c = j - d0;
-        rows_dot<R>(back, E2, a.w2t, 0, d2, d1, c);
+        rows_dot<R, BF16>(back, E2, a.w2t, 0, d2, d1, c);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           g[r] = E1[c * R + r] - (X1[c * R + r] > 0.f ? 1.f : 0.f) * back[r];
         update(X1, H1, c, g, d1, draw + 2u);
       } else {
         const int c = j - d0 - d1;
-        if (has_s) rows_dot<R>(back, S, a.w3t, 0, D, d2, c);
+        if (has_s) rows_dot<R, BF16>(back, S, a.w3t, 0, D, d2, c);
 #pragma unroll
         for (int r = 0; r < R; ++r)
           g[r] = E2[c * R + r] + (X2[c * R + r] > 0.f ? 1.f : 0.f) * back[r];
@@ -214,20 +222,23 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_unpacked_kernel(const Unpack
   store(a.o2, X2, d2);
 }
 
+// this build's kernel: f32 products, or bf16 ones with -DMCPC_BF16
 template <int R>
 cudaError_t launch_rows(const UnpackedArgs& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_unpacked_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mcpc_chain_unpacked_kernel<R, kBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.B + R - 1) / R;
-  mcpc_chain_unpacked_kernel<R><<<blocks, NT, smem, stream>>>(a);
+  mcpc_chain_unpacked_kernel<R, kBF16><<<blocks, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int R>
 int static_smem_bytes() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_unpacked_kernel<R>) != cudaSuccess) return -1;
+  if (cudaFuncGetAttributes(&attr, mcpc_chain_unpacked_kernel<R, kBF16>) != cudaSuccess)
+    return -1;
   return (int)attr.sharedSizeBytes;
 }
 
@@ -266,8 +277,9 @@ const char* mcpc_chain_unpacked_error_string(int err) {
 // Runs T Langevin steps for every batch row.  All pointers are device
 // pointers.  With partials not null (room for [ceil(B / rows),
 // partial_floats] floats) every block leaves there its share of the
-// parameter gradients, taken on steps t >= mixing.  Returns a cudaError_t
-// (0 on success).
+// parameter gradients, taken on steps t >= mixing.  In the bf16 build the
+// weights (w1..w3 and their transposes) must be rounded to bf16 already.
+// Returns a cudaError_t (0 on success).
 int mcpc_chain_unpacked_launch(
     const float* x0, const float* x1, const float* x2,
     float* o0, float* o1, float* o2,

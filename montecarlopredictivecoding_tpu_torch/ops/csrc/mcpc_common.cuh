@@ -1,9 +1,18 @@
 // Device code shared by the MCPC chain kernels (mcpc_chain.cu,
-// mcpc_chain_unpacked.cu): the counter-hash noise and the layout of a
-// partial of the parameter gradients, which both use; and the small matrix
-// products over a block's rows and the gradient accumulation into device
-// memory, which the unpacked kernel uses (the cluster kernel of
-// mcpc_chain.cu has its own, over weights in shared memory).
+// mcpc_chain_unpacked.cu): the counter-hash noise, the rounding of a
+// product's operand to bf16 and the layout of a partial of the parameter
+// gradients, which both use; and the small matrix products over a block's
+// rows and the gradient accumulation into device memory, which the unpacked
+// kernel uses (the cluster kernel of mcpc_chain.cu has its own, over weights
+// in shared memory).
+//
+// bf16 products.  Each source is compiled twice (ops/_build.py): as it is,
+// and with -DMCPC_BF16, which sets kBF16 and so instantiates its kernels for
+// bf16 products.  There every matrix product takes operands rounded to bf16
+// (to nearest, ties to even: the JAX package's astype(jnp.bfloat16)) and
+// sums in f32; the product of two bf16 values is exact in f32, so an FMA on
+// rounded operands differs from a bf16 matrix unit only in the order of the
+// sums.  The f32 build carries none of this code.
 //
 // In the unpacked kernel every block of NT threads owns R batch rows and
 // keeps its state in shared memory feature-major ([feature][row]), so one
@@ -11,6 +20,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -19,6 +29,19 @@ namespace mcpc {
 
 constexpr int NT = 256;           // threads per block
 constexpr int NWARP = NT / 32;
+
+#ifdef MCPC_BF16
+constexpr bool kBF16 = true;      // this build's kernels take bf16 operands
+#else
+constexpr bool kBF16 = false;
+#endif
+
+// x as a product takes it: rounded to bf16 and held as a float when BF16
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
+}
 
 // ---------------------------------------------------------------- noise
 //
@@ -83,27 +106,28 @@ __device__ __forceinline__ float box_muller(uint32_t seed, uint32_t draw,
 // ------------------------------------------------------------ products
 
 // acc[r] += a[r] * w for the R rows of one feature (a is [R], 16B aligned
-// when R % 4 == 0)
-template <int R>
+// when R % 4 == 0); with ROUND each a[r] is first rounded to bf16
+template <int R, bool ROUND = false>
 __device__ __forceinline__ void row_fma(float (&acc)[R], const float* a, float w) {
   if constexpr (R % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < R / 4; ++q) {
       const float4 v = reinterpret_cast<const float4*>(a)[q];
-      acc[4 * q + 0] = fmaf(v.x, w, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, w, acc[4 * q + 3]);
+      acc[4 * q + 0] = fmaf(operand<ROUND>(v.x), w, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(operand<ROUND>(v.y), w, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(operand<ROUND>(v.z), w, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(operand<ROUND>(v.w), w, acc[4 * q + 3]);
     }
   } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r], w, acc[r]);
+    for (int r = 0; r < R; ++r) acc[r] = fmaf(operand<ROUND>(a[r]), w, acc[r]);
   }
 }
 
 // acc[r] += sum_{k0 <= k < k1} A[k][r] * W[k * ldw + col]; A is shared
-// [K][R], W a row-major matrix in device memory read through L2.
-template <int R>
+// [K][R], W a row-major matrix in device memory read through L2.  With
+// ROUND the A values are rounded to bf16 as they are read.
+template <int R, bool ROUND = false>
 __device__ __forceinline__ void rows_dot(float (&acc)[R], const float* A,
                                          const float* __restrict__ W, int k0,
                                          int k1, int ldw, int col) {
@@ -114,9 +138,9 @@ __device__ __forceinline__ void rows_dot(float (&acc)[R], const float* A,
 #pragma unroll
     for (int u = 0; u < U; ++u) w[u] = __ldg(W + (size_t)(k + u) * ldw + col);
 #pragma unroll
-    for (int u = 0; u < U; ++u) row_fma<R>(acc, A + (k + u) * R, w[u]);
+    for (int u = 0; u < U; ++u) row_fma<R, ROUND>(acc, A + (k + u) * R, w[u]);
   }
-  for (; k < k1; ++k) row_fma<R>(acc, A + k * R, __ldg(W + (size_t)k * ldw + col));
+  for (; k < k1; ++k) row_fma<R, ROUND>(acc, A + k * R, __ldg(W + (size_t)k * ldw + col));
 }
 
 // sum_r a[r] * v[r], rows taken in ascending order (a is [R] in shared memory)
@@ -178,8 +202,10 @@ constexpr int PG_U = 8;       // elements of gW in flight per thread
 //   gb[col]    += sum_r sign * V[col][r]
 // A is [K][R] and V is [N][R] in shared memory.  A job is one column and
 // PG_CHUNK rows of gW: neighbouring threads take neighbouring columns, so
-// gW is read and written coalesced, and V[col] stays in registers.
-template <int R>
+// gW is read and written coalesced, and V[col] stays in registers.  With
+// BF16 the product takes V rounded to bf16 (A is stored rounded already),
+// the bias sum the unrounded V.
+template <int R, bool BF16 = false>
 __device__ __forceinline__ void hebbian_accumulate(float* gw, float* gb,
                                                    const float* A, const float* V,
                                                    int K, int N, float sign,
@@ -195,6 +221,10 @@ __device__ __forceinline__ void hebbian_accumulate(float* gw, float* gb,
 #pragma unroll
       for (int r = 0; r < R; ++r) s += v[r];
       gb[col] += s;
+    }
+    if constexpr (BF16) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = operand<true>(v[r]);
     }
     const int k1 = min(K, (chunk + 1) * PG_CHUNK);
     int k = chunk * PG_CHUNK;

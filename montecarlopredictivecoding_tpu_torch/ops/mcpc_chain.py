@@ -29,9 +29,21 @@ gradient ``-S``.
 
 Options, as the JAX wrapper's: captures of the pre-update latents every
 ``capture_stride`` steps, per-step scalar slots every ``scalar_stride``
-steps, masked sensory losses (``mask_perc``), and the Adam state of the warm
+steps, masked sensory losses (``mask_perc``), the Adam state of the warm
 phase handed out (``emit_warm_opt_state``) or resumed (``warm_mu``,
-``warm_nu``, ``warm_count``).
+``warm_nu``, ``warm_count``), and bf16 products (``bf16_matmul``).
+
+bf16.  With ``bf16_matmul`` every matrix product takes bf16 operands
+(round-to-nearest-even) and sums in f32; everything else stays f32:
+latents, biases, errors, ``S``, the Adam state, the gradient sums, the
+noise.  The rounded operands are the JAX kernels': the weights (once, per
+call), ``act(x)`` in the forward products, ``[err1 | err2 | -S]`` in the
+backward ones, and both factors of the Hebbian products.  ``act'`` and the
+bias gradients use the unrounded values, and so do the captured steps'
+recomputed scalars (as the JAX wrapper's, in full f32 from the f32
+weights).  A product of two bf16 values is exact in f32, so an FMA on
+rounded operands differs from a bf16 matrix unit only in the order of the
+sums.
 
 On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
 which replaces the JAX package's Pallas kernel
@@ -249,11 +261,6 @@ def box_muller(bits1: Tensor, bits2: Tensor) -> tp.Tuple[Tensor, Tensor]:
 
 # ------------------------------------------------------------- options
 
-# keyword -> (value that means "off", the ROADMAP.md item that ports it)
-_UNPORTED = {
-    "bf16_matmul": (False, "queue 2, the bf16 opt-in"),
-}
-
 _LOSS_CODES = {"none": 0, "bernoulli": 1, "gaussian": 2}
 
 
@@ -292,6 +299,8 @@ class _Chain:
     activation: str = "relu"
     # 1 / the output-PC site's variance, or None without the site
     inv_var3: tp.Optional[float] = None
+    # the products take bf16 operands and sum in f32
+    bf16_matmul: bool = False
 
     @property
     def output_pc(self) -> bool:
@@ -349,7 +358,8 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
                 scalar_stride: int = 0,
                 warm_mu=None, warm_nu=None, warm_count=None,
                 output_var: tp.Optional[float] = None,
-                **unported) -> _Chain:
+                bf16_matmul: bool = False,
+                **unknown) -> _Chain:
     # what the JAX wrapper refuses, in its order and its words
     output_pc = output_var is not None
     if output_pc:
@@ -412,14 +422,8 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
         if capture_stride > 0:
             # the JAX wrapper returns no trajectory here without a word
             raise ValueError("capture_stride requires packed=True")
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"mcpc_chain got an unexpected keyword {name!r}")
-        off, item = _UNPORTED[name]
-        if (value is not None) if off is None else (value != off):
-            raise NotImplementedError(
-                f"mcpc_chain({name}={value!r}) is not ported yet: ROADMAP.md {item}"
-            )
+    if unknown:
+        raise TypeError(f"mcpc_chain got an unexpected keyword {next(iter(unknown))!r}")
     base = loss[: -len("_mask")] if masked else loss
     if base not in _LOSS_CODES or (masked and base == "none"):
         raise ValueError(f"unknown loss {loss!r}")
@@ -491,6 +495,7 @@ def _chain_args(params, latents, target, seed, *, T: int, lr: float,
                else (float(np.float32(warm_b1)), float(np.float32(warm_b2)))),
         activation=activation,
         inv_var3=(1.0 / output_var) if output_pc else None,
+        bf16_matmul=bool(bf16_matmul),
     )
 
 
@@ -649,12 +654,22 @@ def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
     return torch.cat(parts, dim=1)
 
 
+def bf16_round(t: Tensor) -> Tensor:
+    """``t`` rounded to bf16 (to nearest, ties to even) and held in its own
+    dtype: a product's operand under ``bf16_matmul``."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 @torch.no_grad()
 def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
     d0, d1, d2, D = c.dims
     b0 = params[0]["b"]
     (w1, b1), (w2, b2), (w3, b3) = ((params[i]["w"], params[i]["b"])
                                     for i in (1, 2, 3))
+    # a product's operand: rounded to bf16 under bf16_matmul (the weights
+    # once, here), else as it is
+    op = bf16_round if c.bf16_matmul else (lambda t: t)
+    w1, w2, w3 = op(w1), op(w2), op(w3)
     act = activation_fn(c.activation)
     X = torch.cat(latents[:3], dim=1)
     X3 = latents[3] if c.output_pc else None  # the output-PC site's latent
@@ -673,7 +688,8 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
     def grads(X, X3, want_scalars: bool, sample: bool = False):
         """(G of the latents, G3 of x3 or None, scalars or None)."""
         H = act(X)
-        h0, h1, h2 = H.split((d0, d1, d2), dim=1)
+        # the products' operands; act' and every sum take the unrounded values
+        h0, h1, h2 = op(H).split((d0, d1, d2), dim=1)
         err0 = X[:, :d0] - b0
         e1 = X[:, d0 : d0 + d1] - (h0 @ w1 + b1)
         e2 = X[:, d0 + d1 :] - (h1 @ w2 + b2)
@@ -683,7 +699,7 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
             err3 = X3 - logits
             S = -err3 * c.inv_var3
             G3 = c.inv_var3 * err3
-            back2 = (-S) @ w3.T
+            back2 = op(-S) @ w3.T
         elif c.loss == "none":
             S = None
             back2 = torch.zeros_like(h2)
@@ -695,20 +711,20 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
                 S = (logits - y) * c.inv_var
             if clamped is not None:
                 S = S * clamped
-            back2 = (-S) @ w3.T
-        back = torch.cat([e1 @ w1.T, e2 @ w2.T, back2], dim=1)
+            back2 = op(-S) @ w3.T
+        back = torch.cat([op(e1) @ w1.T, op(e2) @ w2.T, back2], dim=1)
         dH = (X > 0).to(X.dtype) if c.activation == "relu" else 1.0 - H * H
         G = torch.cat([err0, e1, e2], dim=1) - dH * back
         if sample:
             # Hebbian gradients from this (pre-update) state, over the batch
             gw1, gw2, gw3, gb0, gb1, gb2, gb3 = flat.split(_partial_sizes(c.dims))
-            gw1 += (-(h0.T @ e1)).reshape(-1)
-            gw2 += (-(h1.T @ e2)).reshape(-1)
+            gw1 += (-(h0.T @ op(e1))).reshape(-1)
+            gw2 += (-(h1.T @ op(e2))).reshape(-1)
             gb0 += (-err0).sum(dim=0)
             gb1 += (-e1).sum(dim=0)
             gb2 += (-e2).sum(dim=0)
             if S is not None:
-                gw3 += (h2.T @ S).reshape(-1)
+                gw3 += (h2.T @ op(S)).reshape(-1)
                 gb3 += S.sum(dim=0)
         if not want_scalars:
             return G, G3, None
@@ -1018,14 +1034,15 @@ def _prefix(packed: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(packed: bool = True) -> ctypes.CDLL:
-    """The packed or unpacked kernel's library, built at first use, with its
-    C signatures.  The packed library also holds the pass that sums the
-    partial gradients."""
+def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
+    """The packed or unpacked kernel's library (with ``bf16``, the one whose
+    kernels take bf16 operands), built at first use, with its C signatures.
+    The packed libraries also hold the pass that sums the partial
+    gradients."""
     from . import _build
 
     name = _prefix(packed)
-    lib = _build.load(name)
+    lib = _build.load(name, bf16)
     launch = getattr(lib, name + "_launch")
     launch.restype = _I
     smem_bytes = getattr(lib, name + "_smem_bytes")
@@ -1215,6 +1232,7 @@ PHASES = ("forward", "gradients", "backward", "wait for partials", "update",
 
 def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = None,
             plan: tp.Optional[ChainPlan] = None, warm_mu=None, warm_nu=None):
+    """Launch the packed or unpacked kernel, f32 or bf16, on CUDA tensors."""
     d0, d1, d2, D = c.dims
     device = latents[0].device
     tensors = list(latents) + [t for p in params for t in p.values()]
@@ -1232,6 +1250,11 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     x3 = latents[3].contiguous() if c.output_pc else None
     b0, b1, b2, b3 = (p["b"].contiguous() for p in params)
     w1, w2, w3 = (params[i]["w"].contiguous() for i in (1, 2, 3))
+    if c.bf16_matmul:
+        # the weights as the products take them, rounded once per call, as
+        # the JAX wrapper stages them; gradients, scalars and the result keep
+        # the f32 parameters
+        w1, w2, w3 = (bf16_round(w) for w in (w1, w2, w3))
     # the output-PC site reads x3 where the loss reads the target
     y = (target.contiguous() if target is not None else x3 if x3 is not None
          else torch.zeros((B, D), dtype=torch.float32, device=device))
@@ -1254,7 +1277,7 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
         partials = torch.empty((groups, sum(_partial_sizes(c.dims))),
                                dtype=torch.float32, device=device)
     partials_ptr = None if partials is None else partials.data_ptr()
-    lib = _library(c.packed)
+    lib = _library(c.packed, c.bf16_matmul)
     XW = aligned_layout((d0, d1, d2))[2]
     pD = _pad128(D)
     # the options' buffers: the kernel writes only real columns and rows, so
@@ -1316,10 +1339,9 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
                 c.inv_var, c.lr, c.noise_std, c.seed, stream,
             )
     _check_launch(err, c.packed)
-    if c.packed:
-        mcpc_chain.launches += 1
-    else:
-        mcpc_chain.launches_unpacked += 1
+    counter = ("launches" if c.packed else "launches_unpacked") + (
+        "_bf16" if c.bf16_matmul else "")
+    setattr(mcpc_chain, counter, getattr(mcpc_chain, counter) + 1)
     scalars = None
     if c.scalar_stride:
         # the blocks' pairs added in block order
@@ -1399,9 +1421,10 @@ def mcpc_chain(params, latents, target, seed, **options):
     ``warm_count``: resume an Adam state of ``warm_count`` steps;
     ``packed=True``: False runs the unpacked baseline, which has relu, no
     warm phase, no scalars, no options, one batch tile and a noise stream of
-    its own.
-    ``bf16_matmul`` is not ported yet and raises ``NotImplementedError``
-    naming its ROADMAP.md item.
+    its own;
+    ``bf16_matmul=False``: True gives every matrix product bf16 operands
+    with f32 sums, packed or not (the module docstring says which operands);
+    on CUDA tensors it launches the kernels' bf16 build.
 
     Returns ``latents', pgrads[, traj[, traj3]][, scalars][, moments]``
     (``traj3`` ``[n_cap, B, pD]``: the output-PC latent's captures), in that
@@ -1416,7 +1439,9 @@ def mcpc_chain(params, latents, target, seed, **options):
 
     CPU tensors run :func:`mcpc_chain_reference`; CUDA tensors launch the
     kernel or raise.  ``mcpc_chain.launches`` counts launches of the packed
-    kernel, ``mcpc_chain.launches_unpacked`` those of the unpacked one.
+    kernel, ``mcpc_chain.launches_unpacked`` those of the unpacked one, and
+    ``launches_bf16`` / ``launches_unpacked_bf16`` those of their bf16
+    builds.
     """
     c = _chain_args(params, latents, target, seed, **options)
     device = latents[0].device
@@ -1430,3 +1455,5 @@ def mcpc_chain(params, latents, target, seed, **options):
 
 mcpc_chain.launches = 0
 mcpc_chain.launches_unpacked = 0
+mcpc_chain.launches_bf16 = 0
+mcpc_chain.launches_unpacked_bf16 = 0

@@ -8,10 +8,11 @@ imported and its kernel built from its own sources.  Prints one JSON line:
 chain (a) (B=256, T=10000, 20-128-128-784, Bernoulli, noise variance 2; 7
 chains), the training chain of ``train_mnist.chain_options`` with and
 without the parameter gradients (21 chains each), the whole training
-batch, ``train_mnist.one_batch`` with its Adam step (21 batches), and chain
+batch, ``train_mnist.one_batch`` with its Adam step (21 batches), chain
 (a) with the tanh activation (7 chains; null for a checkout whose kernel has
-no tanh), each as ``[median, min, max]`` ms between CUDA events after one
-warm-up.  To compare a change with
+no tanh), and chain (a) and the training chain with bf16 products (7 and 21
+chains; null for a checkout without them), each as ``[median, min, max]``
+ms between CUDA events after one warm-up.  To compare a change with
 its parent, unpack the parent into an ignored directory and run both trees
 in turns (parent, change, change, parent, ...) in one call: the card's speed
 moves between calls.  Needs a CUDA device and nvcc; there is no CPU mode.
@@ -65,13 +66,14 @@ def main() -> None:
     opts = train_mnist.chain_options(config)
     chain_a = dict(T=10000, lr=0.01, noise_var=2.0, loss="bernoulli", return_scalars=True)
 
-    def chain_a_tanh():
+    def timed_if_taken(reps, seed, **kw):
+        """ms of the chain with ``kw``, or None where this checkout refuses
+        them (an option it does not have yet)."""
         try:
-            chain.mcpc_chain(gen.params, latents, data, 1234, activation="tanh", **chain_a)
-        except NotImplementedError:
+            chain.mcpc_chain(gen.params, latents, data, seed, **kw)
+        except (NotImplementedError, TypeError):
             return None
-        return ms(lambda: chain.mcpc_chain(gen.params, latents, data, 1234,
-                                           activation="tanh", **chain_a), 7)
+        return ms(lambda: chain.mcpc_chain(gen.params, latents, data, seed, **kw), reps)
 
     if hasattr(train_mnist, "param_optimizer"):
         state = train_mnist.param_optimizer(config).init(gen.params)
@@ -86,7 +88,9 @@ def main() -> None:
             gen.params, latents, data, 99, **dict(opts, with_pgrads=False)), 21),
         "train_batch": ms(lambda: train_mnist.one_batch(
             gen.params, state, latents, 99, data, config=config), 21),
-        "chain_a_tanh": chain_a_tanh(),
+        "chain_a_tanh": timed_if_taken(7, 1234, activation="tanh", **chain_a),
+        "chain_a_bf16": timed_if_taken(7, 1234, bf16_matmul=True, **chain_a),
+        "train_chain_bf16": timed_if_taken(21, 99, bf16_matmul=True, **opts),
     }))
 
 

@@ -478,3 +478,136 @@ def test_output_pc_at_the_joint_sampler_batch(cuda_device):
     again = chain_mod.mcpc_chain(params, latents, None, 4, **kw)
     for u, w in zip(got[0], again[0]):
         assert torch.equal(u, w)
+
+
+# bf16 products (bf16_matmul).  The kernels' bf16 builds against the plain
+# bf16 version by chip_smoke.py's two rules: (i) after one Langevin step
+# without noise at least 98% of the latents within 1e-5 and of the gradient
+# entries within 2e-6 of their tensor's largest (the rest are where the two
+# versions' f32 sums landed on either side of a bf16 rounding boundary), and
+# no part further than half the bf16 effect (the plain bf16 version's
+# distance from the plain f32 one); (ii) on longer chains every part within
+# half the bf16 effect.
+BF16_ONE_STEP = dict(T=1, lr=0.1, noise_var=None, with_pgrads=True, mixing=0)
+BF16_CHAIN = dict(T=40, warm_T=20, warm_lr=0.1, lr=0.03, with_pgrads=True, mixing=10,
+                  return_scalars=True)
+
+
+def _share_within(pairs, tol_of):
+    inside = total = 0
+    for a, b in pairs:
+        inside += int(((a - b).abs() <= tol_of(b)).sum())
+        total += b.numel()
+    return inside / total
+
+
+def _max_abs(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _grad_rel(ga, gb):
+    return max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
+               for a, b in zip(ga, gb) for k in ("w", "b"))
+
+
+def _assert_one_step(got, want, f32):
+    def grads(o):
+        return [(x[k], y[k]) for x, y in zip(o[1], want[1]) for k in ("w", "b")]
+
+    def grad_tol(b):
+        return 2e-6 * b.abs().max()
+
+    assert _share_within(zip(got[0], want[0]), lambda b: 1e-5) >= 0.98
+    assert _share_within(grads(got), grad_tol) >= 0.98
+    # the rule tells a kernel that ignores the flag from one that does not
+    assert _share_within(zip(f32[0], want[0]), lambda b: 1e-5) < 0.98
+    assert _max_abs(got[0], want[0]) <= 0.5 * _max_abs(f32[0], want[0])
+    assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["relu", "tanh", "unpacked"])
+@pytest.mark.parametrize("B", [37, 256])
+def test_bf16_one_step_matches_plain_version(cuda_device, kind, B):
+    params, latents, target = _case(FID, B, cuda_device)
+    kw = dict(BF16_ONE_STEP, activation="tanh" if kind == "tanh" else "relu",
+              packed=kind != "unpacked")
+    count = "launches_bf16" if kind != "unpacked" else "launches_unpacked_bf16"
+    before = {n: getattr(chain_mod.mcpc_chain, n) for n in
+              ("launches", "launches_unpacked", "launches_bf16", "launches_unpacked_bf16")}
+    got = chain_mod.mcpc_chain(params, latents, target, 9, bf16_matmul=True, **kw)
+    torch.cuda.synchronize()
+    for n, v in before.items():
+        assert getattr(chain_mod.mcpc_chain, n) == v + (n == count)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, bf16_matmul=True, **kw)
+    f32 = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    _assert_one_step(got, want, f32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+def test_bf16_every_built_row_count_one_step(cuda_device, rows, act):
+    """Each instantiation of the bf16 build, with and without the options'
+    code (the second call masks its loss), by rule (i)."""
+    params, latents, target = _case(FID, 37, cuda_device)
+    for extra in ({}, dict(loss="bernoulli_mask", mask_perc=0.5)):
+        kw = dict(BF16_ONE_STEP, activation=act, **extra)
+        c = chain_mod._chain_args(params, latents, target, 9, bf16_matmul=True, **kw)
+        plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+        assert plan.rows == rows
+        got = chain_mod._kernel(c, params, latents, target, plan=plan)
+        want = chain_mod.mcpc_chain_reference(params, latents, target, 9, bf16_matmul=True,
+                                               **kw)
+        f32 = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+        _assert_one_step(got, want, f32)
+
+
+BF16_CASES = {
+    "relu": dict(BF16_CHAIN),
+    "tanh": dict(BF16_CHAIN, activation="tanh"),
+    "tanh_masked_captured": dict(BF16_CHAIN, activation="tanh", loss="bernoulli_mask",
+                                 mask_perc=0.5, capture_stride=4),
+    "relu_scalar_slots": dict(BF16_CHAIN, scalar_stride=7),
+    "relu_emit_warm_opt_state": dict(BF16_CHAIN, T=0, with_pgrads=False,
+                                     emit_warm_opt_state=True),
+    "unpacked": dict(T=60, lr=0.01, with_pgrads=True, mixing=20, packed=False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_chain_matches_plain_version(cuda_device, case):
+    """Rule (ii) on every part of the result, B = 37."""
+    kw = BF16_CASES[case]
+    params, latents, target = _case(FID, 37, cuda_device)
+    got = chain_mod.mcpc_chain(params, latents, target, 9, bf16_matmul=True, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, bf16_matmul=True, **kw)
+    f32 = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    assert len(got) == len(want) == len(f32)
+    assert _max_abs(got[0], want[0]) <= 0.5 * _max_abs(f32[0], want[0])
+    if kw.get("with_pgrads"):
+        assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
+    for g, w, f in zip(got[2:], want[2:], f32[2:]):
+        if isinstance(w, dict):   # scalars: within half the effect or f32 rounding
+            for k in ("loss", "energy"):
+                d = float(((g[k] - w[k]) / w[k]).abs().max())
+                assert d <= max(0.5 * float(((f[k] - w[k]) / w[k]).abs().max()), 1e-5)
+        elif isinstance(w, tuple):   # Adam moments
+            assert _max_abs(g, w) <= 0.5 * _max_abs(f, w)
+        else:   # captures
+            assert _max_abs([g], [w]) <= 0.5 * _max_abs([f], [w])
+
+
+@pytest.mark.cuda
+def test_bf16_output_pc_site_matches_plain_version(cuda_device):
+    params, latents = _output_pc_case(FID, 37, cuda_device)
+    kw = dict(BF16_CHAIN, output_var=0.5, loss="none", capture_stride=6)
+    got = chain_mod.mcpc_chain(params, latents, None, 9, bf16_matmul=True, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, None, 9, bf16_matmul=True, **kw)
+    f32 = chain_mod.mcpc_chain_reference(params, latents, None, 9, **kw)
+    assert len(got[0]) == 4
+    assert _max_abs(got[0], want[0]) <= 0.5 * _max_abs(f32[0], want[0])
+    assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
+    for i in (2, 3):   # traj, traj3
+        assert _max_abs([got[i]], [want[i]]) <= 0.5 * _max_abs([f32[i]], [want[i]])

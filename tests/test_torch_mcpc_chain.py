@@ -319,15 +319,14 @@ def test_sum_block_partials_cpu_is_the_ordered_sum():
 
 _MU = tuple(np.zeros((8, d), np.float32) for d in (4, 8, 8))
 
-# Every option the port did not take at first, by name: the ones still
-# unported raise NotImplementedError naming their ROADMAP.md item; the
-# ported ones raise the JAX wrapper's ValueError when misused, like it.
+# Every option the port did not take at first, by name: each raises the JAX
+# wrapper's ValueError when misused, like it (bf16_matmul has no misuse; its
+# tests are tests/test_torch_bf16.py).
 UNPORTED = {
     "capture_stride": (dict(T=0, capture_stride=2), ValueError, "requires steps"),
     "scalar_stride": (dict(scalar_stride=2), ValueError, "return_scalars"),
     "output_var": (dict(output_var=1.0), ValueError, "4 latents"),
     "mask_perc": (dict(loss="gaussian_mask"), ValueError, "mask_perc"),
-    "bf16_matmul": (dict(bf16_matmul=True), NotImplementedError, "ROADMAP.md"),
     "warm_mu": (dict(warm_mu=_MU, warm_nu=_MU, warm_count=1), ValueError, "warm_T > 0"),
     "warm_nu": (dict(warm_T=2, warm_mu=_MU, warm_count=1), ValueError, "warm_nu"),
     "warm_count": (dict(warm_T=2, warm_mu=_MU, warm_nu=_MU), ValueError, "warm_count"),

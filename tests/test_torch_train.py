@@ -3,6 +3,8 @@ same thing built from the JAX package's parts: ``mcpc_chain_pallas`` in
 interpret mode, division by ``sampling·B``, ``optax.adam``.  Latents, data
 and chain seeds are numpy's, handed to both sides."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,9 @@ import torch
 
 import montecarlopredictivecoding_tpu as mcpc
 from montecarlopredictivecoding_tpu.experiments import train_mnist as jtrain
+from montecarlopredictivecoding_tpu.models import factory as jfactory
 from montecarlopredictivecoding_tpu.ops import mcpc_chain_pallas
+from montecarlopredictivecoding_tpu_torch.core import trainer as mt_trainer
 from montecarlopredictivecoding_tpu_torch.data import mnist as tmnist
 from montecarlopredictivecoding_tpu_torch.experiments import train_mnist as ttrain
 from montecarlopredictivecoding_tpu_torch.models import get_model
@@ -22,6 +26,8 @@ from montecarlopredictivecoding_tpu_torch.utils import (
     load_checkpoint,
     params_from_numpy,
 )
+
+chain_mod = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
 
 torch.set_num_threads(1)
 
@@ -168,13 +174,116 @@ def test_train_mcpc_runs_the_last_smaller_batch(small_synthetic, tmp_path, monke
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(fused=False), "queue 1 item 6"),
     (dict(mesh=2), "queue 1 item 8"),
 ])
 def test_train_mcpc_unported_paths_name_their_item(kwargs, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.train_mcpc(1, str(tmp_path / "x"), log=False, device="cpu", **kwargs)
     assert not list(tmp_path.iterdir())
+
+
+SMALL = dict(input_size=4, hidden_size=8, hidden2_size=8, output_size=16, T_pc=6, mixing=2,
+             sampling=3)
+
+
+def _shared_batch(monkeypatch, params_np, lat, data, made=None):
+    """The port's train_mcpc on these numpy parameters, latents and batch:
+    its model holds the parameters, its loader yields the one batch, and
+    sampling latents gives these; ``made`` collects the trainers it builds."""
+    real_get_model = ttrain.get_model
+
+    def get_model_shared(config, seed, device="cuda"):
+        gen = real_get_model(config, seed, device=device)
+        gen.params = params_from_numpy(params_np, device)
+        return gen
+
+    def sample_shared(self, inputs, generator=None):
+        self.latents = latents_from_numpy(lat, "cpu")
+        return self.latents
+
+    monkeypatch.setattr(ttrain, "get_model", get_model_shared)
+    monkeypatch.setattr(ttrain, "get_mnist_data", lambda config, seed=0, device="cpu": (
+        [(torch.from_numpy(data), None)], None, None))
+    monkeypatch.setattr(mt_trainer.GenerativeModel, "sample_latents", sample_shared)
+    if made is not None:
+        for name in ("get_pc_trainer", "get_mcpc_trainer"):
+            real = getattr(ttrain, name)
+            monkeypatch.setattr(ttrain, name, lambda *a, _real=real, **k: (
+                made.append(_real(*a, **k)) or made[-1]))
+
+
+def test_train_mcpc_trainer_path_matches_jax(tmp_path, monkeypatch):
+    """One batch of ``train_mcpc(fused=False, langevin_var=None)`` against
+    the JAX package's trainer path on the same numpy parameters, latents and
+    batch (4-8-8-16, B=8, 6 Adam steps, 2 + 3 SGD steps): its PC warm start
+    (``get_pc_trainer(is_mcpc=True)``) and then its MCPC trainer, each
+    ``train_on_batch`` with ``use_pallas=True`` (the interpret-mode kernel;
+    the warm start takes the shared latents instead of sampling its own).
+    Latents and parameters atol 1e-5 (the file's chain tolerance; measured
+    at rounding size).  The two trainers make two chain calls and no engine
+    call."""
+    dims, Bt = (4, 8, 8, 16), 8
+    short = dict(ttrain.mcpc_training_config(), **SMALL)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    params_np = jax.device_get(mcpc.make_mlp_model(*dims).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(1)
+    lat = tuple(rng.uniform(-10, 10, (Bt, d)).astype(np.float32) for d in dims[:3])
+    data = (rng.random((Bt, dims[3])) > 0.5).astype(np.float32)
+    made, chain_calls = [], []
+    _shared_batch(monkeypatch, params_np, lat, data, made)
+    real_chain = chain_mod.mcpc_chain
+    monkeypatch.setattr(chain_mod, "mcpc_chain", lambda *a, **k: (
+        chain_calls.append(k), real_chain(*a, **k))[1])
+    gen = ttrain.train_mcpc(1, str(tmp_path / "m"), log=False, fused=False,
+                            langevin_var=None, device="cpu")
+
+    jconfig = dict(jtrain.mcpc_training_config(), **SMALL)
+    jgen = mcpc.GenerativeModel(mcpc.make_mlp_model(*dims), key=0, params=params_np)
+    pc_warm = jfactory.get_pc_trainer(jgen, jconfig, is_mcpc=True, training=True)
+    mc = jfactory.get_mcpc_trainer(jgen, jconfig, training=True)
+    pc_warm.use_pallas = mc.use_pallas = True
+    jgen.latents = tuple(jnp.asarray(x) for x in lat)
+    pseudo, target = jnp.zeros((Bt, dims[0])), jnp.asarray(data)
+    pc_warm.train_on_batch(pseudo, loss_fn=jconfig["loss_fn"],
+                           loss_fn_kwargs={"_target": target},
+                           is_sample_x_at_batch_start=False, is_return_results_every_t=False)
+    mc.train_on_batch(pseudo, loss_fn=jconfig["loss_fn"], loss_fn_kwargs={"_target": target},
+                      callback_after_t=None, is_sample_x_at_batch_start=False,
+                      is_return_results_every_t=False)
+
+    assert [k["warm_T"] if "warm_T" in k else 0 for k in chain_calls] == [6, 0]
+    assert [k["T"] for k in chain_calls] == [0, 5]
+    assert [(t.kernel_calls, t.engine_calls) for t in made] == [(1, 0), (1, 0)]
+    for a, b in zip(gen.latents, jgen.latents):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)
+    for pa, pb, p0 in zip(gen.params, jgen.params, params_np):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(pa[k].numpy(), np.asarray(pb[k]), rtol=0, atol=1e-5)
+        assert not np.array_equal(pa["b"].numpy(), p0["b"])
+    assert (tmp_path / "m.msgpack").exists()
+
+
+def test_train_mcpc_trainer_path_takes_the_noise(tmp_path, monkeypatch):
+    """With the noise on, the MCPC trainer's chain gets ``noise_var`` =
+    ``langevin_var`` (the warm start none) and a seed drawn from the model's
+    generator, so two runs with one seed give the same parameters."""
+    short = dict(ttrain.mcpc_training_config(), **SMALL)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    rng = np.random.default_rng(2)
+    params_np = jax.device_get(mcpc.make_mlp_model(4, 8, 8, 16).init(jax.random.PRNGKey(1)))
+    lat = tuple(rng.uniform(-10, 10, (8, d)).astype(np.float32) for d in (4, 8, 8))
+    data = (rng.random((8, 16)) > 0.5).astype(np.float32)
+    _shared_batch(monkeypatch, params_np, lat, data)
+    calls = []
+    real_chain = chain_mod.mcpc_chain
+    monkeypatch.setattr(chain_mod, "mcpc_chain", lambda *a, **k: (
+        calls.append((a[3], k)), real_chain(*a, **k))[1])
+    runs = [ttrain.train_mcpc(1, str(tmp_path / f"r{i}"), seed=5, log=False, fused=False,
+                              langevin_var=1.5, device="cpu") for i in range(2)]
+    assert [k.get("noise_var") for _, k in calls] == [None, 1.5, None, 1.5]
+    assert calls[1][0] == calls[3][0]
+    for pa, pb in zip(runs[0].params, runs[1].params):
+        assert torch.equal(pa["w"], pb["w"]) and torch.equal(pa["b"], pb["b"])
 
 
 @pytest.mark.parametrize("model,item", [

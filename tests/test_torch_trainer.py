@@ -268,8 +268,8 @@ def test_trainer_masked_dispatch_matches_engine(warm):
 
 def test_eligibility_matrix():
     """The dispatch decision and the fallback reason, config class by config
-    class, as the JAX trainer takes them (``use_pallas=True``).  What the JAX
-    kernel takes and the port's does not yet (bf16) raises instead."""
+    class, as the JAX trainer takes them (``use_pallas=True``); the bf16
+    opt-in rides the chain like f32."""
     params, latents, target = _arrays()
 
     def decide(trainer_kw, batch_kw, tmodel=None, jmodel=None, bf16=False):
@@ -283,11 +283,7 @@ def test_eligibility_matrix():
         jres = pair.jtr.train_on_batch(pair.inputs[0], key=jax.random.PRNGKey(1),
                                        **call(mcpc, jnp))
         pair.ttr.use_kernel_bf16 = bf16
-        try:
-            pair.ttr.train_on_batch(pair.inputs[1], **call(mt, torch))
-        except NotImplementedError as e:
-            assert took and "ROADMAP.md" in str(e)
-            return "raised"
+        pair.ttr.train_on_batch(pair.inputs[1], **call(mt, torch))
         assert bool(took) == (pair.ttr.kernel_calls == 1), (trainer_kw, took)
         assert pair.ttr._kernel_fallback_reason == pair.jtr._kernel_fallback_reason
         return bool(took)
@@ -345,8 +341,52 @@ def test_eligibility_matrix():
                   tmodel=out_pc(mt), jmodel=out_pc(mcpc)) is True
     # a sensory loss on an output-PC joint sampler goes to the engine
     assert not decide(sgd, bern, tmodel=out_pc(mt), jmodel=out_pc(mcpc))
-    # the JAX kernel takes bf16; the port raises, naming the ROADMAP item
-    assert decide(sgd, bern, bf16=True) == "raised"
+    # bf16 products take the chain, as use_pallas_bf16 does in the JAX trainer
+    assert decide(sgd, bern, bf16=True) is True
+    assert decide(adam, bern, bf16=True) is True
+    assert not decide({**sgd, "x_lr_discount": 0.9}, bern, bf16=True)
+
+
+PC_TRAIN = dict(T=6, update_x_at="all", optimizer_x_fn="adam",
+                optimizer_x_kwargs={"lr": 0.05}, update_p_at="last", optimizer_p_fn="adam",
+                optimizer_p_kwargs={"lr": 0.01})
+
+
+@pytest.mark.parametrize("mode", [True, "auto", False])
+@pytest.mark.parametrize("warm", [False, True])
+def test_trainer_bf16_opt_in_matches_jax(mode, warm):
+    """``use_kernel_bf16`` against the JAX trainer's ``use_pallas_bf16``, set
+    alike on both sides: an MCPC batch (Langevin, noise on, gradients over
+    the last 5 steps, the Adam step on the parameters) or a PC training
+    batch (Adam on the latents, the last step's gradients).  True runs bf16
+    products; "auto" and False run f32, as in the JAX trainer, so their
+    state sits the bf16 effect away from True's.  Tolerances as the file's."""
+    def call(pkg, np_):
+        return dict(loss_fn=pkg.bernoulli_fn, loss_fn_kwargs={"_target": pair.targets(np_)},
+                    callback_after_t=None if warm else pkg.LangevinStep(var=2.0),
+                    is_sample_x_at_batch_start=False)
+
+    results = {}
+    for m in dict.fromkeys((mode, True)):
+        pair = Pair(PC_TRAIN if warm else MCPC)
+        pair.jtr.use_pallas_bf16 = m
+        pair.ttr.use_kernel_bf16 = m
+        jres, tres = pair.run(call)
+        assert pair.ttr.kernel_calls == 1 and pair.ttr.engine_calls == 0
+        pair.assert_state()
+        _assert_results(tres, jres)
+        results[m] = pair.tgen
+    if mode is not True:
+        gap = max(float((a - b).abs().max())
+                  for a, b in zip(results[mode].latents, results[True].latents))
+        assert gap > 1e-4
+
+
+def test_top_level_exports_engine_config():
+    """``EngineConfig`` is exported at the top of the port, as at the top of
+    the JAX package."""
+    assert mt.EngineConfig is mt.core.EngineConfig
+    assert mcpc.EngineConfig is mcpc.core.EngineConfig
 
 
 def test_awkward_batch_falls_back_to_engine():
