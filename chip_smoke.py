@@ -13,13 +13,16 @@ Phase 1  holds each kernel against its plain PyTorch version on the card, on
          main paths give it: the chain with and without parameter gradients
          (``with_pgrads``, ``warm_pgrads``, batches that leave pad rows in
          the last cluster or fill only part of one, both widths, both
-         losses), the unpacked baseline (``packed=False``), and the pass
+         losses), the unpacked chain (``packed=False``; at B=256, at B=1100
+         beyond one 1024-row tile, and at 10-256-256-784 with its gradient
+         slice in device memory), and the pass
          that sums the partial gradients (timed paced by the host, one call
          between two events, which is what the ``kernels`` line reports as
          ``ms``, and on the device alone, behind a spinning kernel:
          ``device_ms``).  Each line prints the
-         packed kernel's plan: cluster size, rows a cluster, clusters, SMs
-         at work, shared memory a block, gradient slice resident or not.
+         plan of the call's kernel (packed or unpacked): cluster size, rows a
+         cluster, clusters, SMs at work, shared memory a block, gradient slice
+         resident or not.
 Phase 1  also holds the chain's options against the plain version, at full
 (options) width and B=37 (the last cluster has pad rows), on chains of 200 Adam
          steps and 500 Langevin steps: captures of the Langevin phase and of
@@ -44,11 +47,12 @@ Phase 2  drives the serving path at full width through the entry points a
          -> ``mcpc_chain``, for (a) the bench chain (B=256, T=10000,
          lr 0.01, noise variance 2), (b) the figure-2 inference chain
          (2000 Adam MAP steps at lr 0.1, then T=10000 at lr 0.03) and (c)
-         the unpacked baseline on the bench chain's inputs (T=1000).  The
+         the unpacked chain on the bench chain's inputs (T=1000).  The
          launch counts are zeroed just before and read just after; then (a)
          and (c) are held against the plain version and the chains are timed
          with CUDA events (kernel: median of 3 after one warm-up; plain
-         version: once, (b)'s cut to a tenth of its steps).
+         version: once, (b)'s cut to a tenth of its steps), and (c) again at
+         T=10000 between two timings of (a), with its plan.
 Phase 3  drives the training path at full width: ``get_model`` ->
          ``get_mnist_data`` (train split, B=256) -> ``one_batch`` for
          TRAIN_BATCHES batches (250 Adam MAP steps at lr 0.7, 50 + 100
@@ -113,7 +117,9 @@ Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
          Langevin step of relu, tanh and the unpacked kernel, with gradients,
          at B=37 and B=256; then relu and tanh with 50 Adam and 100 Langevin
          steps and gradients, relu warm-only with ``warm_pgrads`` and the
-         unpacked chain with gradients (150 steps), at B=37 and B=256, and
+         unpacked chain with gradients (150 steps), at B=37 and B=256, the
+         unpacked kernel's one step at B=1100 and 150 steps with gradients at
+         10-256-256-784, and
          the options' instantiation at B=37 (masked and captured, tanh with
          scalar slots, a continuation handing its moments out, the output-PC
          site), in f32 and float64, with the per-row mean energy beside each.
@@ -170,6 +176,9 @@ CHAIN_A = dict(T=10000, lr=0.01, noise_var=2.0, loss="bernoulli")
 CHAIN_B = dict(T=10000, lr=0.03, noise_var=2.0, loss="bernoulli",
                warm_T=2000, warm_lr=0.1)
 CHAIN_C = dict(T=1000, lr=0.01, noise_var=2.0, loss="bernoulli", packed=False)
+# chain (c) at chain (a)'s length, timed beside it: the same cluster plan and
+# step, the unpacked noise index
+CHAIN_C_LONG = dict(CHAIN_C, T=CHAIN_A["T"])
 TRAIN_BATCHES = 40
 # the options' check: 200 Adam steps and 500 Langevin steps at B=37
 OPT_B = 37
@@ -565,23 +574,33 @@ def main() -> int:
     # ---------------------------------------------------------- phase 1
     gen = torch.Generator().manual_seed(SEED)
 
-    def random_case(dims, B):
+    def random_case(dims, B, generator=None):
+        """random parameters, latents and target, from ``gen`` unless told"""
+        g = gen if generator is None else generator
         model = port.make_mlp_model(*dims)
-        params = model.init(gen, device=dev)
-        latents = model.init_latents(params, torch.zeros(B, dims[0], device=dev), gen)
-        target = (torch.rand(B, dims[3], generator=gen) > 0.5).float().to(dev)
+        params = model.init(g, device=dev)
+        latents = model.init_latents(params, torch.zeros(B, dims[0], device=dev), g)
+        target = (torch.rand(B, dims[3], generator=g) > 0.5).float().to(dev)
         return params, latents, target
 
+    # the cases of the unpacked chain added in its redesign draw from a
+    # generator of their own, so every other case keeps the inputs it had
+    gen_c = torch.Generator().manual_seed(SEED + 11)
+
     def chain_plan(dims, B, kw):
+        """the plan of the call's own kernel, packed or unpacked"""
+        packed = kw.get("packed", True)
         return chain.chain_plan(dims, B, warm=kw.get("warm_T", 0) > 0,
                                 with_pgrads=kw.get("with_pgrads", False),
-                                budget=chain.smem_budget(dev),
-                                max_clusters=chain.max_active_clusters(dev),
+                                budget=chain.smem_budget(dev, packed),
+                                max_clusters=chain.max_active_clusters(dev, packed=packed),
                                 output_pc=kw.get("output_var") is not None)
 
     def plan_text(dims, B, kw):
         plan = chain_plan(dims, B, kw)
-        return plan.describe(chain.max_active_clusters(dev, plan))
+        packed = kw.get("packed", True)
+        return (("" if packed else "unpacked: ")
+                + plan.describe(chain.max_active_clusters(dev, plan, packed=packed)))
 
     warm = dict(warm_T=50, warm_lr=0.1, lr=0.03, return_scalars=True)
     pg = dict(warm, T=60, mixing=20, with_pgrads=True)
@@ -605,9 +624,16 @@ def main() -> int:
          dict(pg, loss="gaussian", input_var=0.5)),
         ("fid bernoulli unpacked T60 mixing20 pgrads", FID, BATCH,
          dict(T=60, lr=0.03, mixing=20, with_pgrads=True, packed=False)),
+        # beyond one 1024-row tile (the unpacked noise never shifts the seed);
+        # 20 steps, as the other cases past 1024 rows (WIDE_B)
+        ("fid bernoulli unpacked T20 mixing5 pgrads B=1100", FID, 1100,
+         dict(T=20, lr=0.03, mixing=5, with_pgrads=True, packed=False), gen_c),
+        # the gradient slice read-modify-written through L2
+        ("mse bernoulli unpacked T60 mixing20 pgrads", MSE, BATCH,
+         dict(T=60, lr=0.03, mixing=20, with_pgrads=True, packed=False), gen_c),
     ]
-    for name, dims, B, kw in cases:
-        params, latents, target = random_case(dims, B)
+    for name, dims, B, kw, *generator in cases:
+        params, latents, target = random_case(dims, B, *generator)
         if kw.get("loss") == "gaussian":
             target = 2.0 * target - 1.0
         got = chain.mcpc_chain(params, latents, target, SEED, **kw)
@@ -617,8 +643,7 @@ def main() -> int:
         # both f32 versions are measured against
         ref64 = chain.mcpc_chain_reference(*to_double(params, latents, target),
                                            SEED, **kw)
-        mapping = (plan_text(dims, B, kw) if kw.get("packed", True)
-                   else f"rows/block={chain.unpacked_rows(dims, dev)}")
+        mapping = plan_text(dims, B, kw)
         dx, dx64, p_dx64 = (max_abs(got[0], ref[0]), max_abs(got[0], ref64[0]),
                             max_abs(ref[0], ref64[0]))
         line = (f"phase 1: {name}: B={B} [{mapping}] max|dx| kernel-plain "
@@ -895,6 +920,16 @@ def main() -> int:
     a_ms, _ = cuda_ms(torch, run_a)
     b_ms, _ = cuda_ms(torch, run_b)
     c_ms, _ = cuda_ms(torch, run_c)
+    # (c) at T=10000 between two timings of (a) in the same call
+    c_long_ms, out_c_long = cuda_ms(torch, lambda: chain.mcpc_chain(
+        params, latents, data, SEED, **CHAIN_C_LONG))
+    a2_ms, _ = cuda_ms(torch, run_a)
+    check(all(bool(torch.isfinite(x).all()) for x in out_c_long[0]),
+          "chain (c) at T=10000 is not finite")
+    print(f"phase 2: chain (c) B={BATCH} T={CHAIN_C_LONG['T']}: kernel {c_long_ms:.3f} ms, "
+          f"{1e3 * c_long_ms / CHAIN_C_LONG['T']:.3f} us/step; chain (a) {a_ms:.3f} and "
+          f"{a2_ms:.3f} ms around it: (c)/(a) {c_long_ms / statistics.mean((a_ms, a2_ms)):.4f}; "
+          f"[{plan_text(FID, BATCH, CHAIN_C)}] {tag}")
 
     # the plain versions take 12-15 s a chain: timed once, without a warm-up
     pa_ms, ref_a = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
@@ -1587,11 +1622,25 @@ def main() -> int:
                 text, failed = one_step_held(name, runs)
             else:
                 text, failed = share_held(name, runs, kw)
-            mapping = (plan_text(FID, B, kw) if kw.get("packed", True)
-                       else f"rows/block={chain.unpacked_rows(FID, dev)}")
-            print(f"phase 6: bf16 {name}: B={B} [{mapping}] rule ({'i' * rule}): {text}")
+            print(f"phase 6: bf16 {name}: B={B} [{plan_text(FID, B, kw)}] rule "
+                  f"({'i' * rule}): {text}")
             bf16_failed += failed
             del runs
+    # the unpacked kernel beyond one tile, and at 10-256-256-784 with its
+    # gradient slice through L2
+    for name, dims, B, kw, rule in (
+        ("unpacked, one step", FID, 1100, dict(one_step, packed=False), 1),
+        ("unpacked at 10-256-256-784, Langevin 150, gradients", MSE, BATCH,
+         dict(T=150, lr=0.01, noise_var=2.0, with_pgrads=True, mixing=50, packed=False), 2),
+    ):
+        p_row, l_row, t_row = random_case(dims, B, gen_c)
+        runs = bf16_runs(p_row, l_row, t_row, kw)
+        text, failed = (one_step_held(name, runs) if rule == 1
+                        else share_held(name, runs, kw))
+        print(f"phase 6: bf16 {name}: B={B} [{plan_text(dims, B, kw)}] rule "
+              f"({'i' * rule}): {text}")
+        bf16_failed += failed
+        del runs
     check(not bf16_failed, "phase 6 " + "; ".join(bf16_failed))
     print(f"phase 6: the holds end at {time.perf_counter() - t_start:.1f} s")
 
@@ -1786,6 +1835,8 @@ def main() -> int:
             "replaces": pallas + ":1013", "launches": launches[1],
             "max_abs_err": dx_c, "ms": c_ms, "plain_ms": pc_ms,
             "bound_ms": bound_c, "bound_by": "operations", "library_ms": None,
+            # at T=10000 beside chain (a) in the same call (phase 2)
+            "ms_T10000": c_long_ms, "chain_a_ms_T10000": [a_ms, a2_ms],
         },
         # the bf16 builds, at chain (a)'s inputs cut to T=1000 and chain (c):
         # bound by operations at the bf16 tensor-core peak, which is what
@@ -1809,6 +1860,7 @@ def main() -> int:
         },
     ]}))
     print(f"chain (a): {plan_text(FID, BATCH, CHAIN_A)} {tag}")
+    print(f"chain (c): {plan_text(FID, BATCH, CHAIN_C)} {tag}")
     print(f"training chain: {plan_text(FID, BATCH, opts)} {tag}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,6 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel source under ``csrc/`` has a plain ``extern "C"`` interface and
+Each kernel source under ``csrc/`` (``mcpc_chain.cu`` and
+``mcpc_chain_unpacked.cu``, which both instantiate the cluster kernel of
+``mcpc_cluster.cuh``) has a plain ``extern "C"`` interface and
 is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  A source is built twice:
 once for f32 products and once with ``-DMCPC_BF16`` for bf16 ones, into a

@@ -1,1074 +1,27 @@
-// Fused whole-chain MCPC posterior inference for Hopper (sm_90a).
+// The packed MCPC chain for Hopper (sm_90a) and the pass that sums its
+// partial gradients.
 //
 // Replaces: the JAX package's ops/pallas_mcpc.py::_make_packed_kernel
-// (launched by mcpc_chain_pallas(packed=True) at its pl.pallas_call), the
-// warm phase (warm_step: Adam MAP steps on the latents), the Langevin phase
-// (step -> eval_grads, box_muller), the final-step scalars (scal_sums) and
-// the Hebbian parameter gradients (accum_pgrads, with_pgrads / warm_pgrads,
-// summed across batch tiles), the per-step scalar slots (emit_scal_slot,
-// scalar_stride), the trajectory captures (capture_stride, the make_async_copy
-// into traj_ref), the masked losses (_loss_mask, mask_k), the Adam-state
-// hand-off (emit_warm_opt_state, warm_init with m_in / v_in / bias0) and the
-// trailing output-PC site (output_pc: sensory_s, the x3 steps, traj3, m3/v3).
-// Activation relu or tanh (act); sensory loss bernoulli, gaussian or none,
-// each optionally masked.
+// (launched by mcpc_chain_pallas(packed=True) at its pl.pallas_call) with
+// every option, and the accumulators it carries across batch tiles
+// (pl.when(tile_i == 0)), here a second pass, sum_partials_kernel.
 //
-// What it computes, per batch row (rows never read each other on this path):
-//
-//   err0 = x0 - b0;  err_l = x_l - (act(x_{l-1}) W_l + b_l);
-//   logits = act(x2) W3 + b3;  S = sigmoid(logits) - y | (logits - y)/var | 0
-//   G = [err0 | err1 | err2] - act'(x) * [err1 W1^T | err2 W2^T | -S W3^T]
-//   act' = relu'(x), or 1 - H^2 from the H = tanh(x) the block holds
-//   warm step:     Adam, optax operation order, bias powers carried in f32
-//   Langevin step: x <- x - lr G + sqrt(lr var) z
-//   sampling step (Langevin t >= mixing, or the last warm step), from the
-//   state BEFORE the update, summed over the batch:
-//     gW1 += -act(x0)^T err1   gW2 += -act(x1)^T err2   gW3 += act(x2)^T S
-//     gb0 += -err0   gb1 += -err1   gb2 += -err2   gb3 += S
-//
-// With an output-PC site the sensory layer is a fourth latent x3 [B, D]
-// with energy 0.5 inv_var3 |x3 - logits|^2 and no loss: S = (logits - x3)
-// inv_var3 (the Gaussian form with y := x3), its energy joins the layers',
-// and x3 takes the same Adam or Langevin step with the gradient -S.
-//
-// The noise z is the counter hash of the JAX package (_fmix32, _mock_bits,
-// _uniforms, _sincos_2pi) evaluated per element at (seed + batch tile,
-// draw, local_row * XW + 128-padded packed column), so this kernel can be
-// held element by element against mcpc_chain_pallas(..., interpret=True).
-// Step pair p reads draws 2p and 2p+1; step 2p takes r*cos, step 2p+1 r*sin.
-// With an output-PC site a pair takes four draws: the latents 4p and 4p+1,
-// x3 4p+2 and 4p+3 at local_row * pD + output column (pD = D padded to 128).
-// A draw depends on the global row and column only, never on which block
-// computes it.
-//
-// Bound on an H100: operations.  One step at width 20-128-128-784 is
-// 4*B*(20*128 + 128*128 + 128*784) FLOP = 122 MFLOP at B=256, so a
-// T=10000 chain is 1.22 TFLOP: 18 ms at the published 67 TFLOP/s f32 of an
-// H100 SXM at 700 W.  Bytes (weights 477 KB, latents and target) are
-// negligible next to that.  Products are f32 FMAs on the CUDA cores: no
-// TF32, no tensor cores, no --use_fast_math (tanhf, logf, log1pf, expf and
-// sqrtf stay IEEE).
-//
-// Design.  The chain is thousands of small dependent steps, so what it needs
-// from the card is every SM at work and no trip to L2 inside a step.
-//  * A thread-block cluster of CS = 8 blocks (the portable maximum) runs the
-//    WHOLE chain (warm_T + T steps) for R batch rows in one launch.  An H100
-//    SXM runs 15 such clusters at once (its 132 SMs come in groups, and one
-//    group holds fewer than 16), so the wrapper's plan gives a cluster
-//    R = 18 rows at B=256: 15 clusters, 120 SMs, one wave (and 10, 4 or 2
-//    rows at smaller batches: MCPC_CLUSTER_ROWS).  Clusters never talk to
-//    each other.
-//  * The cluster's blocks split every layer by OUTPUT column: block k owns
-//    the contiguous slice k of x0, x1, x2 and of the D output columns (the
-//    plan cuts the slices and passes their bounds, ChainArgs::lo), and
-//    keeps W_l[:, slice k] of every layer in its shared memory for the whole
-//    chain (119,296 floats / 8 at 20-128-128-784: 66 KB with the padding of
-//    slice_stride; 146 KB at 10-256-256-784).  Weights are read from device
-//    memory once, in the prologue.
-//  * Every block holds the full act(X) of the cluster's rows, H [n][rows],
-//    feature-major.  Forward is one phase with no exchange: block k computes
-//    err_l[:, slice k] and S[:, slice k] of all layers from H and its own
-//    weights.
-//  * Backward: err_{l+1} W_{l+1}^T splits over the out-columns.  Block k
-//    computes the partial sum over its own columns for ALL latent columns
-//    and writes it into the shared memory of the block that owns each latent
-//    column (distributed shared memory, map_shared_rank).  After a cluster
-//    barrier the owner adds the 8 partials in rank order (a fixed order: two
-//    runs give the same bits), takes the Adam or Langevin step on its own
-//    columns of X (the Box-Muller work and the Adam moments split 8 ways
-//    too) and writes its slice of the new act(X) into every block's H.  A
-//    second cluster barrier ends the step.  Per step: two cluster barriers
-//    and one __syncthreads (between forward and backward).
-//  * A cluster barrier costs over a thousand clocks (its release is a
-//    device-wide fence), and the noise needs no memory: each barrier is split
-//    into arrive and wait, and the step's normals are drawn in between.
-//  * Both products are bound by the 128 bytes a clock that go from shared
-//    memory to registers, not by the FMA pipe, so a thread keeps a register
-//    tile of 4 columns x half of the rows, and 4 lanes share a tile and split
-//    its k ("products" below).
-//  * Every block of a cluster reaches every barrier: pad rows (beyond B)
-//    evolve like real rows and are skipped only in sums and stores.
-//
-// Parameter gradients.  gW_l[:, slice k] = H_{l-1}^T err_l[:, slice k] needs
-// the full H and the block's own error slice, both already in the block: no
-// exchange, no atomics, and each block owns a fixed slice of its cluster's
-// partial [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3].  Where it fits (the
-// wrapper's plan decides; it does at 20-128-128-784) the slice stays in
-// shared memory for the whole chain and is written once at the end;
-// otherwise each thread read-modify-writes its own elements of the partial
-// in device memory.  A second kernel, sum_partials_kernel, adds the
-// clusters' partials in cluster order.  Rows that only pad the last cluster
-// are skipped in every sum.
-//
-// Options.  Each is a branch on a ChainArgs field (a null pointer or 0 means
-// off).  Every option also sits behind a template flag, OPT, and the launch
-// picks the instantiation, so a chain that uses none runs the kernel without
-// their code.  With runtime branches only, ptxas showed no spill and about
-// the same registers, yet such chains ran 5-6% slower (B=256, T=10000:
-// 122.6-123.5 against 116.5-116.6 ms in one chip_smoke.py call on an NVIDIA
-// H100 80GB HBM3 at 700 W); with the step loop's options behind the flag and
-// the Adam state's loads and stores still runtime branches, 1-3% slower
-// (119.2-120.3 against 117.5-118.4 ms, another call; the forward pass took 4%
-// more SM clocks).  Code that never runs still costs.
-//  * Captures: at every step of the captured phase (the Langevin phase, or
-//    the warm phase when T == 0) with t % cap_stride == 0, before the update,
-//    each block stores its own columns of X for its valid rows into
-//    traj[t / cap_stride][row][padded column], the JAX layout; the wrapper
-//    zeroes the pad lanes.  X is stable there (the last barrier of the step
-//    before has passed, and this block writes X only after the next one).
-//  * Per-step scalars: on a slot step (t % scal_stride == 0 in the same
-//    phase) and on the last step, every block sums the loss and energy of its
-//    own columns and valid rows in double, warps by shuffle, then thread 0
-//    over the warps in order, behind the __syncthreads that already ends the
-//    forward pass; it writes the pair to slots[block][slot].  The wrapper adds
-//    the blocks in block order (sum_partials_kernel<double>): no atomics.
-//  * Masked losses: the owner of output column j zeroes S and the loss term
-//    unless j >= mask_lo (D - mask_k, or 0 for "all columns").
-//  * Adam state: with m_in / v_in the prologue loads the own columns'
-//    moments instead of zeros, and the bias powers start at (b1p0, b2p0),
-//    computed by the host; with m_out / v_out the epilogue stores them.
-//  * Output-PC site (x3 not null): the owner of output column j keeps x3[:, j]
-//    (and in the warm phase its Adam moments) in shared memory beside its
-//    S.  Nothing else reads them, so its update needs no exchange: it runs
-//    between the arrive and the wait of the step's first cluster barrier,
-//    from the S of this step, as the latents' noise does.  Captures go to
-//    traj3 [n_cap, B, pD], the moments to m3 / v3 [B, pD], pad lanes zeroed
-//    by the wrapper; the loss is "none" and no mask applies.
-//  Every block reaches every barrier as before: none of these adds a
-//  barrier or a rank-dependent exit, and pad rows are skipped in stores.
-//
-// Activation.  A template argument, ACT, picks relu or tanh, so a
-// relu chain runs the code it ran before tanh existed.  tanh is tanhf, and
-// its derivative 1 - H^2 is taken from the H = tanh(x) every block holds.
-//
-// bf16 products (the JAX kernel's bf16_matmul).  A fourth template argument,
-// BF16, which only the library built with -DMCPC_BF16 instantiates (it sets
-// kBF16, mcpc_common.cuh): the f32 library carries none of its code, and
-// the two build side by side.  Every product takes bf16 operands, rounded to
-// nearest even, and sums in f32, as the JAX kernel's mm / mmT:
-//  * the weights are rounded once by the wrapper, so the slices in shared
-//    memory, the layout and the plan are the f32 kernel's;
-//  * H holds act(x) rounded (the prologue and the owner's write into every
-//    block's H), which is what the forward and Hebbian products read;
-//  * the backward products round err1, err2 and S as they read them, and the
-//    Hebbian products round err_l and S into their register tiles;
-//  * act' is taken from the unrounded x: 1 - tanh(x)^2 is recomputed by the
-//    owner from its own x, since the H it holds is rounded;
-//  * errors, S, the bias gradients, the scalars, the Adam state, the x3 step
-//    and the noise stay f32.
-// The product of two bf16 values is exact in f32, so the FMAs differ from a
-// bf16 matrix unit only in the order of the sums.  The products still run on
-// the CUDA cores (tensor cores and bf16 slices in shared memory are later
-// work), so a bf16 chain costs what an f32 one does plus the roundings.
+// The chain kernel is the cluster kernel of mcpc_cluster.cuh (what it
+// computes, its bound on an H100, its design and its options are described
+// there), instantiated with the packed noise indexing for every row count of
+// MCPC_CLUSTER_ROWS, with and without the options' code (OPT), relu and tanh
+// (ACT): 16 kernels a library, f32 products here and bf16 ones in the build
+// with -DMCPC_BF16.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "mcpc_common.cuh"
+#include "mcpc_cluster.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace mcpc;
-
-constexpr int CS = 8;             // blocks a cluster
-
-// Rows a cluster for which the kernel is built (CLUSTER_ROWS of the wrapper,
-// whose plan picks among them): each is four instantiations (with and
-// without the options, relu and tanh) of 200 to 255 registers a thread, so
-// the list is kept to what the plan's rule needs.
-#define MCPC_CLUSTER_ROWS(X) X(18) X(10) X(4) X(2)
-constexpr int PG_ROWS = 16;       // rows of gW one gradient job covers
-constexpr int ACT_RELU = 0, ACT_TANH = 1;   // the activation, a template argument
-
-// With ChainArgs::clocks, thread 0 of every block adds up the SM clocks it
-// spends in each part of a step, waits at the barriers included: forward up
-// to its barrier, gradient jobs, backward jobs, the wait for the peers'
-// partials, the update, the wait for the peers' new act(x).
-constexpr int N_PHASE = 6;
-
-struct ChainArgs {
-  const float* x0; const float* x1; const float* x2;   // [B, d_l]
-  float* o0; float* o1; float* o2;                     // [B, d_l]
-  const float* y;                                      // [B, D]
-  const float* b0; const float* b1; const float* b2; const float* b3;
-  const float* w1; const float* w2; const float* w3;   // [in, out]
-  double* scal;                                        // [n_blocks, 2]
-  float* partials;                                     // [n_clusters, partial_floats] or null
-  long long* clocks;                                   // [n_blocks, N_PHASE] or null
-  int B, d0, d1, d2, D;
-  int T, warm_T, loss, want_scalars;                   // loss: 0 none, 1 bernoulli, 2 gaussian
-  int mixing, pg_warm;         // with partials: sample Langevin steps t >= mixing,
-                               // and with pg_warm the last warm step
-  int grads_resident;          // the block's gradient slice lives in shared memory
-  float inv_var, lr, noise_std;
-  float warm_lr, wb1, wb2, one_m_b1, one_m_b2, weps;
-  int seed, tile_B, XW, O1, O2;                        // noise indexing
-  int lo[4][CS + 1];           // the plan's slices of x0, x1, x2 and the output:
-                               // rank k owns columns [lo[l][k], lo[l][k + 1])
-  // options (see the header); aligned [B, XW] arrays are laid out as the
-  // JAX package's packed latents, column c of latent l at O_l + c
-  const float* m_in; const float* v_in;                // [B, XW] or null
-  float* m_out; float* v_out;                          // [B, XW] or null
-  float* traj;                                         // [n_cap, B, XW] or null
-  double* slots;                                       // [n_blocks, n_slots, 2] or null
-  int cap_stride, scal_stride, n_slots;
-  int mask_lo;                 // output columns below it are not clamped
-  float b1p0, b2p0;            // bias-correction powers of the first warm step
-  // output-PC site: x3 in, o3 out ([B, D]); pD-wide [B, pD] arrays, as the
-  // JAX package's: the moments in and out, and the captures [n_cap, B, pD]
-  const float* x3; float* o3;
-  const float* m3_in; const float* v3_in; float* m3_out; float* v3_out;
-  float* traj3;
-  int pD;
-};
-
-// ------------------------------------------------------------- slices
-//
-// The wrapper's plan cuts a layer of d columns into CS contiguous slices, as
-// even as possible, and passes their bounds (ChainArgs::lo).  A layer
-// narrower than the cluster leaves the last ranks an empty slice.  No slice
-// is wider than ceil(d / CS), which sizes the shared memory.
-
-__host__ __device__ inline int widest_slice(int d) { return (d + CS - 1) / CS; }
-
-// Row stride, in words, of a weight slice of `width` columns: the least
-// 8 * odd that holds it.  In the forward product a warp reads 4 rows
-// k..k+3 at 8 neighbouring columns each: with rows 8 * odd words apart the
-// 32 words lie in 32 different banks.  The backward product reads 8 rows at
-// 4 neighbouring words each, two rows to a bank.
-__host__ __device__ inline int slice_stride(int width) {
-  const int m = (width + 7) / 8;
-  return 8 * (m | 1);
-}
-
-// The R = 2 * RG rows of a cluster within one feature of a [..][rows] array.
-// A job reads one half of the rows (RG of them): the first RG / 4 * 4 as
-// float4, the rest one by one.  So that the float4s are aligned, a feature
-// holds the float4 parts of both halves first, then the leftovers of both,
-// and its pitch is a multiple of 4 words (18 rows: 8 + 8 + 1 + 1, pitch 20).
-__host__ __device__ constexpr int row_pitch(int R) {
-  return R / 2 / 4 > 0 ? (R + 3) / 4 * 4 : R;
-}
-
-template <int RG>
-struct Rows {
-  static constexpr int R = 2 * RG;
-  static constexpr int MAIN = RG / 4 * 4;   // rows of a half read as float4
-  static constexpr int REST = RG - MAIN;
-  static constexpr int PITCH = row_pitch(R);
-  // where row `lr` of half `g` lies
-  __device__ static constexpr int pos(int g, int lr) {
-    return lr < MAIN ? g * MAIN + lr : 2 * MAIN + g * REST + lr - MAIN;
-  }
-  __device__ static constexpr int pos(int row) { return pos(row / RG, row % RG); }
-  // the row that lies at position p < R
-  __device__ static constexpr int row_at(int p) {
-    constexpr int M1 = MAIN > 0 ? MAIN : 1, R1 = REST > 0 ? REST : 1;   // no x / 0
-    return p < 2 * MAIN ? p / M1 * RG + p % M1
-                        : (p - 2 * MAIN) / R1 * RG + MAIN + (p - 2 * MAIN) % R1;
-  }
-};
-
-// Shared memory of one block, in floats.  Every block of a cluster uses the
-// same offsets (sized by the widest slice), so an offset means the same
-// place in a peer's shared memory.
-struct Layout {
-  int N0, N1, N2, ND;      // widest slice of x0, x1, x2 and the output
-  int J1, J2, OWN;         // where the x1 and x2 slices start among a block's
-                           // own latent columns, and how many those are
-  int LD1, LD2, LD3;       // row strides of the weight slices (8 * odd)
-  size_t H, X, E, S, P, M, V;   // [..][row_pitch(R)] arrays
-  size_t X3, M3, V3;            // the same: an output-PC site's own columns, moments
-  size_t W1, W2, W3, BI;        // weight slices, own biases [OWN + ND]
-  size_t OT;                    // owner and own-column index of every latent column [n]
-  size_t G1, G2, G3, GB;        // gradient slices, own bias gradients
-  size_t total;
-};
-
-// grads: 0 none, 1 bias gradients only (weights' in device memory), 2 all;
-// outpc: an output-PC site
-__host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
-                                              int R, int warm, int grads, int outpc) {
-  Layout L;
-  L.N0 = widest_slice(d0); L.N1 = widest_slice(d1);
-  L.N2 = widest_slice(d2); L.ND = widest_slice(D);
-  L.J1 = L.N0; L.J2 = L.N0 + L.N1; L.OWN = L.N0 + L.N1 + L.N2;
-  L.LD1 = slice_stride(L.N1); L.LD2 = slice_stride(L.N2); L.LD3 = slice_stride(L.ND);
-  const size_t n = (size_t)d0 + d1 + d2;
-  const size_t RP = row_pitch(R);
-  size_t o = 0;
-  L.H = o; o += n * RP;
-  L.X = o; o += (size_t)L.OWN * RP;
-  L.E = o; o += (size_t)L.OWN * RP;
-  L.S = o; o += (size_t)L.ND * RP;
-  L.P = o; o += (size_t)CS * L.OWN * RP;
-  L.M = o; o += warm ? (size_t)L.OWN * RP : 0;
-  L.V = o; o += warm ? (size_t)L.OWN * RP : 0;
-  // with the other [..][RP] arrays, whose sizes keep them 16-byte aligned
-  L.X3 = o; o += outpc ? (size_t)L.ND * RP : 0;
-  L.M3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
-  L.V3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
-  L.W1 = o; o += (size_t)d0 * L.LD1;
-  L.W2 = o; o += (size_t)d1 * L.LD2;
-  L.W3 = o; o += (size_t)d2 * L.LD3;
-  L.BI = o; o += (size_t)L.OWN + L.ND;
-  L.OT = o; o += n;
-  L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
-  L.G2 = o; o += grads == 2 ? (size_t)d1 * L.LD2 : 0;
-  L.G3 = o; o += grads == 2 ? (size_t)d2 * L.LD3 : 0;
-  L.GB = o; o += grads != 0 ? (size_t)L.OWN + L.ND : 0;
-  L.total = o;
-  return L;
-}
-
-// Standard normal of Langevin step t at element index idx: Box-Muller over
-// draws DP*p + off and the next of pair p = t/2 (DP draws a pair: 2, or 4
-// with an output-PC site, whose x3 takes off = 2); even steps take the cos
-// branch, odd the sin.
-__device__ __forceinline__ float langevin_normal(uint32_t seed, int t, uint32_t idx,
-                                                 uint32_t dp = 2u, uint32_t off = 0u) {
-  return box_muller(seed, (uint32_t)(t >> 1) * dp + off, idx, (t & 1) != 0);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float x) {
-  if constexpr (ACT == ACT_TANH) return tanhf(x);
-  else return fmaxf(x, 0.f);
-}
-
-// The two halves of a cluster barrier.  Writes made before the arrive (a
-// peer's shared memory included) are visible to every thread of the cluster
-// after its wait; what lies between touches registers only.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// ------------------------------------------------------------ products
-//
-// Both products of a step are small matrix products out[col][row] =
-// sum_k A[k][row] * W(k, col) whose operands lie in shared memory.  What
-// bounds them is the 128 bytes a clock that an SM can move from shared
-// memory into registers, so a thread keeps a register tile: a QUAD of 4
-// columns (col = q + u * NQ, u < 4, a stride of NQ apart so that neighbouring
-// lanes read neighbouring words) times RG rows, 13 loads for 36 FMAs at 9
-// rows.  To give all 8 warps work although a block has few columns, KSPLIT
-// lanes of a warp share one quad and take every KSPLIT-th k; a shuffle
-// butterfly adds their sums in a fixed order and leaves lane part u with the
-// total of column u.  Lane = quad within the warp + QUADS * part.
-
-constexpr int KSPLIT = 4;           // lanes that share a quad
-constexpr int QUADS = 32 / KSPLIT;  // quads a warp takes at once
-
-// v = the rows of half g of the feature at `feature`
-template <int RG>
-__device__ __forceinline__ void load_rows(float (&v)[RG], const float* feature, int g) {
-  using RW = Rows<RG>;
-#pragma unroll
-  for (int i = 0; i < RW::MAIN / 4; ++i) {
-    const float4 x = reinterpret_cast<const float4*>(feature + g * RW::MAIN)[i];
-    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
-  }
-#pragma unroll
-  for (int r = RW::MAIN; r < RG; ++r) v[r] = feature[RW::pos(g, r)];
-}
-
-// the rows of half g of the feature at `feature` = v (it may lie in a
-// peer's shared memory)
-template <int RG>
-__device__ __forceinline__ void store_rows(float* feature, int g, const float (&v)[RG]) {
-  using RW = Rows<RG>;
-#pragma unroll
-  for (int i = 0; i < RW::MAIN / 4; ++i)
-    reinterpret_cast<float4*>(feature + g * RW::MAIN)[i] =
-        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-#pragma unroll
-  for (int r = RW::MAIN; r < RG; ++r) feature[RW::pos(g, r)] = v[r];
-}
-
-// v[p] = what lies at position p of the feature, all R rows
-template <int RG>
-__device__ __forceinline__ void load_feature(float (&v)[2 * RG], const float* feature) {
-  using RW = Rows<RG>;
-#pragma unroll
-  for (int i = 0; i < 2 * RW::MAIN / 4; ++i) {
-    const float4 x = reinterpret_cast<const float4*>(feature)[i];
-    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
-  }
-#pragma unroll
-  for (int p = 2 * RW::MAIN; p < 2 * RG; ++p) v[p] = feature[p];
-}
-
-// acc[u][r] += sum over k = part, part + KSPLIT, ... < K of
-//              A[k][row r of half g] * W[k * ldk + off[u]]
-// with ROUND, each A value rounded to bf16 as it is read
-template <int RG, bool ROUND = false>
-__device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, int g,
-                                         const float* W, int ldk, const int (&off)[4],
-                                         int part, int K) {
-#pragma unroll 4
-  for (int k = part; k < K; k += KSPLIT) {
-    float av[RG], w[4];
-    load_rows<RG>(av, A + k * Rows<RG>::PITCH, g);
-    if constexpr (ROUND) {
-#pragma unroll
-      for (int r = 0; r < RG; ++r) av[r] = operand<true>(av[r]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = W[k * ldk + off[u]];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int r = 0; r < RG; ++r) acc[u][r] = fmaf(av[r], w[u], acc[u][r]);
-  }
-}
-
-// Adds the KSPLIT lanes' sums of one quad.  Afterwards out[] of the lane
-// with part u holds the total of column u of its quad.  Every lane of the
-// warp must call it.
-template <int RG>
-__device__ __forceinline__ void quad_reduce(float (&out)[RG], const float (&acc)[4][RG],
-                                            int lane) {
-  static_assert(KSPLIT == 4, "lane bits 16 and 8 are the part and pick the column");
-  const bool hi = (lane & 16) != 0, mid = (lane & 8) != 0;
-  float half[2][RG];
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-      half[u][r] = (hi ? acc[u + 2][r] : acc[u][r]) +
-                   __shfl_xor_sync(0xffffffffu, hi ? acc[u][r] : acc[u + 2][r], 16);
-#pragma unroll
-  for (int r = 0; r < RG; ++r) {
-    out[r] = (mid ? half[1][r] : half[0][r]) +
-             __shfl_xor_sync(0xffffffffu, mid ? half[0][r] : half[1][r], 8);
-  }
-}
-
-constexpr int NOISE_SLOTS = 4; // own elements a thread draws noise for ahead
-constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
-
-// -------------------------------------------------------------- kernel
-
-// OPT: the instantiation that takes the options (captures, scalar slots,
-// masks, Adam state, the output-PC site; see "Options" in the header);
-// without it the kernel carries none of their code.  ACT: relu or tanh.
-// BF16: the products take bf16 operands (see "bf16 products" in the header).
-template <int RG, bool OPT, int ACT, bool BF16>
-__global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
-  using RW = Rows<RG>;
-  constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
-  constexpr int RP = RW::PITCH;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ double red[2][NWARP];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int row0 = (int)(blockIdx.x / CS) * R;   // first row of this cluster
-  const int nvalid = min(R, a.B - row0);         // its rows inside the batch
-
-  const int d0 = a.d0, d1 = a.d1, d2 = a.d2, D = a.D;
-  const int n = d0 + d1 + d2;        // packed latent width (unpadded)
-  const int c1 = d0, c2 = d0 + d1;   // packed columns where x1 and x2 start
-  const bool with_pg = a.partials != nullptr;
-  const bool out_pc = OPT && a.x3 != nullptr;   // an output-PC site
-  const Layout L = make_layout(d0, d1, d2, D, R, a.warm_T > 0,
-                               with_pg ? (a.grads_resident ? 2 : 1) : 0, out_pc);
-  float* H = smem + L.H;     // [n][RP] act(latents), all columns (BF16: rounded)
-  float* X = smem + L.X;     // [OWN][RP] own latent columns
-  float* E = smem + L.E;     // [OWN][RP] their errors
-  float* S = smem + L.S;     // [ND][RP] dLoss/dlogits of the own output columns
-  float* P = smem + L.P;     // [CS][OWN][RP] the ranks' partial backward products
-  float* M = smem + L.M;     // [OWN][RP] Adam moments (warm only)
-  float* V = smem + L.V;
-  float* W1 = smem + L.W1;   // [d0][LD1] W1[:, own x1 columns]
-  float* W2 = smem + L.W2;   // [d1][LD2] W2[:, own x2 columns]
-  float* W3 = smem + L.W3;   // [d2][LD3] W3[:, own output columns]
-  float* BI = smem + L.BI;   // own b0 | b1 | b2 (at 0, J1, J2) | b3 (at OWN)
-  float* GB = smem + L.GB;   // own bias gradients, laid out as BI
-  int* OT = reinterpret_cast<int*>(smem + L.OT);   // [n] owner << 16 | own-column index
-  float* X3 = smem + L.X3;   // [ND][RP] own columns of x3 (output-PC site)
-  float* M3 = smem + L.M3;   // [ND][RP] their Adam moments (warm only)
-  float* V3 = smem + L.V3;
-
-  // own slices: first column and width, per layer
-  const int lo0 = a.lo[0][rank], n0 = a.lo[0][rank + 1] - lo0;
-  const int lo1 = a.lo[1][rank], n1 = a.lo[1][rank + 1] - lo1;
-  const int lo2 = a.lo[2][rank], n2 = a.lo[2][rank + 1] - lo2;
-  const int loD = a.lo[3][rank], nD = a.lo[3][rank + 1] - loD;
-
-  // dst[row][padded column] = src[own column][row] for the own columns and
-  // valid rows; dst is an aligned [B, XW] array
-  auto store_own = [&](float* dst, const float* src) {
-    for (int e = tid; e < L.OWN * R; e += NT) {
-      const int r = e / L.OWN, j = e - r * L.OWN;
-      const int row = row0 + r;
-      if (row >= a.B) continue;
-      int pc;
-      if (j < L.J1) { if (j >= n0) continue; pc = lo0 + j; }
-      else if (j < L.J2) { if (j - L.J1 >= n1) continue; pc = a.O1 + lo1 + j - L.J1; }
-      else { if (j - L.J2 >= n2) continue; pc = a.O2 + lo2 + j - L.J2; }
-      dst[(size_t)row * a.XW + pc] = src[j * RP + RW::pos(r)];
-    }
-  };
-  // dst[row][loD + j] = src[j][row] for the own output columns and valid
-  // rows; dst has rows of `ld` floats
-  auto store_out = [&](float* dst, int ld, const float* src) {
-    for (int e = tid; e < nD * R; e += NT) {
-      const int r = e / nD, j = e - r * nD;
-      const int row = row0 + r;
-      if (row < a.B) dst[(size_t)row * ld + loD + j] = src[j * RP + RW::pos(r)];
-    }
-  };
-
-  // own gradient slices: in shared memory (laid out as the weights) or in
-  // this cluster's partial in device memory
-  PartialLayout pg = {};
-  float* G1 = nullptr; float* G2 = nullptr; float* G3 = nullptr;
-  int ldg1 = 0, ldg2 = 0, ldg3 = 0;
-  if (with_pg) {
-    pg = partial_layout(a.partials + (size_t)(blockIdx.x / CS) *
-                                         partial_floats(d0, d1, d2, D),
-                        d0, d1, d2, D);
-    if (a.grads_resident) {
-      G1 = smem + L.G1; ldg1 = L.LD1;
-      G2 = smem + L.G2; ldg2 = L.LD2;
-      G3 = smem + L.G3; ldg3 = L.LD3;
-    } else {
-      G1 = pg.gw1 + lo1; ldg1 = d1;
-      G2 = pg.gw2 + lo2; ldg2 = d2;
-      G3 = pg.gw3 + loD; ldg3 = D;
-    }
-  }
-
-  // ---- prologue: state, weights and biases into shared memory
-  for (int e = tid; e < R * n; e += NT) {
-    const int r = e / n, c = e - r * n;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < a.B) {
-      if (c < c1) x = a.x0[(size_t)row * d0 + c];
-      else if (c < c2) x = a.x1[(size_t)row * d1 + (c - c1)];
-      else x = a.x2[(size_t)row * d2 + (c - c2)];
-    }
-    H[c * RP + RW::pos(r)] = operand<BF16>(activate<ACT>(x));
-    int j = -1;   // own column?
-    if (c < c1) { if (c >= lo0 && c < lo0 + n0) j = c - lo0; }
-    else if (c < c2) { if (c - c1 >= lo1 && c - c1 < lo1 + n1) j = L.J1 + c - c1 - lo1; }
-    else if (c - c2 >= lo2 && c - c2 < lo2 + n2) j = L.J2 + c - c2 - lo2;
-    if (j >= 0) {
-      X[j * RP + RW::pos(r)] = x;
-      if (a.warm_T > 0) {
-        // a continuation resumes the moments of the caller's optimizer
-        const bool resume = OPT && a.m_in != nullptr && row < a.B;
-        const size_t at = (size_t)row * a.XW +
-                          (c < c1 ? c : c < c2 ? a.O1 + c - c1 : a.O2 + c - c2);
-        M[j * RP + RW::pos(r)] = resume ? a.m_in[at] : 0.f;
-        V[j * RP + RW::pos(r)] = resume ? a.v_in[at] : 0.f;
-      }
-    }
-  }
-  auto load_slice = [&](float* dst, int ld, const float* w, int K, int N, int lo, int nk) {
-    for (int e = tid; e < K * nk; e += NT) {
-      const int k = e / nk, c = e - k * nk;
-      dst[k * ld + c] = w[(size_t)k * N + lo + c];
-    }
-  };
-  load_slice(W1, L.LD1, a.w1, d0, d1, lo1, n1);
-  load_slice(W2, L.LD2, a.w2, d1, d2, lo2, n2);
-  load_slice(W3, L.LD3, a.w3, d2, D, loD, nD);
-  for (int c = tid; c < n; c += NT) {
-    const int layer = c < c1 ? 0 : c < c2 ? 1 : 2;
-    const int col = c < c1 ? c : c < c2 ? c - c1 : c - c2;
-    int owner = 0;   // the rank whose slice holds col
-    while (col >= a.lo[layer][owner + 1]) ++owner;
-    OT[c] = owner << 16 |
-            ((layer == 0 ? 0 : layer == 1 ? L.J1 : L.J2) + col - a.lo[layer][owner]);
-  }
-  if (out_pc) {   // the own columns of x3 and, warm, their moments
-    for (int e = tid; e < R * nD; e += NT) {
-      const int r = e / nD, j = e - r * nD;
-      const int row = row0 + r;
-      const bool valid = row < a.B;
-      X3[j * RP + RW::pos(r)] = valid ? a.x3[(size_t)row * D + loD + j] : 0.f;
-      if (a.warm_T > 0) {
-        const bool resume = a.m3_in != nullptr && valid;
-        const size_t at = (size_t)row * a.pD + loD + j;
-        M3[j * RP + RW::pos(r)] = resume ? a.m3_in[at] : 0.f;
-        V3[j * RP + RW::pos(r)] = resume ? a.v3_in[at] : 0.f;
-      }
-    }
-  }
-  for (int c = tid; c < n0; c += NT) BI[c] = a.b0[lo0 + c];
-  for (int c = tid; c < n1; c += NT) BI[L.J1 + c] = a.b1[lo1 + c];
-  for (int c = tid; c < n2; c += NT) BI[L.J2 + c] = a.b2[lo2 + c];
-  for (int c = tid; c < nD; c += NT) BI[L.OWN + c] = a.b3[loD + c];
-  if (with_pg) {
-    for (int e = tid; e < L.OWN + L.ND; e += NT) GB[e] = 0.f;
-    auto zero_slice = [&](float* g, int ldg, int K, int nk) {
-      for (int e = tid; e < K * nk; e += NT) {
-        const int k = e / nk, c = e - k * nk;
-        g[(size_t)k * ldg + c] = 0.f;
-      }
-    };
-    zero_slice(G1, ldg1, d0, n1);
-    zero_slice(G2, ldg2, d1, n2);
-    zero_slice(G3, ldg3, d2, nD);
-  }
-  // every block of the cluster is running before a peer writes into it
-  cluster.sync();
-
-  long long spent[N_PHASE] = {0, 0, 0, 0, 0, 0};
-  long long last = clock64();
-  auto lap = [&](int phase) {
-    if (a.clocks != nullptr && tid == 0) {
-      const long long now = clock64();
-      spent[phase] += now - last;
-      last = now;
-    }
-  };
-
-  const bool has_s = a.loss != 0 || out_pc;
-  const int total = a.warm_T + a.T;
-  float b1p = a.b1p0, b2p = a.b2p0;   // Adam bias-correction powers
-  double loss_acc = 0.0, en_acc = 0.0;
-  // the threads' sums by shuffle within each warp, into red[][warp]
-  auto block_sums = [&](double l, double en) {
-    for (int off = 16; off > 0; off >>= 1) {
-      l += __shfl_down_sync(0xffffffffu, l, off);
-      en += __shfl_down_sync(0xffffffffu, en, off);
-    }
-    if (lane == 0) {
-      red[0][tid >> 5] = l;
-      red[1][tid >> 5] = en;
-    }
-  };
-
-  // forward quads, the long sums first: S (K = d2), err2 (K = d1), err1
-  // (K = d0); an item is a quad and one half of the rows
-  const int nS = has_s ? nD : 0;
-  const int fq0 = (nS + 3) / 4, fq1 = fq0 + (n2 + 3) / 4, fq2 = fq1 + (n1 + 3) / 4;
-  const int fwd_jobs = (2 * fq2 * KSPLIT + 31) & ~31;
-  // backward quads: the x2 columns (sum over the own output columns), then
-  // x1 (over the own x2 columns), then x0 (over the own x1 columns)
-  const int bq0 = has_s ? (d2 + 3) / 4 : 0, bq1 = bq0 + (d1 + 3) / 4;
-  const int bq2 = bq1 + (d0 + 3) / 4;
-  const int bwd_jobs = (2 * bq2 * KSPLIT + 31) & ~31;
-  // gradient jobs: a quad of columns and PG_ROWS rows of gW3, gW2, gW1
-  const int h1 = fq0 * ((d2 + PG_ROWS - 1) / PG_ROWS);
-  const int h2 = h1 + (fq1 - fq0) * ((d1 + PG_ROWS - 1) / PG_ROWS);
-  const int h3 = h2 + (fq2 - fq1) * ((d0 + PG_ROWS - 1) / PG_ROWS);
-
-  // the own element (column j of X, position r within it) of update slot p,
-  // or j = -1
-  auto own_element = [&](int p, int& j, int& r, int& layer, int& col) {
-    const int e = tid + p * NT;
-    j = -1;
-    if (e >= L.OWN * R) return;
-    const int jj = e / R;
-    r = e - jj * R;
-    if (jj < L.J1) { layer = 0; col = jj; if (col >= n0) return; col += lo0; }
-    else if (jj < L.J2) { layer = 1; col = jj - L.J1; if (col >= n1) return; col += lo1; }
-    else { layer = 2; col = jj - L.J2; if (col >= n2) return; col += lo2; }
-    j = jj;
-  };
-  const uint32_t dp = out_pc ? 4u : 2u;   // draws a step pair
-  auto noise = [&](int t, int r, int layer, int col) {
-    const int row = row0 + RW::row_at(r);
-    const uint32_t pc = (uint32_t)((layer == 0 ? 0 : layer == 1 ? a.O1 : a.O2) + col);
-    return langevin_normal((uint32_t)a.seed + (uint32_t)(row / a.tile_B), t,
-                           (uint32_t)(row % a.tile_B) * (uint32_t)a.XW + pc, dp);
-  };
-  const int slots = (L.OWN * R + NT - 1) / NT;
-  // The noise of a step touches registers only, so it is drawn while the
-  // cluster's barriers complete: slots [0, NOISE_EARLY) behind the barrier
-  // that ends the step before, the rest behind the one in the step.
-  float z[NOISE_SLOTS] = {0.f, 0.f, 0.f, 0.f};
-  auto draw = [&](int t, int p) {
-    int j, r, layer, col;
-    own_element(p, j, r, layer, col);
-    return j >= 0 ? noise(t, r, layer, col) : 0.f;
-  };
-  if (a.noise_std > 0.f && a.warm_T == 0 && a.T > 0) {
-#pragma unroll
-    for (int p = 0; p < NOISE_EARLY; ++p) z[p] = draw(0, p);
-  }
-
-  for (int s = 0; s < total; ++s) {
-    const bool warm = s < a.warm_T;
-    const int t = s - a.warm_T;
-    // the step's index in the phase that captures and emits slots: the
-    // Langevin phase, or the warm phase of a warm-only chain
-    const int cs = a.T > 0 ? t : s;
-    const bool last = s == total - 1;
-    const bool slot_step = OPT && a.slots != nullptr && cs >= 0 && cs % a.scal_stride == 0;
-    const bool sums_now = slot_step || (a.want_scalars && last);
-    const float cw1 = 1.0f - b1p, cw2 = 1.0f - b2p;
-
-    // ---- capture: the pre-update latents of the own columns
-    if constexpr (OPT) {
-      if (a.traj != nullptr && cs >= 0 && cs % a.cap_stride == 0) {
-        store_own(a.traj + (size_t)(cs / a.cap_stride) * a.B * a.XW, X);
-        if (out_pc) store_out(a.traj3 + (size_t)(cs / a.cap_stride) * a.B * a.pD, a.pD, X3);
-      }
-    }
-
-    // ---- forward: the own columns' errors and S, from H and the own weights
-    for (int base = tid - lane; base < fwd_jobs; base += NT) {
-      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
-      const bool live = item < 2 * fq2;
-      const int g = live && item >= fq2 ? 1 : 0, rg = g * RG;
-      const int qq = live ? item - g * fq2 : fq2;
-      const float* A = H; const float* W = W1;
-      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, jbase = 0;
-      if (qq < fq0) { A = H + c2 * RP; W = W3; K = d2; ld = L.LD3; ncols = nS; NQ = fq0; q = qq; jbase = -1; }
-      else if (qq < fq1) { A = H + c1 * RP; W = W2; K = d1; ld = L.LD2; ncols = n2; NQ = fq1 - fq0; q = qq - fq0; jbase = L.J2; }
-      else if (qq < fq2) { K = d0; ld = L.LD1; ncols = n1; NQ = fq2 - fq1; q = qq - fq1; jbase = L.J1; }
-      const int col = q + part * NQ;            // this lane's column after the reduce
-      const bool mine = live && col < ncols;
-      float yv[RG];   // the target, or x3 at an output-PC site
-      if (out_pc && mine && jbase < 0) {
-        load_rows<RG>(yv, X3 + col * RP, g);
-      } else {
-#pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          const int row = row0 + rg + r;
-          yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
-        }
-      }
-      int off[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1);
-      float acc[4][RG];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG>(acc, A, g, W, ld, off, part, K);
-      float out[RG];
-      quad_reduce<RG>(out, acc, lane);
-      if (!mine) continue;
-      if (jbase < 0) {
-        const float bj = BI[L.OWN + col];
-        const bool clamped = !OPT || loD + col >= a.mask_lo;
-#pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          const float lg = out[r] + bj;
-          out[r] = !clamped ? 0.f
-                   : a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
-                                 : (lg - yv[r]) * a.inv_var;
-          if (sums_now && clamped && row0 + rg + r < a.B) {
-            const double l = lg, yd = yv[r];
-            if (out_pc)   // the site's energy; the 0.5 comes with the layers'
-              en_acc += (double)a.inv_var * (l - yd) * (l - yd);
-            else
-              loss_acc += a.loss == 1
-                  ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
-                  : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
-          }
-        }
-        store_rows<RG>(S + col * RP, g, out);
-      } else {
-        const int j = jbase + col;
-        const float bj = BI[j];
-        float xv[RG];
-        load_rows<RG>(xv, X + j * RP, g);
-#pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          out[r] = xv[r] - (out[r] + bj);
-          if (sums_now && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
-        }
-        store_rows<RG>(E + j * RP, g, out);
-      }
-    }
-    for (int e = tid; e < n0 * R; e += NT) {   // err0 = x0 - b0
-      const int j = e / R, r = e - j * R;
-      const float er = X[j * RP + r] - BI[j];
-      E[j * RP + r] = er;
-      if (sums_now && row0 + RW::row_at(r) < a.B) en_acc += (double)er * er;
-    }
-    if (OPT && sums_now) {   // the step's sums: warps by shuffle, then over warps
-      block_sums(loss_acc, en_acc);
-      loss_acc = en_acc = 0.0;
-    }
-    __syncthreads();
-    if (OPT && sums_now && tid == 0) {
-      // red is written again only on a later step, behind two cluster barriers
-      double l = 0.0, en = 0.0;
-      for (int w = 0; w < NWARP; ++w) {
-        l += red[0][w];
-        en += red[1][w];
-      }
-      en *= 0.5;
-      if (a.slots != nullptr) {
-        double* mine = a.slots + (size_t)blockIdx.x * a.n_slots * 2;
-        if (slot_step) {
-          mine[2 * (cs / a.scal_stride)] = l;
-          mine[2 * (cs / a.scal_stride) + 1] = en;
-        }
-        if (last) {
-          mine[2 * (a.n_slots - 1)] = l;
-          mine[2 * (a.n_slots - 1) + 1] = en;
-        }
-      } else {
-        a.scal[2 * blockIdx.x] = l;
-        a.scal[2 * blockIdx.x + 1] = en;
-      }
-    }
-    lap(0);
-
-    // ---- sampling step: Hebbian gradients of the own columns from H, E and
-    // S of the state before the update.  Nothing below writes H, E or S
-    // before the next cluster barrier, so no barrier is needed after it.
-    if (with_pg && (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
-      for (int job = tid; job < h3; job += NT) {
-        const float* A; const float* Vc; float* gw;
-        int K, nk, NQ, ldg, jb; float sign;
-        size_t gs;   // where the resident slice starts in shared memory
-        if (job < h1) {
-          A = H + c2 * RP; Vc = S; gw = G3; gs = L.G3; K = d2; nk = nS; NQ = fq0; ldg = ldg3;
-          jb = job; sign = 1.f;
-        } else if (job < h2) {
-          A = H + c1 * RP; Vc = E + L.J2 * RP; gw = G2; gs = L.G2; K = d1; nk = n2;
-          NQ = fq1 - fq0; ldg = ldg2; jb = job - h1; sign = -1.f;
-        } else {
-          A = H; Vc = E + L.J1 * RP; gw = G1; gs = L.G1; K = d0; nk = n1; NQ = fq2 - fq1;
-          ldg = ldg1; jb = job - h2; sign = -1.f;
-        }
-        const int chunk = jb / NQ, q = jb - chunk * NQ;
-        float v[4][R];   // by position; rows beyond the batch and columns beyond the slice 0
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int col = q + u * NQ;
-          load_feature<RG>(v[u], Vc + min(col, nk - 1) * RP);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            v[u][r] = col < nk && RW::row_at(r) < nvalid ? operand<BF16>(sign * v[u][r]) : 0.f;
-        }
-        // gw[k][col] += dot; the resident slice is addressed as shared memory
-        auto add = [&](int k, const float (&dot)[4]) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (q + u * NQ >= nk) continue;
-            const size_t at = (size_t)k * ldg + q + u * NQ;
-            if (a.grads_resident) smem[gs + at] += dot[u];
-            else gw[at] += dot[u];
-          }
-        };
-        const int k1 = min(K, (chunk + 1) * PG_ROWS);
-        for (int k = chunk * PG_ROWS; k < k1; ++k) {
-          float h[R];
-          load_feature<RG>(h, A + k * RP);
-          float dot[4] = {0.f, 0.f, 0.f, 0.f};   // four sums side by side, each in a fixed order
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int u = 0; u < 4; ++u) dot[u] = fmaf(h[r], v[u][r], dot[u]);
-          add(k, dot);
-        }
-      }
-      // bias gradients: -err of the own latent columns, +S of the own outputs
-      for (int j = tid; j < L.OWN + nS; j += NT) {
-        const float* src = j < L.OWN ? E + j * RP : S + (j - L.OWN) * RP;
-        const float sign = j < L.OWN ? -1.f : 1.f;
-        float sum = 0.f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) sum += RW::row_at(r) < nvalid ? sign * src[r] : 0.f;
-        GB[j] += sum;
-      }
-      lap(1);
-    }
-
-    // ---- backward: for every latent column, the partial product over the
-    // own out-columns, written into the owner's P at this block's rank
-    for (int base = tid - lane; base < bwd_jobs; base += NT) {
-      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
-      const bool live = item < 2 * bq2;
-      const int g = live && item >= bq2 ? 1 : 0;
-      const int qq = live ? item - g * bq2 : bq2;
-      const float* A = E; const float* W = W1;
-      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, cbase = 0;
-      if (qq < bq0) { A = S; W = W3; K = nD; ld = L.LD3; ncols = d2; NQ = bq0; q = qq; cbase = c2; }
-      else if (qq < bq1) { A = E + L.J2 * RP; W = W2; K = n2; ld = L.LD2; ncols = d1; NQ = bq1 - bq0; q = qq - bq0; cbase = c1; }
-      else if (qq < bq2) { A = E + L.J1 * RP; K = n1; ld = L.LD1; ncols = d0; NQ = bq2 - bq1; q = qq - bq1; }
-      int off[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1) * ld;
-      float acc[4][RG];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG, BF16>(acc, A, g, W, 1, off, part, K);
-      float out[RG];
-      quad_reduce<RG>(out, acc, lane);
-      const int i = q + part * NQ;   // this lane's column after the reduce
-      if (!live || i >= ncols) continue;
-      const int home = OT[cbase + i];   // owner << 16 | its own-column index
-      store_rows<RG>(cluster.map_shared_rank(P, home >> 16) +
-                         ((size_t)rank * L.OWN + (home & 0xffff)) * RP, g, out);
-    }
-    lap(2);
-    cluster_arrive();
-    const bool noisy = !warm && a.noise_std > 0.f;
-    if (noisy) {
-#pragma unroll
-      for (int p = NOISE_EARLY; p < NOISE_SLOTS; ++p) z[p] = draw(t, p);
-    }
-    if (out_pc) {
-      // the own columns of x3 take their step, with the gradient
-      // inv_var3 (x3 - logits) = -S of this step (nothing else reads X3, M3,
-      // V3 or this block's S until the next step)
-      for (int e = tid; e < nD * R; e += NT) {
-        const int j = e / R, r = e - j * R;
-        const float g3 = -S[j * RP + r];
-        float x = X3[j * RP + r];
-        if (warm) {
-          const float m = a.wb1 * M3[j * RP + r] + a.one_m_b1 * g3;
-          const float v = a.wb2 * V3[j * RP + r] + a.one_m_b2 * g3 * g3;
-          M3[j * RP + r] = m;
-          V3[j * RP + r] = v;
-          x = x - a.warm_lr * (m / cw1) / (sqrtf(v / cw2) + a.weps);
-        } else {
-          x = x - a.lr * g3;
-          if (noisy) {
-            const int row = row0 + RW::row_at(r);
-            x = x + a.noise_std * langevin_normal(
-                (uint32_t)a.seed + (uint32_t)(row / a.tile_B), t,
-                (uint32_t)(row % a.tile_B) * (uint32_t)a.pD + (uint32_t)(loD + j), 4u, 2u);
-          }
-        }
-        X3[j * RP + r] = x;
-      }
-    }
-    cluster_wait();
-    lap(3);
-
-    // ---- the own latent columns: add the partials in rank order, update,
-    // and write the new act(x) into every block's H
-    auto update = [&](int p, float zp, bool have_z) {
-      int j, r, layer, col;
-      own_element(p, j, r, layer, col);
-      if (j < 0) return;
-      float back = 0.f;
-      if (layer < 2 || has_s) {
-        back = P[j * RP + r];
-#pragma unroll
-        for (int k = 1; k < CS; ++k) back += P[((size_t)k * L.OWN + j) * RP + r];
-        if (layer == 2) back = -back;    // back2 = -(S W3^T)
-      }
-      float x = X[j * RP + r];
-      float dh;   // act'(x)
-      if constexpr (ACT == ACT_TANH && BF16) {
-        // the H this block holds is rounded: tanh(x) again, from x
-        const float h = tanhf(x);
-        dh = 1.f - h * h;
-      } else if constexpr (ACT == ACT_TANH) {
-        // tanh(x) as this block holds it, not yet overwritten
-        const float h = H[((layer == 0 ? 0 : layer == 1 ? c1 : c2) + col) * RP + r];
-        dh = 1.f - h * h;
-      } else {
-        dh = x > 0.f ? 1.f : 0.f;
-      }
-      const float g = E[j * RP + r] - dh * back;
-      if (warm) {
-        const float m = a.wb1 * M[j * RP + r] + a.one_m_b1 * g;
-        const float v = a.wb2 * V[j * RP + r] + a.one_m_b2 * g * g;
-        M[j * RP + r] = m;
-        V[j * RP + r] = v;
-        x = x - a.warm_lr * (m / cw1) / (sqrtf(v / cw2) + a.weps);
-      } else {
-        x = x - a.lr * g;
-        if (noisy) x = x + a.noise_std * (have_z ? zp : noise(t, r, layer, col));
-      }
-      X[j * RP + r] = x;
-      const float h = operand<BF16>(activate<ACT>(x));
-      const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
-#pragma unroll
-      for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
-    };
-#pragma unroll
-    for (int p = 0; p < NOISE_SLOTS; ++p) update(p, z[p], true);
-    for (int p = NOISE_SLOTS; p < slots; ++p) update(p, 0.f, false);
-    lap(4);
-    // also the last barrier before exit: no peer touches this block's
-    // shared memory after it
-    cluster_arrive();
-    if (a.noise_std > 0.f && s + 1 >= a.warm_T && s + 1 < total) {
-#pragma unroll
-      for (int p = 0; p < NOISE_EARLY; ++p) z[p] = draw(t + 1, p);
-    }
-    cluster_wait();
-    lap(5);
-    if (warm) {
-      b1p *= a.wb1;
-      b2p *= a.wb2;
-    }
-  }
-
-  // ---- epilogue: own latent columns, gradient slice, scalars
-  for (int e = tid; e < L.OWN * R; e += NT) {
-    const int r = e / L.OWN, j = e - r * L.OWN;
-    const int row = row0 + r;
-    if (row >= a.B) continue;
-    const float x = X[j * RP + RW::pos(r)];
-    if (j < L.J1) { if (j < n0) a.o0[(size_t)row * d0 + lo0 + j] = x; }
-    else if (j < L.J2) { if (j - L.J1 < n1) a.o1[(size_t)row * d1 + lo1 + j - L.J1] = x; }
-    else if (j - L.J2 < n2) a.o2[(size_t)row * d2 + lo2 + j - L.J2] = x;
-  }
-  if (with_pg) {
-    if (a.grads_resident) {
-      auto store_slice = [&](float* dst, int N, int lo, const float* g, int ld, int K, int nk) {
-        for (int e = tid; e < K * nk; e += NT) {
-          const int k = e / nk, c = e - k * nk;
-          dst[(size_t)k * N + lo + c] = g[k * ld + c];
-        }
-      };
-      store_slice(pg.gw1, d1, lo1, G1, L.LD1, d0, n1);
-      store_slice(pg.gw2, d2, lo2, G2, L.LD2, d1, n2);
-      store_slice(pg.gw3, D, loD, G3, L.LD3, d2, nD);
-    }
-    for (int c = tid; c < n0; c += NT) pg.gb0[lo0 + c] = GB[c];
-    for (int c = tid; c < n1; c += NT) pg.gb1[lo1 + c] = GB[L.J1 + c];
-    for (int c = tid; c < n2; c += NT) pg.gb2[lo2 + c] = GB[L.J2 + c];
-    for (int c = tid; c < nD; c += NT) pg.gb3[loD + c] = GB[L.OWN + c];
-  }
-
-  if (!OPT && a.want_scalars) {   // the last step's sums, as the loop left them
-    block_sums(loss_acc, en_acc);
-    __syncthreads();
-    if (tid == 0) {
-      double l = 0.0, en = 0.0;
-      for (int w = 0; w < NWARP; ++w) {
-        l += red[0][w];
-        en += red[1][w];
-      }
-      a.scal[2 * blockIdx.x] = l;
-      a.scal[2 * blockIdx.x + 1] = 0.5 * en;
-    }
-  }
-
-  if (OPT && a.m_out != nullptr) {   // the Adam moments after the warm phase
-    store_own(a.m_out, M);
-    store_own(a.v_out, V);
-    if (out_pc) {
-      store_out(a.m3_out, a.pD, M3);
-      store_out(a.v3_out, a.pD, V3);
-    }
-  }
-  if (out_pc) store_out(a.o3, D, X3);
-
-  if (a.clocks != nullptr && tid == 0) {
-#pragma unroll
-    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * N_PHASE + i] = spent[i];
-  }
-}
 
 // ------------------------------------------------------- summing pass
 //
@@ -1105,42 +58,12 @@ __global__ void __launch_bounds__(NT) sum_partials_kernel(
 
 // ------------------------------------------------------------ launches
 
-inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                           int clusters, size_t smem, cudaStream_t stream) {
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((unsigned)(clusters * CS));
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CS;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-}
-
-// this build's kernel: f32 products, or bf16 ones with -DMCPC_BF16
-template <int RG, bool OPT, int ACT>
-cudaError_t launch_kernel(const ChainArgs& a, size_t smem, cudaStream_t stream) {
-  constexpr int R = 2 * RG;
-  cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, OPT, ACT, kBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(cfg, attr, (a.B + R - 1) / R, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, mcpc_chain_kernel<RG, OPT, ACT, kBF16>, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 template <int RG, int ACT>
 cudaError_t launch_opt(const ChainArgs& a, size_t smem, cudaStream_t stream) {
   const bool opt = a.traj != nullptr || a.slots != nullptr || a.mask_lo > 0 ||
                    a.m_in != nullptr || a.m_out != nullptr || a.x3 != nullptr;
-  return opt ? launch_kernel<RG, true, ACT>(a, smem, stream)
-             : launch_kernel<RG, false, ACT>(a, smem, stream);
+  return opt ? launch_kernel<RG, true, ACT, NOISE_PACKED>(a, smem, stream)
+             : launch_kernel<RG, false, ACT, NOISE_PACKED>(a, smem, stream);
 }
 
 template <int RG>
@@ -1148,35 +71,6 @@ cudaError_t launch_rows(const ChainArgs& a, size_t smem, cudaStream_t stream, in
   return act == ACT_TANH ? launch_opt<RG, ACT_TANH>(a, smem, stream)
                          : launch_opt<RG, ACT_RELU>(a, smem, stream);
 }
-
-// clusters of this kernel the device can run at once, or -cudaError_t (the
-// other instantiations take the same shared memory and no more registers
-// than the 255 a thread that one block an SM allows)
-template <int RG>
-int max_clusters(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(cfg, attr, 1, smem, nullptr);
-  int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>,
-                                       &cfg);
-  return err != cudaSuccess ? -(int)err : count;
-}
-
-template <int RG>
-int static_smem_bytes() {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcpc_chain_kernel<RG, false, ACT_RELU, kBF16>) !=
-      cudaSuccess)
-    return -1;
-  return (int)attr.sharedSizeBytes;
-}
-
-int pad128(int d) { return (d + 127) / 128 * 128; }
 
 }  // namespace
 
@@ -1197,21 +91,13 @@ size_t mcpc_chain_smem_bytes(int d0, int d1, int d2, int D, int rows, int warm,
 }
 
 // dynamic shared memory a block may use on `device`, or -1
-int mcpc_chain_smem_budget(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  // the kernel's static shared memory does not depend on the rows
-  const int fixed = static_smem_bytes<1>();
-  return fixed < 0 ? -1 : optin - fixed;
-}
+int mcpc_chain_smem_budget(int device) { return smem_budget<NOISE_PACKED>(device); }
 
 // clusters of `rows` rows with `smem` bytes of dynamic shared memory a block
 // that the current device can run at once; negative: minus a cudaError_t
 int mcpc_chain_max_clusters(int rows, size_t smem) {
   switch (rows) {
-#define MCPC_CASE(R) case R: return max_clusters<R / 2>(smem);
+#define MCPC_CASE(R) case R: return max_clusters<R / 2, NOISE_PACKED>(smem);
     MCPC_CLUSTER_ROWS(MCPC_CASE)
 #undef MCPC_CASE
     default: return -(int)cudaErrorInvalidValue;
@@ -1239,9 +125,8 @@ const char* mcpc_chain_error_string(int err) {
 // grads_resident keeps a block's slice in shared memory until the end.  With
 // clocks not null (room for [n_clusters * cluster size, 6] 64-bit integers)
 // every block leaves there the SM clocks its thread 0 spent in each part of
-// the steps.  act: 0 relu, 1 tanh.  The options (header of this file):
-// m_in / v_in resume the Adam
-// moments ([B, XW], XW the 128-padded packed width) with the bias powers
+// the steps.  act: 0 relu, 1 tanh.  The options (mcpc_cluster.cuh): m_in /
+// v_in resume the Adam moments ([B, XW], XW the 128-padded packed width) with the bias powers
 // starting at (b1p0, b2p0); m_out / v_out receive them after the warm phase;
 // traj ([ceil(steps / cap_stride), B, XW], steps = T, or warm_T when T == 0)
 // receives the pre-update latents every cap_stride steps; slots
@@ -1296,15 +181,8 @@ int mcpc_chain_launch(
                  (v_out == nullptr) != (v3_out == nullptr))))
     return (int)cudaErrorInvalidValue;
   ChainArgs a;
-  const int widths[4] = {d0, d1, d2, D};
-  for (int l = 0; l < 4; ++l) {
-    const int* lo = slices + l * (CS + 1);
-    if (lo[0] != 0 || lo[CS] != widths[l]) return (int)cudaErrorInvalidValue;
-    for (int k = 0; k < CS; ++k)
-      if (lo[k + 1] < lo[k] || lo[k + 1] - lo[k] > widest_slice(widths[l]))
-        return (int)cudaErrorInvalidValue;
-    for (int k = 0; k <= CS; ++k) a.lo[l][k] = lo[k];
-  }
+  a.B = B; a.d0 = d0; a.d1 = d1; a.d2 = d2; a.D = D;
+  if (!set_slices(a, slices)) return (int)cudaErrorInvalidValue;
   const size_t smem = mcpc_chain_smem_bytes(
       d0, d1, d2, D, rows, warm_T > 0,
       partials == nullptr ? 0 : grads_resident ? 2 : 1, outpc);
@@ -1319,7 +197,6 @@ int mcpc_chain_launch(
   a.clocks = clocks;
   a.mixing = mixing; a.pg_warm = pg_warm;
   a.grads_resident = grads_resident;
-  a.B = B; a.d0 = d0; a.d1 = d1; a.d2 = d2; a.D = D;
   a.T = T; a.warm_T = warm_T; a.loss = loss; a.want_scalars = want_scalars;
   a.inv_var = inv_var; a.lr = lr; a.noise_std = noise_std;
   a.warm_lr = warm_lr; a.wb1 = wb1; a.wb2 = wb2;

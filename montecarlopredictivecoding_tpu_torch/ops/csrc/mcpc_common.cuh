@@ -1,10 +1,7 @@
-// Device code shared by the MCPC chain kernels (mcpc_chain.cu,
-// mcpc_chain_unpacked.cu): the counter-hash noise, the rounding of a
-// product's operand to bf16 and the layout of a partial of the parameter
-// gradients, which both use; and the small matrix products over a block's
-// rows and the gradient accumulation into device memory, which the unpacked
-// kernel uses (the cluster kernel of mcpc_chain.cu has its own, over weights
-// in shared memory).
+// Device code shared by the MCPC chain kernels (mcpc_cluster.cuh, which
+// mcpc_chain.cu and mcpc_chain_unpacked.cu instantiate): the threads of a
+// block, the counter-hash noise, the rounding of a product's operand to bf16
+// and the layout of a partial of the parameter gradients.
 //
 // bf16 products.  Each source is compiled twice (ops/_build.py): as it is,
 // and with -DMCPC_BF16, which sets kBF16 and so instantiates its kernels for
@@ -13,10 +10,6 @@
 // sums in f32; the product of two bf16 values is exact in f32, so an FMA on
 // rounded operands differs from a bf16 matrix unit only in the order of the
 // sums.  The f32 build carries none of this code.
-//
-// In the unpacked kernel every block of NT threads owns R batch rows and
-// keeps its state in shared memory feature-major ([feature][row]), so one
-// float4 load feeds 4 rows.
 
 #pragma once
 
@@ -103,73 +96,14 @@ __device__ __forceinline__ float box_muller(uint32_t seed, uint32_t draw,
   return take_sin ? r * s : r * c;
 }
 
-// ------------------------------------------------------------ products
-
-// acc[r] += a[r] * w for the R rows of one feature (a is [R], 16B aligned
-// when R % 4 == 0); with ROUND each a[r] is first rounded to bf16
-template <int R, bool ROUND = false>
-__device__ __forceinline__ void row_fma(float (&acc)[R], const float* a, float w) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < R / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(a)[q];
-      acc[4 * q + 0] = fmaf(operand<ROUND>(v.x), w, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(operand<ROUND>(v.y), w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(operand<ROUND>(v.z), w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(operand<ROUND>(v.w), w, acc[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(operand<ROUND>(a[r]), w, acc[r]);
-  }
-}
-
-// acc[r] += sum_{k0 <= k < k1} A[k][r] * W[k * ldw + col]; A is shared
-// [K][R], W a row-major matrix in device memory read through L2.  With
-// ROUND the A values are rounded to bf16 as they are read.
-template <int R, bool ROUND = false>
-__device__ __forceinline__ void rows_dot(float (&acc)[R], const float* A,
-                                         const float* __restrict__ W, int k0,
-                                         int k1, int ldw, int col) {
-  constexpr int U = 8;
-  int k = k0;
-  for (; k + U <= k1; k += U) {
-    float w[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) w[u] = __ldg(W + (size_t)(k + u) * ldw + col);
-#pragma unroll
-    for (int u = 0; u < U; ++u) row_fma<R, ROUND>(acc, A + (k + u) * R, w[u]);
-  }
-  for (; k < k1; ++k) row_fma<R, ROUND>(acc, A + k * R, __ldg(W + (size_t)k * ldw + col));
-}
-
-// sum_r a[r] * v[r], rows taken in ascending order (a is [R] in shared memory)
-template <int R>
-__device__ __forceinline__ float row_dot(const float* a, const float (&v)[R]) {
-  float s = 0.f;
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < R / 4; ++q) {
-      const float4 x = reinterpret_cast<const float4*>(a)[q];
-      s = fmaf(x.x, v[4 * q + 0], s);
-      s = fmaf(x.y, v[4 * q + 1], s);
-      s = fmaf(x.z, v[4 * q + 2], s);
-      s = fmaf(x.w, v[4 * q + 3], s);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) s = fmaf(a[r], v[r], s);
-  }
-  return s;
-}
-
 // ------------------------------------------------- parameter gradients
 //
-// A block's share of the Hebbian gradients lives in device memory, one
-// "partial" per block, laid out [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3].
-// Only the block's own threads touch it, each thread always the same
-// elements, so a read-modify-write needs no atomics and no fence, and the
-// order of every sum is fixed.  A second pass sums the partials over blocks.
+// A cluster's share of the Hebbian gradients lives in device memory, one
+// "partial" per cluster, laid out [gW1 | gW2 | gW3 | gb0 | gb1 | gb2 | gb3].
+// Each block of the cluster owns a fixed slice of it and each of its
+// threads always the same elements, so a read-modify-write needs no atomics
+// and no fence, and the order of every sum is fixed.  A second pass sums the
+// partials over the clusters.
 
 struct PartialLayout {
   float* gw1; float* gw2; float* gw3;
@@ -191,65 +125,6 @@ __device__ __forceinline__ PartialLayout partial_layout(float* p, int d0, int d1
   l.gb2 = l.gb1 + d1;
   l.gb3 = l.gb2 + d2;
   return l;
-}
-
-constexpr int PG_CHUNK = 32;  // rows of gW one job covers
-constexpr int PG_U = 8;       // elements of gW in flight per thread
-
-// One layer's step of the accumulation, over the block's first `nvalid`
-// rows (the rest pad the batch):
-//   gW[k][col] += sum_r A[k][r] * (sign * V[col][r])     k < K, col < N
-//   gb[col]    += sum_r sign * V[col][r]
-// A is [K][R] and V is [N][R] in shared memory.  A job is one column and
-// PG_CHUNK rows of gW: neighbouring threads take neighbouring columns, so
-// gW is read and written coalesced, and V[col] stays in registers.  With
-// BF16 the product takes V rounded to bf16 (A is stored rounded already),
-// the bias sum the unrounded V.
-template <int R, bool BF16 = false>
-__device__ __forceinline__ void hebbian_accumulate(float* gw, float* gb,
-                                                   const float* A, const float* V,
-                                                   int K, int N, float sign,
-                                                   int nvalid, int tid) {
-  const int nchunk = (K + PG_CHUNK - 1) / PG_CHUNK;
-  for (int job = tid; job < N * nchunk; job += NT) {
-    const int chunk = job / N, col = job - chunk * N;
-    float v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = r < nvalid ? sign * V[col * R + r] : 0.f;
-    if (chunk == 0) {
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) s += v[r];
-      gb[col] += s;
-    }
-    if constexpr (BF16) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) v[r] = operand<true>(v[r]);
-    }
-    const int k1 = min(K, (chunk + 1) * PG_CHUNK);
-    int k = chunk * PG_CHUNK;
-    for (; k + PG_U <= k1; k += PG_U) {
-      float g[PG_U];
-#pragma unroll
-      for (int u = 0; u < PG_U; ++u) g[u] = gw[(size_t)(k + u) * N + col];
-#pragma unroll
-      for (int u = 0; u < PG_U; ++u)
-        gw[(size_t)(k + u) * N + col] = g[u] + row_dot<R>(A + (k + u) * R, v);
-    }
-    for (; k < k1; ++k) gw[(size_t)k * N + col] += row_dot<R>(A + k * R, v);
-  }
-}
-
-// gb0[j] += sum_r -err0[j][r] over the block's first `nvalid` rows
-template <int R>
-__device__ __forceinline__ void prior_bias_accumulate(float* gb0, const float* E0,
-                                                      int d0, int nvalid, int tid) {
-  for (int j = tid; j < d0; j += NT) {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) s += r < nvalid ? -E0[j * R + r] : 0.f;
-    gb0[j] += s;
-  }
 }
 
 }  // namespace mcpc

@@ -48,12 +48,12 @@ sums.
 On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
 which replaces the JAX package's Pallas kernel
 ``ops/pallas_mcpc.py::_make_packed_kernel``, or with ``packed=False``
-``csrc/mcpc_chain_unpacked.cu``, which replaces ``_make_kernel``, the
-readable baseline.  The packed kernel runs one thread-block cluster per
-group of batch rows, with every layer's weights split by output column over
-the cluster's blocks and kept in shared memory; :func:`chain_plan` decides
-the split.  With parameter gradients every cluster of the packed kernel
-(every block of the unpacked one) leaves a partial sum, and
+``csrc/mcpc_chain_unpacked.cu``, which replaces ``_make_kernel``.  Both
+instantiate one cluster kernel (``csrc/mcpc_cluster.cuh``) and differ only
+in the noise indexing: one thread-block cluster per group of batch rows,
+with every layer's weights split by output column over the cluster's blocks
+and kept in shared memory; :func:`chain_plan` decides the split for both.
+With parameter gradients every cluster leaves a partial sum, and
 :func:`sum_block_partials` (a second kernel) adds them in order.  On CPU
 tensors it runs :func:`mcpc_chain_reference`, the same arithmetic in plain
 PyTorch.  There is no fallback from one to the other.
@@ -69,7 +69,8 @@ step ``2p+1`` ``r·sin``); with an output-PC site the latents read ``4p`` and
 (``pD`` = D padded to 128).  So the port's chain equals
 ``mcpc_chain_pallas(..., interpret=True)`` element by element, up to f32
 rounding.  Nothing is stored padded: the padding enters only the index.
-The unpacked baseline has its own indexing (:func:`_unpacked_normals`).
+The unpacked chain has its own indexing (:func:`_unpacked_normals`,
+:func:`unpacked_noise_site`).
 
 The hash is 32-bit unsigned arithmetic.  ``torch.uint32`` lacks the needed
 ops, so the PyTorch version keeps the values in int64 and reduces mod 2**32,
@@ -654,6 +655,19 @@ def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
     return torch.cat(parts, dim=1)
 
 
+def unpacked_noise_site(dims, row: int, layer: int, col: int) -> tp.Tuple[int, int, bool]:
+    """Where the unpacked chain's normal of ``(row, col)`` of latent ``layer``
+    comes from, as the kernel computes it (``csrc/mcpc_cluster.cuh``, the
+    ``noise`` lambda): ``(draw_offset, idx, take_sin)``.  Step ``t`` reads
+    draws ``6t + draw_offset`` and the next at element ``idx`` of the
+    ``[B, half]`` grid (``half = (d + 1) // 2``, seed unshifted) and takes
+    ``r·sin`` where ``take_sin``, else ``r·cos``.  ``col`` is the layer's
+    global column."""
+    half = (int(dims[layer]) + 1) // 2
+    take_sin = col >= half
+    return 2 * layer, row * half + (col - half if take_sin else col), take_sin
+
+
 def bf16_round(t: Tensor) -> Tensor:
     """``t`` rounded to bf16 (to nearest, ties to even) and held in its own
     dtype: a product's operand under ``bf16_matmul``."""
@@ -887,10 +901,9 @@ def mcpc_chain_reference(params, latents, target, seed, **options):
 
 # -------------------------------------------------------------- kernels
 
-_UNPACKED_ROWS = (16, 8, 4, 2, 1)  # rows a block of the unpacked kernel
 CLUSTER_SIZE = 8  # blocks a cluster: the most every Hopper card must take
 # Rows a cluster for which the kernel is built (``MCPC_CLUSTER_ROWS`` in
-# ``csrc/mcpc_chain.cu``): what the plan's rule picks at B >= 136 (18), from 61
+# ``csrc/mcpc_cluster.cuh``): what the plan's rule picks at B >= 136 (18), from 61
 # (10), from 31 (4) and below (2) on a card that runs 15 clusters at once.
 CLUSTER_ROWS = (18, 10, 4, 2)
 # What a step costs beyond its rows' products, in rows: the barriers, and the
@@ -906,7 +919,8 @@ _Z = ctypes.c_size_t
 
 @dataclasses.dataclass(frozen=True)
 class ChainPlan:
-    """How the packed kernel maps one call onto the card."""
+    """How the cluster kernel (packed or unpacked) maps one call onto the
+    card."""
 
     cluster_size: int   # blocks a cluster
     rows: int           # batch rows a cluster
@@ -950,9 +964,9 @@ def column_slices(d: int, ranks: int = CLUSTER_SIZE) -> tp.Tuple[tp.Tuple[int, i
 
 def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
                      output_pc: bool = False) -> int:
-    """Dynamic shared memory of one block of the packed kernel (the layout of
-    ``make_layout`` in ``csrc/mcpc_chain.cu``, which refuses a launch whose
-    plan was sized otherwise).  ``grads``: 0 no parameter gradients, 1 the
+    """Dynamic shared memory of one block of the cluster kernel (the layout of
+    ``make_layout`` in ``csrc/mcpc_cluster.cuh``, whose launches refuse a
+    plan sized otherwise).  ``grads``: 0 no parameter gradients, 1 the
     block's gradient slice in device memory, 2 in shared memory;
     ``output_pc``: the own columns of an output-PC latent (and, warm, their
     Adam moments)."""
@@ -986,7 +1000,7 @@ def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
                max_clusters: int,
                row_counts: tp.Sequence[int] = CLUSTER_ROWS,
                output_pc: bool = False) -> ChainPlan:
-    """The packed kernel's plan for ``dims = (d0, d1, d2, D)`` and batch
+    """The cluster kernel's plan for ``dims = (d0, d1, d2, D)`` and batch
     ``B``, given ``budget`` bytes of dynamic shared memory a block and the
     ``max_clusters`` the card runs at once (15 on an H100 SXM: its 132 SMs
     come in groups of which one holds fewer than 16).
@@ -1049,13 +1063,14 @@ def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
     smem_bytes.restype = _Z
     budget = getattr(lib, name + "_smem_budget")
     budget.restype = _I
+    budget.argtypes = [_I]
+    max_clusters = getattr(lib, name + "_max_clusters")
+    max_clusters.restype = _I
+    max_clusters.argtypes = [_I, _Z]
     if packed:
         launch.argtypes = ([_P] * 30 + [ctypes.POINTER(_I)] + [_I] * 18 + [_F] * 11
                            + [_I, _I, _Z, _P])
         smem_bytes.argtypes = [_I] * 8
-        budget.argtypes = [_I]
-        lib.mcpc_chain_max_clusters.restype = _I
-        lib.mcpc_chain_max_clusters.argtypes = [_I, _Z]
         for count in (lib.mcpc_chain_cluster_size, lib.mcpc_chain_phase_count):
             count.restype = _I
             count.argtypes = []
@@ -1063,9 +1078,9 @@ def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
             summing.restype = _I
             summing.argtypes = [_P, _P, _I, _Z, _P]
     else:
-        launch.argtypes = [_P] * 18 + [_I] * 9 + [_F] * 3 + [_I, _P]
-        smem_bytes.argtypes = [_I] * 5
-        budget.argtypes = [_I, _I]
+        launch.argtypes = ([_P] * 15 + [ctypes.POINTER(_I)] + [_I] * 10 + [_F] * 3
+                           + [_I, _Z, _P])
+        smem_bytes.argtypes = [_I] * 6
     error_string = getattr(lib, name + "_error_string")
     error_string.restype = ctypes.c_char_p
     error_string.argtypes = [_I]
@@ -1110,26 +1125,27 @@ def _device_index(device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_budget_of(index: int) -> int:
-    budget = _library().mcpc_chain_smem_budget(index)
+def _smem_budget_of(index: int, packed: bool = True) -> int:
+    budget = getattr(_library(packed), _prefix(packed) + "_smem_budget")(index)
     if budget < 0:
         raise RuntimeError("could not query the device's shared memory")
     return budget
 
 
-def smem_budget(device) -> int:
-    """Bytes of dynamic shared memory one block of the packed kernel may use
-    on the CUDA ``device``: the ``budget`` of :func:`chain_plan`."""
-    return _smem_budget_of(_device_index(device))
+def smem_budget(device, packed: bool = True) -> int:
+    """Bytes of dynamic shared memory one block of the packed (or, with
+    ``packed=False``, the unpacked) kernel may use on the CUDA ``device``:
+    the ``budget`` of :func:`chain_plan`."""
+    return _smem_budget_of(_device_index(device), packed)
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters_of(index: int, rows: int, smem_bytes: int) -> int:
+def _max_clusters_of(index: int, rows: int, smem_bytes: int, packed: bool = True) -> int:
     with torch.cuda.device(index):
-        count = _library().mcpc_chain_max_clusters(rows, smem_bytes)
+        count = getattr(_library(packed), _prefix(packed) + "_max_clusters")(rows, smem_bytes)
     if count < 0:
         raise RuntimeError("the cluster occupancy query failed: "
-                           f"{_error_message(-count)} ({-count})")
+                           f"{_error_message(-count, packed)} ({-count})")
     if count == 0:
         raise RuntimeError(
             f"the device cannot run one cluster of {CLUSTER_SIZE} blocks with "
@@ -1137,46 +1153,44 @@ def _max_clusters_of(index: int, rows: int, smem_bytes: int) -> int:
     return count
 
 
-def max_active_clusters(device, plan: tp.Optional[ChainPlan] = None) -> int:
-    """Clusters of the packed kernel that the CUDA ``device`` runs at once
-    (asked of CUDA once per shape): those of ``plan``, or without one
-    those of the largest block, the ``max_clusters`` of :func:`chain_plan`.
-    Raises when the device cannot run even one."""
+def max_active_clusters(device, plan: tp.Optional[ChainPlan] = None,
+                        packed: bool = True) -> int:
+    """Clusters of the packed (or, with ``packed=False``, the unpacked)
+    kernel that the CUDA ``device`` runs at once, asked of CUDA once per
+    shape of that kernel's own instantiation: those of ``plan``, or without
+    one those of the largest block, the ``max_clusters`` of
+    :func:`chain_plan`.  Raises when the device cannot run even one."""
     index = _device_index(device)
     if plan is None:
-        return _max_clusters_of(index, CLUSTER_ROWS[0], _smem_budget_of(index))
-    return _max_clusters_of(index, plan.rows, plan.smem_bytes)
+        return _max_clusters_of(index, CLUSTER_ROWS[0], _smem_budget_of(index, packed), packed)
+    return _max_clusters_of(index, plan.rows, plan.smem_bytes, packed)
+
+
+def plan_options(c: _Chain) -> tp.Dict[str, bool]:
+    """The keywords of :func:`chain_plan` for a validated call, packed or
+    not.  An unpacked call has no warm phase and no output-PC site, so its
+    plan is ``chain_plan(dims, B, warm=False, with_pgrads=...)``."""
+    return dict(warm=c.warm_T > 0, with_pgrads=c.with_pgrads, output_pc=c.output_pc)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_plan_of(index: int, dims, B: int, warm: bool, with_pgrads: bool,
-                    row_counts: tp.Tuple[int, ...], output_pc: bool) -> ChainPlan:
+                    output_pc: bool, packed: bool,
+                    row_counts: tp.Tuple[int, ...]) -> ChainPlan:
     return chain_plan(dims, B, warm=warm, with_pgrads=with_pgrads,
-                      budget=_smem_budget_of(index),
-                      max_clusters=max_active_clusters(index),
+                      budget=_smem_budget_of(index, packed),
+                      max_clusters=max_active_clusters(index, packed=packed),
                       row_counts=row_counts, output_pc=output_pc)
 
 
 def device_plan(c: _Chain, B: int, device,
                 row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
-    """:func:`chain_plan` of a validated call on the CUDA ``device``."""
-    return _device_plan_of(_device_index(device), c.dims, B, c.warm_T > 0,
-                           c.with_pgrads, tuple(row_counts), c.output_pc)
-
-
-def unpacked_rows(dims, device) -> int:
-    """Rows per block of the unpacked kernel: the largest of 16, 8, 4, 2, 1
-    whose shared memory fits one block on ``device``."""
-    lib = _library(packed=False)
-    index = _device_index(device)
-    for rows in _UNPACKED_ROWS:
-        need = lib.mcpc_chain_unpacked_smem_bytes(*dims, rows)
-        budget = lib.mcpc_chain_unpacked_smem_budget(index, rows)
-        if budget < 0:
-            raise RuntimeError("could not query the device's shared memory")
-        if need <= budget:
-            return rows
-    raise ValueError(f"dims {dims} need more shared memory than one block has")
+    """:func:`chain_plan` of a validated call on the CUDA ``device``, with
+    the budget and the cluster count of the call's own kernel (packed or
+    unpacked)."""
+    o = plan_options(c)
+    return _device_plan_of(_device_index(device), c.dims, B, o["warm"], o["with_pgrads"],
+                           o["output_pc"], c.packed, tuple(row_counts))
 
 
 def sum_block_partials_reference(partials: Tensor) -> Tensor:
@@ -1189,8 +1203,8 @@ def sum_block_partials_reference(partials: Tensor) -> Tensor:
 
 
 def sum_block_partials(partials: Tensor) -> Tensor:
-    """Sum ``[n_blocks, n]`` partial gradients (one per cluster of the packed
-    kernel, one per block of the unpacked) over the blocks, in block order:
+    """Sum ``[n_blocks, n]`` partial gradients (one per cluster of the chain
+    kernel) over the blocks, in block order:
     the second pass of the parameter gradients, which takes the
     place of the TPU kernel's accumulators carried across batch tiles
     (``pallas_mcpc.py``, ``pl.when(tile_i == 0)``).  float32, or float64 for
@@ -1232,7 +1246,8 @@ PHASES = ("forward", "gradients", "backward", "wait for partials", "update",
 
 def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = None,
             plan: tp.Optional[ChainPlan] = None, warm_mu=None, warm_nu=None):
-    """Launch the packed or unpacked kernel, f32 or bf16, on CUDA tensors."""
+    """Launch the packed or unpacked kernel, f32 or bf16, on CUDA tensors,
+    with ``plan`` or the call's own :func:`device_plan`."""
     d0, d1, d2, D = c.dims
     device = latents[0].device
     tensors = list(latents) + [t for p in params for t in p.values()]
@@ -1260,21 +1275,13 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
          else torch.zeros((B, D), dtype=torch.float32, device=device))
     outs = [torch.empty_like(x) for x in (x0, x1, x2)]
     pointers = [t.data_ptr() for t in (x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3)]
-    if c.packed:
-        plan = device_plan(c, B, device) if plan is None else plan
-        max_active_clusters(device, plan)  # raises if not even one cluster runs
-        groups = plan.clusters
-    else:
-        rows = unpacked_rows(c.dims, device)
-        groups = -(-B // rows)
-        # transposed copies staged once per call, so the backward products
-        # read coalesced
-        transposed = [w.t().contiguous() for w in (w1, w2, w3)]
-        pointers += [w.data_ptr() for w in transposed]
-    # every cluster (unpacked: block) zeroes and fills its own partial gradients
+    plan = device_plan(c, B, device) if plan is None else plan
+    # raises if not even one cluster runs
+    max_active_clusters(device, plan, packed=c.packed)
+    # every cluster zeroes and fills its own partial gradients
     partials = None
     if c.with_pgrads:
-        partials = torch.empty((groups, sum(_partial_sizes(c.dims))),
+        partials = torch.empty((plan.clusters, sum(_partial_sizes(c.dims))),
                                dtype=torch.float32, device=device)
     partials_ptr = None if partials is None else partials.data_ptr()
     lib = _library(c.packed, c.bf16_matmul)
@@ -1308,11 +1315,11 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    bounds = plan.slice_bounds()
     with _on(device.index):
         stream = _raw_stream(device.index)
         if c.packed:
             scal = torch.zeros((plan.blocks, 2), dtype=torch.float64, device=device)
-            bounds = plan.slice_bounds()
             m_out = (None,) * 4 if moments is None else tuple(moments) + (None,) * 2
             err = lib.mcpc_chain_launch(
                 *pointers, scal.data_ptr(), partials_ptr, ptr(clocks),
@@ -1334,9 +1341,10 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
             )
         else:
             err = lib.mcpc_chain_unpacked_launch(
-                *pointers, partials_ptr,
-                B, d0, d1, d2, D, c.T, _LOSS_CODES[c.loss], c.mixing, rows,
-                c.inv_var, c.lr, c.noise_std, c.seed, stream,
+                *pointers, partials_ptr, (_I * len(bounds))(*bounds),
+                B, d0, d1, d2, D, c.T, _LOSS_CODES[c.loss], c.mixing,
+                plan.rows, int(plan.grads_resident),
+                c.inv_var, c.lr, c.noise_std, c.seed, plan.smem_bytes, stream,
             )
     _check_launch(err, c.packed)
     counter = ("launches" if c.packed else "launches_unpacked") + (
@@ -1419,9 +1427,10 @@ def mcpc_chain(params, latents, target, seed, **options):
     site ``(m, v, m3, v3)``, the last two ``[B, pD]``, pD = D padded to 128);
     ``warm_mu``/``warm_nu`` (tensors shaped like the latents) and
     ``warm_count``: resume an Adam state of ``warm_count`` steps;
-    ``packed=True``: False runs the unpacked baseline, which has relu, no
-    warm phase, no scalars, no options, one batch tile and a noise stream of
-    its own;
+    ``packed=True``: False runs the unpacked chain (the JAX package's
+    ``_make_kernel``), which has relu, no warm phase, no scalars, no
+    options, one batch tile and a noise stream of its own
+    (:func:`unpacked_noise_site`);
     ``bf16_matmul=False``: True gives every matrix product bf16 operands
     with f32 sums, packed or not (the module docstring says which operands);
     on CUDA tensors it launches the kernels' bf16 build.

@@ -10,8 +10,11 @@ chains), the training chain of ``train_mnist.chain_options`` with and
 without the parameter gradients (21 chains each), the whole training
 batch, ``train_mnist.one_batch`` with its Adam step (21 batches), chain
 (a) with the tanh activation (7 chains; null for a checkout whose kernel has
-no tanh), and chain (a) and the training chain with bf16 products (7 and 21
-chains; null for a checkout without them), each as ``[median, min, max]``
+no tanh), chain (a) and the training chain with bf16 products (7 and 21
+chains; null for a checkout without them), and chain (c), the unpacked
+kernel (``packed=False``) on chain (a)'s inputs at T=1000, in f32 and with
+bf16 products (7 chains each; null for a checkout without them), each as
+``[median, min, max]``
 ms between CUDA events after one warm-up.  To compare a change with
 its parent, unpack the parent into an ignored directory and run both trees
 in turns (parent, change, change, parent, ...) in one call: the card's speed
@@ -65,6 +68,7 @@ def main() -> None:
                                      torch.Generator().manual_seed(1235))
     opts = train_mnist.chain_options(config)
     chain_a = dict(T=10000, lr=0.01, noise_var=2.0, loss="bernoulli", return_scalars=True)
+    chain_c = dict(T=1000, lr=0.01, noise_var=2.0, loss="bernoulli", packed=False)
 
     def timed_if_taken(reps, seed, **kw):
         """ms of the chain with ``kw``, or None where this checkout refuses
@@ -91,6 +95,8 @@ def main() -> None:
         "chain_a_tanh": timed_if_taken(7, 1234, activation="tanh", **chain_a),
         "chain_a_bf16": timed_if_taken(7, 1234, bf16_matmul=True, **chain_a),
         "train_chain_bf16": timed_if_taken(21, 99, bf16_matmul=True, **opts),
+        "chain_c": timed_if_taken(7, 1234, **chain_c),
+        "chain_c_bf16": timed_if_taken(7, 1234, bf16_matmul=True, **chain_c),
     }))
 
 

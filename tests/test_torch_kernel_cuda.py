@@ -611,3 +611,143 @@ def test_bf16_output_pc_site_matches_plain_version(cuda_device):
     assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
     for i in (2, 3):   # traj, traj3
         assert _max_abs([got[i]], [want[i]]) <= 0.5 * _max_abs([f32[i]], [want[i]])
+
+
+# ------------------------------- the unpacked chain on the cluster plan
+#
+# packed=False runs the cluster kernel with the unpacked noise indexing
+# (csrc/mcpc_chain_unpacked.cu): f32 by the tolerances at the top of this
+# file, bf16 by rule (i) above, each at the batches whose plans take every
+# built row count (2, 2, 4, 10, 18, 18, 18 rows a cluster) and beyond one
+# 1024-row tile.
+UNPACKED_BATCHES = [1, 19, 37, 100, 250, 256, 1100]
+MSE_DIMS = (10, 256, 256, 784)
+
+
+def _unpacked_call(cuda_device, dims, B, **kw):
+    """(kernel result, plain result, plain f32 result or None, plan) of an
+    unpacked call with ``kw``; the launch count must rise by one."""
+    params, latents, target = _case(dims, B, cuda_device)
+    kw = dict(kw, packed=False)
+    plan = kw.pop("plan", None)
+    bf16 = kw.get("bf16_matmul", False)
+    count = "launches_unpacked_bf16" if bf16 else "launches_unpacked"
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    plan = plan or chain_mod.device_plan(c, B, cuda_device)
+    before = getattr(chain_mod.mcpc_chain, count)
+    got = chain_mod._kernel(c, params, latents, target, plan=plan)
+    torch.cuda.synchronize()
+    assert getattr(chain_mod.mcpc_chain, count) == before + 1
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    f32 = (chain_mod.mcpc_chain_reference(params, latents, target, 9,
+                                          **dict(kw, bf16_matmul=False)) if bf16 else None)
+    return got, want, f32, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B", UNPACKED_BATCHES)
+def test_unpacked_cluster_kernel_matches_plain_version(cuda_device, B, bf16):
+    if bf16:
+        got, want, f32, plan = _unpacked_call(cuda_device, FID, B, bf16_matmul=True,
+                                              **BF16_ONE_STEP)
+        _assert_one_step(got, want, f32)
+    else:
+        got, want, _, plan = _unpacked_call(cuda_device, FID, B, T=20, lr=0.03, mixing=5,
+                                            with_pgrads=True)
+        _assert_same_outputs(got, want)
+    assert plan.clusters == -(-B // plan.rows) and plan.grads_resident
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_unpacked_every_built_row_count_matches_plain_version(cuda_device, rows, bf16):
+    """Each of the unpacked library's four kernels, forced by the plan, at
+    B = 37 (pad rows in the last cluster) with gradients, and without
+    noise and with the Gaussian loss at the odd widths 5-7-9-16."""
+    for dims, kw in ((FID, dict(T=12, lr=0.03, mixing=4, with_pgrads=True)),
+                     ((5, 7, 9, 16), dict(T=9, lr=0.03, loss="gaussian", with_pgrads=True))):
+        params, latents, target = _case(dims, 37, cuda_device)
+        if bf16:
+            kw = dict(BF16_ONE_STEP, bf16_matmul=True)
+        c = chain_mod._chain_args(params, latents, target, 9, packed=False, **kw)
+        plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+        assert plan.rows == rows
+        got, want, f32, _ = _unpacked_call(cuda_device, dims, 37, plan=plan, **kw)
+        if bf16 and dims == FID:
+            _assert_one_step(got, want, f32)
+        elif bf16:   # at 5-7-9-16 a step's bf16 effect is near rounding size
+            assert _share_within(zip(got[0], want[0]), lambda b: 1e-5) >= 0.98
+        else:
+            _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B", [37, 256])
+def test_unpacked_wide_preset_with_gradients(cuda_device, B, bf16):
+    """10-256-256-784: the gradient slice does not fit beside the weights, so
+    each thread read-modify-writes its own elements of the partial."""
+    kw = dict(T=12, lr=0.03, mixing=4, with_pgrads=True)
+    if bf16:
+        kw = dict(BF16_ONE_STEP, bf16_matmul=True)
+    got, want, f32, plan = _unpacked_call(cuda_device, MSE_DIMS, B, **kw)
+    assert not plan.grads_resident
+    if bf16:
+        _assert_one_step(got, want, f32)
+    else:
+        _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dims", [FID, MSE_DIMS])
+def test_two_unpacked_runs_are_bit_identical(cuda_device, dims, bf16):
+    params, latents, target = _case(dims, 250, cuda_device)
+    kw = dict(T=30, lr=0.03, mixing=10, with_pgrads=True, packed=False, bf16_matmul=bf16)
+    a = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    b = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    for u, v in zip(a[0], b[0]):
+        assert torch.equal(u, v)
+    for g, h in zip(a[1], b[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [FID, MSE_DIMS, (5, 7, 9, 16)])
+def test_unpacked_plan_agrees_with_its_library(cuda_device, dims):
+    lib = chain_mod._library(packed=False)
+    for with_pgrads in (False, True):
+        params, latents, target = _case(dims, 256, cuda_device)
+        c = chain_mod._chain_args(params, latents, target, 0, T=2, lr=0.1, packed=False,
+                                  with_pgrads=with_pgrads)
+        plan = chain_mod.device_plan(c, 256, cuda_device)
+        assert plan == chain_mod.chain_plan(
+            dims, 256, warm=False, with_pgrads=with_pgrads,
+            budget=chain_mod.smem_budget(cuda_device, packed=False),
+            max_clusters=chain_mod.max_active_clusters(cuda_device, packed=False))
+        grads = (2 if plan.grads_resident else 1) if with_pgrads else 0
+        assert lib.mcpc_chain_unpacked_smem_bytes(*dims, plan.rows, grads) == plan.smem_bytes
+        assert chain_mod.max_active_clusters(cuda_device, plan, packed=False) >= 1
+        if dims == FID and chain_mod.max_active_clusters(cuda_device, packed=False) == 15:
+            assert (plan.rows, plan.clusters) == (18, 15)
+
+
+@pytest.mark.cuda
+def test_unpacked_launch_refuses_a_plan_it_was_not_sized_for(cuda_device):
+    import dataclasses
+    params, latents, target = _case(FID, 8, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 0, T=2, lr=0.1, packed=False)
+    plan = chain_mod.device_plan(c, 8, cuda_device)
+    before = chain_mod.mcpc_chain.launches_unpacked
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chain_mod._kernel(c, params, latents, target,
+                          plan=dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 4))
+    uneven = ((0, 20),) + ((20, 20),) * 7
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chain_mod._kernel(c, params, latents, target, plan=dataclasses.replace(
+            plan, slices=(uneven,) + plan.slices[1:]))
+    assert chain_mod.mcpc_chain.launches_unpacked == before
+    chain_mod._kernel(c, params, latents, target, plan=plan)
+    assert chain_mod.mcpc_chain.launches_unpacked == before + 1
