@@ -136,6 +136,29 @@ Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
          changed, the test batch's loss lower; ms a batch beside phase 3's
          ``one_batch``.
 
+Phase 7  drives table 1 and figure 2e at full width (synthetic MNIST, the
+(table 1, checkpoints in ``models/``), with cuDNN's TF32 flag back at torch's
+fig. 2e)  default, True, so that the port's ResNet-9 and Inception functions must
+         turn it off themselves (``full_f32_conv``): (i) the ResNet-9
+         features of the 10,000 synthetic test images from
+         ``models/resnet9.msgpack`` on the card, held against the same module
+         on the CPU for R9_CPU_IMAGES of them (and, printed, the same module
+         with TF32 left on), ms per 1000 images; (ii) the FID reference
+         statistics built fresh in a temporary root, the pixel statistics
+         held to the repository's caches at float64 rounding and the
+         ResNet-9 statistics within R9_STATS_RTOL; (iii) ``table_1.py``'s
+         three columns for TABLE_SEEDS (FID with ResNet-9 and pixel features
+         at 5000 samples, MSE on the full test set through ``PCTrainer`` and
+         the chain kernel, marginal likelihood on the full validation set at
+         5000 samples), every value and each column's time printed, the MSE
+         column's counts zeroed just before and read just after (at least one
+         ``mcpc_chain`` launch, no engine fallback); (iv) ``train_dlgm``
+         (preset fid, B=64) and ``train_resnet9_entry`` (B=128): ms a step
+         (CUDA events, median), the loss falls, the ResNet-9 file reloads bit
+         for bit; (v) figure 2e (``comparison_ideal_observer``) with the
+         shipped ResNet-9: the KL table, its launches (counts zeroed just
+         before, read just after), no engine fallback.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -149,6 +172,7 @@ import importlib
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -265,6 +289,19 @@ JOINT_LR = 1e-4
 # taken in double instead: 1.3 times the effect), so it is held only at
 # cut length.
 BF16_AGREE, BF16_STEP_ATOL, BF16_STEP_GRAD_REL, BF16_SHARE = 0.98, 1e-5, 2e-6, 0.5
+# phase 7: table 1's seeds; CPU images to hold the card's ResNet-9 features
+# against, and the bounds: features within R9_FEAT_RTOL of the largest (f32
+# sums in another order sit near 1e-6; TF32 convolutions near 1e-3); the
+# pixel statistics within float64 rounding of the repository's caches (the
+# same numpy data and moments); the ResNet-9 statistics within
+# R9_STATS_RTOL of theirs (the JAX package on the CPU reproduces those files
+# exactly, so the features' f32 tolerance is what remains); DLGM and
+# ResNet-9 training steps
+TABLE_SEEDS = (1, 2, 3)
+R9_CPU_IMAGES, R9_FEAT_RTOL = 256, 1e-5
+PIXEL_STATS_RTOL, R9_STATS_RTOL = 1e-12, 1e-4
+DLGM_STEPS, R9_STEPS = 200, 100
+FID_SAMPLES = 5000  # samples a model, as table 1's FID column takes
 # the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
 # sheet, 700 W): the least time the card could take for bf16 products
 PEAK_BF16_FLOPS = 989e12
@@ -302,6 +339,58 @@ def cuda_ms(torch, fn, reps: int = 3, warm_up: bool = True):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def conv_net_flops(torch, model, x) -> int:
+    """Multiply-add FLOPs of ``model``'s convolutions and linear layers on
+    input ``x`` (2 a multiply-add), from the output shapes a forward pass
+    gives."""
+    flops = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            flops[0] += 2 * out.numel() * k
+        elif isinstance(mod, torch.nn.Linear):
+            flops[0] += 2 * out.numel() * mod.in_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return flops[0]
+
+
+def profiled_ms(torch, fn, calls: int = 10):
+    """(wall ms a call under the profiler, device-busy ms a call, the three
+    kernels with the most device time) over ``calls`` calls of ``fn`` after
+    one warm-up, from ``torch.profiler``'s CUDA activity: the busy time sums
+    the kernels' rows only (an operator's row repeats its kernels' time);
+    None where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=device_us, reverse=True)
+    busy = sum(device_us(e) for e in events) / 1e3 / calls
+    top = [(e.key, device_us(e) / 1e3 / calls, e.count // calls) for e in events[:3]]
+    return wall, (busy if busy > 0 else None), top
 
 
 def queued_ms(torch, fn, reps: int = 20):
@@ -1810,8 +1899,221 @@ def main() -> int:
         check(not torch.equal(p["b"], p0["b"]), "train_mcpc(fused=False) left a bias unchanged")
     check(loss_after6 < loss_before6, "train_mcpc(fused=False) did not lower the test loss")
     print(f"phase 6 ends at {time.perf_counter() - t_start:.1f} s")
+    # ---------------------------------------------------------- phase 7
+    # table 1 end to end and figure 2e.  cuDNN's TF32 flag goes back to
+    # torch's default (True): the port's ResNet-9 and Inception functions
+    # must turn it off themselves, and this phase holds that they do.
+    import tempfile
+
+    from montecarlopredictivecoding_tpu_torch.data.mnist import load_mnist_arrays
+    from montecarlopredictivecoding_tpu_torch.eval import fid as fid_mod
+    from montecarlopredictivecoding_tpu_torch.experiments import table_1
+    from montecarlopredictivecoding_tpu_torch.models import resnet9 as r9
+    from montecarlopredictivecoding_tpu_torch.models.dlgm import DLGM
+
+    # table 1 reads the FID statistics under ./MNIST_data, as the JAX
+    # package does: run it from the checkout's root
+    os.chdir(here)
+    torch.backends.cudnn.allow_tf32 = True
+    r9_path = os.path.join(here, "models", "resnet9.msgpack")
+    model_r9, state_r9 = r9.load_resnet9(r9_path, device=dev)
+    feats_fn = fid_mod.make_resnet9_features(state_r9)
+    _, (te_x, _) = load_mnist_arrays(os.path.join(here, "MNIST_data"))
+    feats_fn(te_x[:R9_CPU_IMAGES])  # cuDNN's set-up
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    feats = feats_fn(te_x)
+    feat_ms = 1e3 * (time.perf_counter() - t7)
+    check(torch.backends.cudnn.allow_tf32, "the feature function left cuDNN's TF32 flag off")
+    check(feats.shape == (len(te_x), 256) and bool(np.isfinite(feats).all()),
+          f"ResNet-9 features of shape {feats.shape}, or not finite")
+    cpu_state = r9.ResNet9State({k: v.cpu() for k, v in state_r9.params.items()},
+                                {k: v.cpu() for k, v in state_r9.batch_stats.items()}, None)
+    cpu_feats = fid_mod.make_resnet9_features(cpu_state)(te_x[:R9_CPU_IMAGES])
+    feat_err = float(np.abs(feats[:R9_CPU_IMAGES] - cpu_feats).max() / np.abs(cpu_feats).max())
+    # the same module with TF32 left on, to show what the hold tells apart
+    with torch.no_grad():
+        model_r9.eval()
+        x_sub = torch.from_numpy(te_x[:R9_CPU_IMAGES].reshape(-1, 1, 28, 28)).to(dev)
+        tf32_feats = torch.func.functional_call(
+            model_r9, {**state_r9.params, **state_r9.batch_stats}, (x_sub,),
+            {"return_features": True})[1].cpu().numpy()
+    tf32_err = float(np.abs(tf32_feats - cpu_feats).max() / np.abs(cpu_feats).max())
+    image_flops = conv_net_flops(torch, model_r9, x_sub[:1])
+    feat_bound_ms = 1e3 * image_flops * 1000 / PEAK_F32_FLOPS
+    print(f"phase 7: ResNet-9 features of the {len(te_x)} synthetic test images on the card: "
+          f"{feat_ms:.3f} ms in all, {1e3 * feat_ms / len(te_x):.3f} ms per 1000 images (batches "
+          f"of 500, host copies included), bound {feat_bound_ms:.3f} ms per 1000 "
+          f"({image_flops / 1e9:.4f} GFLOP an image at the f32 peak, operations); card "
+          f"against the CPU on {R9_CPU_IMAGES} images: "
+          f"max|d| {feat_err:.3e} of the largest (bound {R9_FEAT_RTOL}); with cuDNN's TF32 "
+          f"left on: {tf32_err:.3e} {tag}")
+    check(feat_err <= R9_FEAT_RTOL, f"phase 7: card features {feat_err} from the CPU's")
+
+    # (ii) the reference statistics, built fresh
+    stats_root = tempfile.mkdtemp(prefix="fid_stats_", dir=os.path.join(here, "build",
+                                                                        "chip_smoke"))
+    cache = os.path.join(here, "MNIST_data", "MNIST")
+    for extractor, tag_name in ((fid_mod.pixel_features, "pixel_features"),
+                                (feats_fn, "resnet9")):
+        t7 = time.perf_counter()
+        fresh = fid_mod.make_mnist_fid_stats(extractor, root=stats_root)
+        build_s = time.perf_counter() - t7
+        for split, got in zip(("val", "test"), fresh):
+            ref = fid_mod.FIDStats.load(os.path.join(
+                cache, f"{split}_img_{tag_name}_synthetic-v1n10000.npz"))
+            d_mu = float(np.abs(got.mu - ref.mu).max() / np.abs(ref.mu).max())
+            d_sig = float(np.abs(got.sigma - ref.sigma).max() / np.abs(ref.sigma).max())
+            dist = fid_mod.compute_fid(got, ref)
+            print(f"phase 7: {tag_name} {split} statistics built fresh in {build_s:.2f} s: "
+                  f"max|d mu| {d_mu:.3e}, max|d sigma| {d_sig:.3e} of the largest, FID to "
+                  f"the repo's cache {dist:.3e}")
+            bound = PIXEL_STATS_RTOL if tag_name == "pixel_features" else R9_STATS_RTOL
+            check(d_mu <= bound and d_sig <= bound,
+                  f"phase 7: {tag_name} {split} statistics {d_mu}, {d_sig} from the cache")
+    shutil.rmtree(stats_root)
+
+    # (iii) table 1 at full width
+    ctx7 = common.ExperimentContext(os.path.join(here, "models"),
+                                    os.path.join(here, "build", "chip_smoke", "figures"),
+                                    scale=1.0, device=str(dev))
+    columns, col_s = {}, {}
+
+    def column(name, fn):
+        torch.cuda.synchronize()
+        t_col = time.perf_counter()
+        columns[name] = fn()
+        torch.cuda.synchronize()
+        col_s[name] = time.perf_counter() - t_col
+
+    column("FID (ResNet-9)", lambda: table_1.get_models_fids(
+        ctx7, seeds=TABLE_SEEDS, n_samples=FID_SAMPLES, feature_fn=feats_fn))
+    column("FID (pixels)", lambda: table_1.get_models_fids(
+        ctx7, seeds=TABLE_SEEDS, n_samples=FID_SAMPLES))
+    calls = []
+    PCTrainer.train_on_batch = timed
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        column("MSE", lambda: table_1.get_models_mse(ctx7, seeds=TABLE_SEEDS))
+        counts_mse = read_counts()
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+    mse_calls = list(calls)
+    column("marginal likelihood", lambda: table_1.get_models_ml(
+        ctx7, seeds=TABLE_SEEDS, n_samples=ML_SAMPLES))
+    fallbacks7 = sum(t.engine_calls for t in {id(c["trainer"]): c["trainer"]
+                                              for c in mse_calls}.values())
+    for name, table in columns.items():
+        check(table.shape == (len(TABLE_SEEDS), 3) and bool(np.isfinite(table).all()),
+              f"phase 7: table 1's {name} column is not finite")
+        for i, s in enumerate(TABLE_SEEDS):
+            print(f"phase 7: table 1 {name}, seed {s}: MCPC {table[i, 0]:.6f}, PC "
+                  f"{table[i, 1]:.6f}, DLGM {table[i, 2]:.6f}")
+        print(f"phase 7: table 1 {name}: {col_s[name]:.3f} s for {len(TABLE_SEEDS)} seeds "
+              f"(host work included) {tag}")
+    check(bool((columns["MSE"] > 0).all() and (columns["MSE"] < 1).all()),
+          "phase 7: an MSE outside (0, 1)")
+    check(bool((columns["marginal likelihood"] < 0).all()), "phase 7: a log-likelihood above 0")
+    print(f"phase 7: table 1's MSE column: mcpc_chain launches {counts_mse[0]}, "
+          f"sum_block_partials {counts_mse[2]}, PCTrainer "
+          f"calls {len(mse_calls)} (kernel {sum(c['kernel'] for c in mse_calls)}), engine "
+          f"fallbacks {fallbacks7}; a call {min(c['ms'] for c in mse_calls):.3f}-"
+          f"{max(c['ms'] for c in mse_calls):.3f} ms (B {sorted({c['B'] for c in mse_calls})})")
+    check(counts_mse[0] >= 1, "table 1's MSE column did not launch the chain kernel")
+    check(fallbacks7 == 0 and all(c["kernel"] for c in mse_calls),
+          "a call of table 1's MSE column ran in the step engine")
+
+    # (iv) DLGM and ResNet-9 training steps at their batch sizes
+    step_ms, step_loss = {}, {}
+
+    def timed_step(name, fn):
+        def step(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            end.synchronize()
+            step_ms.setdefault(name, []).append(start.elapsed_time(end))
+            loss = out if isinstance(out, torch.Tensor) else out[1]
+            step_loss.setdefault(name, []).append(float(loss))
+            return out
+        return step
+
+    dlgm_step, r9_make = DLGM.train_step, r9.make_train_step
+    DLGM.train_step = lambda self, x, eps=None: timed_step("DLGM", dlgm_step)(self, x, eps)
+    r9.make_train_step = lambda model, tx: timed_step("ResNet-9", r9_make(model, tx))
+    try:
+        dlgm = train_mnist.train_dlgm(1, os.path.join(here, "build", "chip_smoke", "dlgm_fid"),
+                                      seed=SEED, log=False, preset="fid",
+                                      batches_per_epoch=DLGM_STEPS, device=dev)
+        _, r9_state = train_mnist.train_resnet9_entry(
+            1, os.path.join(here, "build", "chip_smoke", "resnet9"), seed=SEED,
+            batches_per_epoch=R9_STEPS, log_every=0, device=dev)
+    finally:
+        DLGM.train_step, r9.make_train_step = dlgm_step, r9_make
+    check(torch.backends.cudnn.allow_tf32, "the ResNet-9 train step left cuDNN's TF32 flag off")
+    for name, B in (("DLGM", 64), ("ResNet-9", 128)):
+        ms, losses = step_ms[name], step_loss[name]
+        first, last = losses[0], statistics.mean(losses[-5:])
+        print(f"phase 7: {name} training, {len(ms)} steps of B={B}: "
+              f"{statistics.median(ms[1:]):.3f} ms a step (median; first {ms[0]:.3f}); loss "
+              f"{first:.4f} -> {last:.4f} (mean of the last 5) {tag}")
+        check(len(ms) == (DLGM_STEPS if name == "DLGM" else R9_STEPS), f"{name}: steps missing")
+        check(np.isfinite(losses).all() and last < first, f"phase 7: {name}'s loss did not fall")
+    # where a step's time goes: the device's busy time against the wall
+    x64 = next(iter(get_mnist_data({"batch_size_train": 64, "batch_size_val": 64,
+                                    "batch_size_test": 64}, device=dev)[0]))[0]
+    train128 = next(iter(get_mnist_data({"batch_size_train": 128, "batch_size_val": 128,
+                                         "batch_size_test": 128}, device=dev)[0]))
+    r9_step = r9.make_train_step(r9.ResNet9().to(dev), port.OptimizerSpec("adam", lr=1e-3).make())
+    x128, y128 = train128[0].reshape(-1, 1, 28, 28), train128[1]
+    for name, fn in (("DLGM", lambda: dlgm.train_step(x64)),
+                     ("ResNet-9", lambda: r9_step(r9_state, x128, y128))):
+        wall, busy, top = profiled_ms(torch, fn)
+        step = statistics.median(step_ms[name][1:])
+        shown = "not measured (no device time in the trace)" if busy is None else (
+            f"{busy:.3f} ms busy a step, idle {100 * (1 - busy / step):.1f}% of the "
+            f"unprofiled {step:.3f} ms")
+        print(f"phase 7: {name} step under torch.profiler, 10 steps: {wall:.3f} ms wall a step, "
+              f"device {shown}; most device time: " + "; ".join(
+                  f"{k[:60]} {ms:.3f} ms ({n} a step)" for k, ms, n in top) + f" {tag}")
+    _, reloaded = r9.load_resnet9(os.path.join(here, "build", "chip_smoke", "resnet9.msgpack"),
+                                  device=dev)
+    check(all(torch.equal(reloaded.params[k], v) for k, v in r9_state.params.items()),
+          "phase 7: the ResNet-9 file does not reload bit for bit")
+    check(all(bool(torch.isfinite(t).all()) for t in dlgm.gen_params["T"][0].values()),
+          "phase 7: DLGM parameters not finite")
+
+    # (v) figure 2e with the shipped ResNet-9
+    calls = []
+    PCTrainer.train_on_batch = timed
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t7 = time.perf_counter()
+        kls = figure_2.comparison_ideal_observer(ctx7, resnet_state=state_r9)
+        torch.cuda.synchronize()
+        fig2e_s = time.perf_counter() - t7
+        counts_2e = read_counts()
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+    fallbacks_2e = sum(t.engine_calls for t in {id(c["trainer"]): c["trainer"]
+                                                for c in calls}.values())
+    print(f"phase 7: figure 2e: KL(ideal observer || ·) " + ", ".join(
+        f"{k} {v:.6f}" for k, v in kls.items()) + f"; {fig2e_s:.3f} s (host work included); "
+          f"mcpc_chain launches {counts_2e[0]}, sum_block_partials {counts_2e[2]}, "
+          f"PCTrainer calls {len(calls)}, engine "
+          f"fallbacks {fallbacks_2e}; " + ", ".join(
+              f"B={c['B']} {c['steps']} {c['mode']} steps {c['ms']:.3f} ms" for c in calls)
+          + f" {tag}")
+    check(all(np.isfinite(v) and v >= 0 for v in kls.values()), "figure 2e: a KL not finite")
+    check(counts_2e[0] >= 1 and fallbacks_2e == 0, "figure 2e did not run through the kernel")
+    torch.backends.cudnn.allow_tf32 = False
+    counts7 = tuple(a + b for a, b in zip(counts_mse, counts_2e))
+    print(f"phase 7 ends at {time.perf_counter() - t_start:.1f} s")
     launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
-                                        counts6, counts_tp)]
+                                        counts6, counts_tp, counts7)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

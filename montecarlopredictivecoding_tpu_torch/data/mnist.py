@@ -149,6 +149,38 @@ def load_mnist_arrays(
     return _synthetic_mnist(n_synthetic_train, n_synthetic_test)
 
 
+def mnist_source_fingerprint(
+    root: str = "MNIST_data",
+    allow_synthetic: bool = True,
+    n_synthetic_test: int = 10000,
+) -> tp.Tuple[str, str]:
+    """Identify the test split's content as ``(source, digest)`` without
+    loading it, exactly as the JAX package does: real IDX files give
+    ``("idx", <first 12 hex digits of the sha256 of the test images and
+    labels>)``; the synthetic fallback, a deterministic generator, gives
+    ``("synthetic", "v1n<n_synthetic_test>")``.  The FID reference caches
+    (``eval/fid.py``) are keyed on it, so both packages share their files
+    and real IDX files under ``<root>/MNIST/raw`` invalidate synthetic ones.
+    """
+    import hashlib
+
+    paths = {k: _find(root, v) for k, v in _RAW_NAMES.items()}
+    # the loader's all-files condition, so the fingerprint names what
+    # load_mnist_arrays returns
+    if all(paths.values()):
+        h = hashlib.sha256()
+        for k in ("test_images", "test_labels"):
+            with open(paths[k], "rb") as f:
+                h.update(f.read())
+        return "idx", h.hexdigest()[:12]
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            f"MNIST IDX files not found under {root!r} and synthetic fallback "
+            "disabled"
+        )
+    return "synthetic", f"v1n{n_synthetic_test}"
+
+
 class Batches:
     """Minimal array-backed batch iterator (the DataLoader role).
 

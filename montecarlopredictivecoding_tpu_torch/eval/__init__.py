@@ -4,6 +4,14 @@ from .classifier import (
     test_classifier,
     train_linear_classifier,
 )
+from .fid import (
+    FIDStats,
+    compute_fid,
+    compute_stats,
+    get_fid,
+    make_inception_features,
+    make_mnist_fid_stats,
+)
 from .metrics import (
     KLdivergence,
     decode_from_deepest_latent,
@@ -19,6 +27,12 @@ __all__ = [
     "get_representations",
     "test_classifier",
     "train_linear_classifier",
+    "FIDStats",
+    "compute_fid",
+    "compute_stats",
+    "get_fid",
+    "make_inception_features",
+    "make_mnist_fid_stats",
     "KLdivergence",
     "decode_from_deepest_latent",
     "get_marginal_likelihood",

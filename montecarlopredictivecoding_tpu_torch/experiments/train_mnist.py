@@ -15,21 +15,31 @@ the latents and takes the last step's parameter gradients (one chain launch
 with ``warm_pgrads``, and the summing pass), then one Adam step on the
 parameters.  The ``ml`` and ``mse`` presets are tanh models.
 
+The DLGM baseline (``train_dlgm``, ``--model dlgm``): Adam at lr 1e-3 on
+the summed ELBO loss, B=64; presets fid and mse are hidden 256 / latent 20,
+ml hidden 128 / latent 10, recognition width factor 1; the native file
+holds ``(gen_params, rec_params)``.  The ResNet-9 ideal observer
+(``train_resnet9_entry``, ``--model resnet9|resnet9_mask``): Adam at lr
+1e-3, B=128, the masked variant on the bottom halves; the file is flax's
+``{"params", "batch_stats"}`` layout, which the JAX package reads.
+
 Usage:
     python3 -m montecarlopredictivecoding_tpu_torch.experiments.train_mnist \\
         --model mcpc --epochs 10 --out models/mcpc_fid_1.msgpack
     python3 -m ...train_mnist --model pc --preset ml --out models/pc_ml_1.msgpack
+    python3 -m ...train_mnist --model dlgm --preset ml --out models/dlgm_ml_1.msgpack
+    python3 -m ...train_mnist --model resnet9 --epochs 1 --out models/resnet9.msgpack
     python3 -m ...train_mnist --model mcpc --snapshot-epochs 0 5 10 \\
         --out models/epoch_save/mcpc_aging_0
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``--model dlgm`` (item 10), ``--model resnet9`` (item 5), ``--mesh``
-(item 8).
+Not ported yet: ``--mesh`` (raises ``NotImplementedError`` naming ROADMAP.md
+queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 import typing as tp
 
@@ -41,13 +51,11 @@ from ..core.trainer import LangevinStep
 from ..data import get_mnist_data
 from ..models.factory import get_mcpc_trainer, get_model, get_pc_trainer
 from ..ops.mcpc_chain import mcpc_chain
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import save_checkpoint, save_resnet9
 
-_WAITING = {
-    "dlgm": "queue 1 item 10 (the DLGM baselines)",
-    "resnet9": "queue 1 item 5 (ResNet-9, with sample and score)",
-    "resnet9_mask": "queue 1 item 5 (ResNet-9, with sample and score)",
-}
+
+def _msgpack(out: str) -> str:
+    return out if out.endswith(".msgpack") else out + ".msgpack"
 
 
 def apply_preset(config: dict, preset: str, model: str) -> dict:
@@ -196,8 +204,7 @@ def train_mcpc(
 
     def snap(tag):
         path = out + (f"_epoch{tag}" if tag is not None else "")
-        save_checkpoint(path if path.endswith(".msgpack") else path + ".msgpack",
-                        gen.params)
+        save_checkpoint(_msgpack(path), gen.params)
 
     if 0 in snapshot_epochs:
         snap("_init")
@@ -262,14 +269,55 @@ def train_pc(epochs: int, out: str, seed: int = 0, batches_per_epoch=None, log=T
             torch.cuda.synchronize(device)  # so the epoch's time is honest
         if log:
             print(f"epoch {epoch}: {time.time() - t0:.1f}s")
-    save_checkpoint(out if out.endswith(".msgpack") else out + ".msgpack", gen.params)
+    save_checkpoint(_msgpack(out), gen.params)
     return gen
+
+
+def train_dlgm(epochs: int, out: str, seed: int = 0, log=True, preset: str = "fid",
+               batches_per_epoch=None, device="cuda"):
+    """DLGM MNIST training, B=64: the table-1 configurations (fid and mse:
+    hidden 256, latent 20; ml: hidden 128, latent 10; recognition width
+    factor 1).  Parameters and draws come from ``seed``.  Saves ``(gen_params,
+    rec_params)`` natively to ``out`` and returns the :class:`DLGM`."""
+    from ..models.dlgm import DLGM
+
+    config = {"loss_fn": bernoulli_fn, "batch_size_train": 64,
+              "batch_size_val": 1024, "batch_size_test": 1024}
+    train, _, _ = get_mnist_data(config, seed=seed, device=device)
+    if batches_per_epoch is not None:
+        train = list(itertools.islice(train, batches_per_epoch))
+    hidden, latent = (128, 10) if preset == "ml" else (256, 20)
+    dlgm = DLGM(input_dim=784, hidden_dim=hidden, latent_dim=latent, factor_recog=1,
+                seed=seed, device=device)
+    dlgm.train(train, epochs=epochs, log=log)
+    save_checkpoint(_msgpack(out), (dlgm.gen_params, dlgm.rec_params))
+    return dlgm
+
+
+def train_resnet9_entry(epochs: int, out: str, seed: int = 0, is_mask: bool = False,
+                        batches_per_epoch=None, log_every: int = 100, device="cuda"):
+    """Train the ResNet-9 ideal observer (B=128; ``is_mask``: the half-image
+    variant) from ``seed`` and write it in flax's layout to ``out``.
+    Returns ``(model, state)``."""
+    from ..models.resnet9 import train_resnet9
+
+    config = {"loss_fn": bernoulli_fn, "batch_size_train": 128,
+              "batch_size_val": 1024, "batch_size_test": 1024}
+    train, _, _ = get_mnist_data(config, seed=seed, device=device)
+    if batches_per_epoch is not None:
+        train = list(itertools.islice(train, batches_per_epoch))
+    model, state = train_resnet9(train, generator=torch.Generator().manual_seed(seed),
+                                 epochs=epochs, is_mask=is_mask, log_every=log_every,
+                                 device=device)
+    save_resnet9(_msgpack(out), {**state.params, **state.batch_stats}, is_mask)
+    return model, state
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", choices=["mcpc", "pc", *_WAITING], required=True)
+    p.add_argument("--model", choices=["mcpc", "pc", "dlgm", "resnet9", "resnet9_mask"],
+                   required=True)
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--out", required=True)
     p.add_argument("--seed", type=int, default=0)
@@ -282,15 +330,21 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernel) or 'cpu' (the plain version)")
     args = p.parse_args(argv)
-    if args.model in _WAITING:
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet: ROADMAP.md {_WAITING[args.model]}")
+    if args.model != "mcpc" and args.mesh is not None:
+        p.error("--mesh is only supported for --model mcpc")
     if args.model == "pc":
-        if args.mesh is not None:
-            p.error("--mesh is only supported for --model mcpc")
         train_pc(args.epochs, args.out, seed=args.seed,
                  batches_per_epoch=args.batches_per_epoch, preset=args.preset,
                  device=args.device)
+        return
+    if args.model == "dlgm":
+        train_dlgm(args.epochs, args.out, seed=args.seed, preset=args.preset,
+                   batches_per_epoch=args.batches_per_epoch, device=args.device)
+        return
+    if args.model.startswith("resnet9"):
+        train_resnet9_entry(args.epochs, args.out, seed=args.seed,
+                            is_mask=args.model == "resnet9_mask",
+                            batches_per_epoch=args.batches_per_epoch, device=args.device)
         return
     train_mcpc(
         args.epochs,

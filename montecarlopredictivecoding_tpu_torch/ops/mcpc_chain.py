@@ -543,6 +543,23 @@ def full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+@contextlib.contextmanager
+def full_f32_conv():
+    """TF32 off for the cuDNN convolutions and the matrix products inside,
+    restored on the way out.  ``torch.backends.cudnn.allow_tf32`` is True by
+    default, so a convolution on the card would otherwise run in TF32 (10
+    mantissa bits, about 1e-3 relative after ResNet-9's eight layers) where
+    the JAX package computes f32.  The ResNet-9 and Inception functions run
+    inside it; nothing else of the port changes."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with full_f32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 def traj_scalar_rows(traj: Tensor, params, target, c: _Chain,
                      traj3: tp.Optional[Tensor] = None):
     """Pre-update ``(loss [n_cap], energy [n_cap])`` sums of every captured

@@ -1,5 +1,5 @@
-"""Checkpoints: the native format and the torch state-dict shims for the
-generative MLP.
+"""Checkpoints: the native format, and the torch state-dict shims for the
+generative MLP, the DLGM and ResNet-9.
 
 The native format is the JAX package's: flax's msgpack serialization of a
 params pytree.  A tuple or list is a map keyed ``"0"``, ``"1"``, ...; a dict
@@ -10,9 +10,13 @@ JAX package and the JAX package's ``models/*.msgpack`` load here.  Neither
 of msgpack that those files use (nil, bool, int, float, str, bin, array,
 map, ext).
 
-The shims map the reference's ``torch.save(state_dict)`` layout (keys
+The MLP's shims map the reference's ``torch.save(state_dict)`` layout (keys
 ``"<module_idx>.weight"`` / ``".bias"``, weights ``[out, in]``) onto the
-params tuple (weights ``[in, out]``) and back.
+params tuple (weights ``[in, out]``) and back.  The DLGM's map the
+reference's DLGM files onto ``(gen_params, rec_params)`` and back; a native
+DLGM file is that tuple, stored as ``{"0", "1"}``.  ResNet-9's map the
+reference's torch layout, which the port's module uses, onto the flax
+variables of ``models/resnet9.msgpack`` and back.
 """
 
 from __future__ import annotations
@@ -324,3 +328,209 @@ def save_torch_state_dict(path: str, model: PCModel, params) -> None:
     """Write a reference-loadable torch checkpoint for a params tuple."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save(params_to_torch_state_dict(model, params), path)
+
+
+def read_checkpoint(path: str) -> dict:
+    """A native (flax-msgpack) file as it is stored: nested dicts of numpy
+    arrays, tuples and lists as maps keyed ``"0"``, ``"1"``, ...  For files
+    whose structure is not a params tuple, such as ResNet-9's ``{"params",
+    "batch_stats"}`` variables."""
+    with open(path, "rb") as f:
+        return _unpack(f.read())
+
+
+# ---------------------------------------------------------------- the DLGM
+
+
+def _as_tensor(v, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(v.detach().cpu() if hasattr(v, "detach") else v),
+                           dtype=torch.float32).to(device)
+
+
+def torch_dlgm_state_dict_to_params(state_dict: tp.Mapping[str, tp.Any], device="cuda"):
+    """A reference DLGM checkpoint as ``(gen_params, rec_params)`` for
+    :class:`..models.dlgm.DLGM`, weights ``[in, out]`` on ``device``.
+
+    Both layouts the reference writes: the nested ``{"generative_model": sd,
+    "recognition_model": sd}`` (flattened to dotted keys first) and flat
+    dotted state dicts.  Both topologies: the simple one-level model
+    (``fc3``/``fc4`` and ``fc1``/``fc21``/``fc22``), returned as ``({"fc3",
+    "fc4"}, {"nets": [one net]})``, and the stacked one (``T_list``,
+    ``final``, ``node_list.N``)."""
+    if any(not hasattr(v, "shape") and isinstance(v, tp.Mapping)
+           for v in state_dict.values()):
+        flat = {}
+        for top, sub in state_dict.items():
+            if isinstance(sub, tp.Mapping):
+                for k, v in sub.items():
+                    flat[f"{top}.{k}"] = v
+            else:
+                flat[top] = sub
+        state_dict = flat
+
+    def linear(prefix):
+        return {"w": _as_tensor(state_dict[prefix + ".weight"], device).t().contiguous(),
+                "b": _as_tensor(state_dict[prefix + ".bias"], device)}
+
+    def net(prefix):
+        return {"fc1": linear(prefix + ".fc1"), "mu": linear(prefix + ".fc21"),
+                "cov": linear(prefix + ".fc22")}
+
+    if "generative_model.fc3.weight" in state_dict:
+        gen = {"fc3": linear("generative_model.fc3"), "fc4": linear("generative_model.fc4")}
+        return gen, {"nets": [net("recognition_model")]}
+
+    T = []
+    for k in sorted(state_dict):
+        m = re.fullmatch(r"generative_model\.T_list\.(\d+)\.1\.weight", k)
+        if m:
+            i = int(m.group(1))
+            while len(T) <= i:
+                T.append({})
+            T[i] = linear(f"generative_model.T_list.{i}.1")
+    gen = {"T": T, "final": linear("generative_model.final.1")}
+    if "generative_model.bias.bias" in state_dict:
+        gen["bias"] = _as_tensor(state_dict["generative_model.bias.bias"], device)
+    else:
+        # the first T block's input width is the top latent's
+        gen["bias"] = torch.zeros((T[0]["w"].shape[0],), device=device)
+    nets = []
+    while f"recognition_model.node_list.{len(nets)}.fc1.weight" in state_dict:
+        nets.append(net(f"recognition_model.node_list.{len(nets)}"))
+    return gen, {"nets": nets}
+
+
+def load_torch_dlgm(path: str, device="cuda"):
+    """A reference DLGM ``torch.save`` file as ``(gen_params, rec_params)``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return torch_dlgm_state_dict_to_params(sd, device)
+
+
+def dlgm_params_to_torch_state_dict(gen_params, rec_params) -> dict:
+    """A simple-topology DLGM (one latent level, ``fc3``/``fc4``) in the
+    reference's nested save format, ``{"generative_model": sd,
+    "recognition_model": sd}`` of CPU tensors, weights ``[out, in]``: the
+    only topology the reference's evaluation reads."""
+    if "fc3" not in gen_params:
+        raise ValueError(
+            "torch export covers the simple one-level DLGM topology "
+            "(gen_params with fc3/fc4); the stacked one has no torch "
+            "consumer in the reference"
+        )
+
+    def w(t):
+        return t.detach().cpu().t().contiguous()
+
+    def b(t):
+        return t.detach().cpu().clone()
+
+    net = rec_params["nets"][0]
+    return {
+        "generative_model": {
+            "fc3.weight": w(gen_params["fc3"]["w"]), "fc3.bias": b(gen_params["fc3"]["b"]),
+            "fc4.weight": w(gen_params["fc4"]["w"]), "fc4.bias": b(gen_params["fc4"]["b"]),
+        },
+        "recognition_model": {
+            "fc1.weight": w(net["fc1"]["w"]), "fc1.bias": b(net["fc1"]["b"]),
+            "fc21.weight": w(net["mu"]["w"]), "fc21.bias": b(net["mu"]["b"]),
+            "fc22.weight": w(net["cov"]["w"]), "fc22.bias": b(net["cov"]["b"]),
+        },
+    }
+
+
+# ---------------------------------------------------------------- ResNet-9
+
+# the reference's torch module path of each conv block, in the call order of
+# the flax model's ConvBlock_0..7 (the port's ResNet9 uses these names)
+_RESNET9_BLOCKS = (
+    "conv1", "conv2", "res1.0", "res1.1", "conv3", "conv4", "res2.0", "res2.1"
+)
+
+
+def _resnet9_feats_hw(is_mask: bool) -> tp.Tuple[int, int]:
+    """Spatial shape of the map before the flatten, on MNIST inputs: full
+    28x28 images end at 1x1; the masked variant's 14x28 bottom halves (no
+    pool in conv4) at 1x3, hence its 768-wide head."""
+    return (1, 3) if is_mask else (1, 1)
+
+
+def _np(v) -> np.ndarray:
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+
+
+def resnet9_from_torch_state_dict(state_dict: tp.Mapping[str, tp.Any],
+                                  is_mask: bool = False):
+    """A torch ResNet-9 state dict (the reference's layout, which the port's
+    :class:`..models.resnet9.ResNet9` uses) as flax variables ``(params,
+    batch_stats)`` of numpy arrays, the layout of ``models/resnet9.msgpack``.
+
+    Conv kernels go from torch ``[out, in, kh, kw]`` to flax ``[kh, kw, in,
+    out]``; BatchNorm weight and bias become scale and bias, the running
+    stats ``batch_stats``; the classifier's input order goes from torch's
+    channel-major (NCHW) flatten to flax's NHWC flatten, an identity for the
+    full image's 1x1 map but a permutation for the masked head's 1x3."""
+    params: dict = {}
+    stats: dict = {}
+    for i, blk in enumerate(_RESNET9_BLOCKS):
+        name = f"ConvBlock_{i}"
+        params[name] = {
+            "Conv_0": {"kernel": _np(state_dict[f"{blk}.0.weight"]).transpose(2, 3, 1, 0).copy(),
+                       "bias": _np(state_dict[f"{blk}.0.bias"]).copy()},
+            "BatchNorm_0": {"scale": _np(state_dict[f"{blk}.1.weight"]).copy(),
+                            "bias": _np(state_dict[f"{blk}.1.bias"]).copy()},
+        }
+        stats[name] = {"BatchNorm_0": {"mean": _np(state_dict[f"{blk}.1.running_mean"]).copy(),
+                                       "var": _np(state_dict[f"{blk}.1.running_var"]).copy()}}
+    h, w = _resnet9_feats_hw(is_mask)
+    cw = _np(state_dict["classifier.weight"])  # [classes, C*h*w], CHW order
+    classes = cw.shape[0]
+    params["Dense_0"] = {
+        "kernel": cw.reshape(classes, -1, h, w).transpose(0, 2, 3, 1).reshape(classes, -1).T.copy(),
+        "bias": _np(state_dict["classifier.bias"]).copy(),
+    }
+    return params, stats
+
+
+def resnet9_to_torch_state_dict(params, batch_stats, is_mask: bool = False) -> dict:
+    """Flax ResNet-9 variables (arrays or tensors) as the reference's torch
+    state dict of CPU tensors, ``num_batches_tracked`` included, so it loads
+    strictly into the reference's module and the port's."""
+    def t(a):
+        return torch.from_numpy(np.array(_np(a)))
+
+    sd: dict = {}
+    for i, blk in enumerate(_RESNET9_BLOCKS):
+        name = f"ConvBlock_{i}"
+        conv, bn = params[name]["Conv_0"], params[name]["BatchNorm_0"]
+        run = batch_stats[name]["BatchNorm_0"]
+        sd[f"{blk}.0.weight"] = t(_np(conv["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{blk}.0.bias"] = t(conv["bias"])
+        sd[f"{blk}.1.weight"] = t(bn["scale"])
+        sd[f"{blk}.1.bias"] = t(bn["bias"])
+        sd[f"{blk}.1.running_mean"] = t(run["mean"])
+        sd[f"{blk}.1.running_var"] = t(run["var"])
+        sd[f"{blk}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    h, w = _resnet9_feats_hw(is_mask)
+    kernel = _np(params["Dense_0"]["kernel"])  # [h*w*C, classes], HWC order
+    classes = kernel.shape[1]
+    sd["classifier.weight"] = t(
+        kernel.T.reshape(classes, h, w, -1).transpose(0, 3, 1, 2).reshape(classes, -1))
+    sd["classifier.bias"] = t(params["Dense_0"]["bias"])
+    return sd
+
+
+def load_resnet9_state_dict(path: str, is_mask: bool = False) -> dict:
+    """A flax ResNet-9 file (``{"params": {ConvBlock_0..7, Dense_0},
+    "batch_stats": ...}``, as ``models/resnet9.msgpack``) as a torch state
+    dict."""
+    raw = read_checkpoint(path)
+    if set(raw) != {"params", "batch_stats"}:
+        raise ValueError(f"{path} holds {sorted(raw)}, not ResNet-9 variables")
+    return resnet9_to_torch_state_dict(raw["params"], raw["batch_stats"], is_mask)
+
+
+def save_resnet9(path: str, state_dict: tp.Mapping[str, tp.Any], is_mask: bool = False) -> None:
+    """Write a torch ResNet-9 state dict as flax variables, the file the JAX
+    package's ``flax.serialization.from_bytes`` reads."""
+    params, stats = resnet9_from_torch_state_dict(state_dict, is_mask)
+    save_checkpoint(path, {"params": params, "batch_stats": stats})
