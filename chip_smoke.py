@@ -159,6 +159,30 @@ fig. 2e)  default, True, so that the port's ResNet-9 and Inception functions mus
          shipped ResNet-9: the KL table, its launches (counts zeroed just
          before, read just after), no engine fallback.
 
+Phase 8  drives figures 2 (a, b), 4, 5 and 6 (``experiments/figure_2.py``,
+(figures ``figure_4.py``, ``figure_5.py``, ``figure_6.py``), nothing drawn.  The
+2ab, 4,   kernel paths at full width and the published step counts, counts
+5, 6)    zeroed just before and read just after: figure 5b
+         (``similarity_increase_digit``) for seeds FIG5_SEEDS at epochs
+         FIG5_EPOCHS from ``models/epoch_save``, each seed in turn through
+         the sweep (a warm start of 1000 Adam steps, then 500 + 9500
+         Langevin steps captured every 20, B=256, four stimuli); figure 5a
+         (``variability_stimulus_onset_nonlinear``) in both modes on
+         ``mcpc_fid_1`` (MCPC B=256, PC B=100, 8000 steps a call captured
+         every 4); figure 4e (``image_reconstruction``, B=1024, 250 Adam steps
+         on ``mcpc_mse_1`` and ``pc_mse_1``, masked) and 4d
+         (``image_generation``).  Every ``PCTrainer`` call must take the
+         kernel; it prints each kind of call's time beside its bound.  One
+         figure-5 chain and the 4e launch on ``mcpc_mse_1`` run again on their
+         recorded inputs and are held against the plain version as in phase
+         5.  Then the 1-D models, which the step engine runs (figure 2 (a, b)
+         at FIG2_SCALE, 4a and 4c on 3 data batches, figure 6 at
+         FIG_ENGINE_SCALE; 4b is left to the CPU tests), with their engine
+         time a step on the card and, for figure 6, on the CPU; figure 2's
+         samples must sit near the posterior N(0.44, 0.2).  Last, the
+         stacked DLGM's metrics (``StackedMetrics``) on the card against the
+         CPU.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -302,6 +326,15 @@ R9_CPU_IMAGES, R9_FEAT_RTOL = 256, 1e-5
 PIXEL_STATS_RTOL, R9_STATS_RTOL = 1e-12, 1e-4
 DLGM_STEPS, R9_STEPS = 200, 100
 FID_SAMPLES = 5000  # samples a model, as table 1's FID column takes
+# phase 8: figure 5b's seed models and epochs (the figure script's default
+# run), figure 6's noise variances, and the scales of the figures the step
+# engine runs (one small autograd step at a time, about 1.6 ms a step on the
+# card): figure 2's, and the others' at their smallest step counts.  The
+# stacked DLGM's NLL on the card within STACKED_RTOL of the CPU's (f32 sums
+# and solves of 201 x 201 factors in another order)
+FIG5_SEEDS, FIG5_EPOCHS = (0, 1, 2), (0, 5, 10, 15)
+FIG2_SCALE, FIG_ENGINE_SCALE, FIG6_NOISE = 0.2, 0.01, (2.0, 16.0)
+STACKED_RTOL = 1e-4
 # the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
 # sheet, 700 W): the least time the card could take for bf16 products
 PEAK_BF16_FLOPS = 989e12
@@ -1515,9 +1548,13 @@ def main() -> int:
              ("joint sampler, Langevin", parts5["joint sampler"][0] + 1, FID),
              ("figure 3b, PC warm start", parts5["figure 3b"][0], FID),
              ("figure 3b, Langevin", parts5["figure 3b"][0] + 1, FID)]
-    fig5_failed = []
-    for label, i, dims in held5:
-        rec = recorder.calls[i]
+    def hold_replay(phase, label, rec, dims, off=False):
+        """Launch a recorded chain call again on its inputs (the same bits but
+        the trajectory), then hold it against the plain version: a Langevin
+        chain cut to 500 steps; an Adam chain at the longest of a few
+        lengths where the plain f32 version stays within P1_ATOL of float64.
+        ``off`` moves x3 off its prediction first.  Returns what failed."""
+        failed_here = []
         params_r, lat_r, target_r, seed_r = rec["inputs"]
         kw = rec["kw"]
         again = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **kw)
@@ -1526,11 +1563,8 @@ def main() -> int:
         again_parts.pop("traj3", None)
         same = bits_equal(torch, again_parts, rec["parts"])
         if not same:
-            fig5_failed.append(f"{label}: the repeated launch differs")
+            failed_here.append(f"{label}: the repeated launch differs")
         del again, again_parts
-        # x3 starts at its prediction there (off_prediction says why the
-        # chain is held from x3 moved off it)
-        off = label == "joint sampler, PC warm start"
         if off:
             lat_r = off_prediction(torch, lat_r, torch.Generator().manual_seed(SEED + 6))
         warm_only = kw["T"] == 0
@@ -1554,21 +1588,28 @@ def main() -> int:
         if not warm_only:
             p64 = 0.0   # a Langevin chain is held at its cut whatever the distance
         shown = {k: v for k, v in kw.items() if k not in ("warm_mu", "warm_nu")}
-        head = (f"phase 5: {label}: options {shown}; the repeated launch gives the same "
+        head = (f"phase {phase}: {label}: options {shown}; the repeated launch gives the same "
                 f"bits: {same}; the plain f32 version's distance to float64 by length "
                 f"({', '.join(tried)})")
         if p64 > P1_ATOL:
             print(f"{head}; not held (the plain f32 version leaves float64 beyond "
                   f"{P1_ATOL} in one step) {tag}")
             del ref, ref64
-            continue
+            return failed_here
         got = chain.mcpc_chain(params_r, lat_r, target_r, seed_r, **short)
         text, failed = held(f"{label}, {n} steps", got, ref, ref64, short, dims)
         print(f"{head}; held at {n} of {steps} steps"
               f"{', x3 moved off its prediction' if off else ''}: {text}; the plain version "
               f"{plain_ms:.3f} ms {tag}")
-        fig5_failed += failed
         del got, ref, ref64
+        return failed_here + failed
+
+    fig5_failed = []
+    for label, i, dims in held5:
+        # x3 starts at its prediction in the joint sampler's warm start
+        # (off_prediction says why the chain is held from x3 moved off it)
+        fig5_failed += hold_replay(5, label, recorder.calls[i], dims,
+                                   off=label == "joint sampler, PC warm start")
     check(not fig5_failed, "phase 5 " + "; ".join(fig5_failed))
 
     # tanh against relu on chain (a)'s inputs: the kernel (median of 3), the
@@ -2112,8 +2153,253 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     counts7 = tuple(a + b for a, b in zip(counts_mse, counts_2e))
     print(f"phase 7 ends at {time.perf_counter() - t_start:.1f} s")
+    # ---------------------------------------------------------- phase 8
+    # figures 2 (a, b), 4, 5 and 6.  The kernel paths (figure 5's chains,
+    # 4e's MAP inference) at the published step counts; the 1-D models,
+    # which the step engine runs, at FIG_ENGINE_SCALE on 3 data batches
+    from montecarlopredictivecoding_tpu_torch.experiments import figure_4, figure_5, figure_6
+    from montecarlopredictivecoding_tpu_torch.models import dlgm_stacked
+
+    for seed in FIG5_SEEDS:
+        for epoch in FIG5_EPOCHS:
+            name = figure_5.epoch_checkpoint(seed, epoch)
+            check(os.path.isfile(os.path.join(here, "models", name + ".msgpack")),
+                  f"models/{name}.msgpack is missing")
+    fig_dir = os.path.join(here, "build", "chip_smoke", "figures")
+    ctx8 = common.ExperimentContext(os.path.join(here, "models"), fig_dir, scale=1.0,
+                                    device="cuda")
+    calls = []
+    recorder = ChainRecorder(torch, chain.mcpc_chain)
+    parts8, wall8, out8 = {}, {}, {}
+
+    def part8(name, fn):
+        """Run one path; remember its PCTrainer calls, its result and its
+        wall time (host work included)."""
+        first = len(calls)
+        torch.cuda.synchronize()
+        t_part = time.perf_counter()
+        out8[name] = fn()
+        torch.cuda.synchronize()
+        wall8[name] = time.perf_counter() - t_part
+        parts8[name] = (first, len(calls))
+
+    PCTrainer.train_on_batch = timed
+    chain.mcpc_chain = recorder
+    try:
+        zero_counts()
+        part8("figure 5b", lambda: figure_5.similarity_increase_digit(
+            ctx8, epochs=FIG5_EPOCHS, seeds=FIG5_SEEDS))
+        for mode in ("mcpc", "pc"):
+            part8(f"figure 5a {mode}",
+                  lambda: figure_5.variability_stimulus_onset_nonlinear(ctx8, mode))
+        part8("figure 4e", lambda: figure_4.image_reconstruction(ctx8))
+        part8("figure 4d", lambda: figure_4.image_generation(ctx8))
+        torch.cuda.synchronize()
+        counts8 = read_counts()
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+        chain.mcpc_chain = recorder.fn
+    trainers8 = {id(c["trainer"]): c["trainer"] for c in calls}.values()
+    fallbacks8 = sum(t.engine_calls for t in trainers8)
+    print(f"phase 8: main path launches: mcpc_chain {counts8[0]}, sum_block_partials "
+          f"{counts8[2]}; PCTrainer calls {len(calls)}, engine fallbacks {fallbacks8}")
+    n_fig5 = 2 * 4 * len(FIG5_EPOCHS) * len(FIG5_SEEDS)   # (warm, chain) a stimulus
+    expect8 = {"figure 5b": n_fig5, "figure 5a mcpc": 4, "figure 5a pc": 3, "figure 4e": 2,
+               "figure 4d": 0}
+    for name, n in expect8.items():
+        a, b = parts8[name]
+        check(b - a == n, f"phase 8 {name}: {b - a} PCTrainer calls, expected {n}")
+    check(fallbacks8 == 0 and all(c["kernel"] for c in calls),
+          "a phase-8 PCTrainer call ran in the step engine")
+    check(counts8[0] == len(calls) == len(recorder.calls),
+          f"{counts8[0]} launches for {len(calls)} PCTrainer calls")
+    dims8 = {"figure 4e": (MSE, PC_MSE)}   # mcpc_mse_1, then pc_mse_1; else FID
+    for name, (a, b) in parts8.items():
+        groups = {}
+        for i in range(a, b):
+            c = calls[i]
+            dims = dims8.get(name, (FID,) * (b - a))[i - a]
+            groups.setdefault((dims, c["B"], c["steps"], c["mode"]), []).append(i)
+        shown = []
+        for (dims, B, steps, mode), idx in groups.items():
+            ms = [calls[i]["ms"] for i in idx]
+            chain_ms = [recorder.calls[i]["events"][0].elapsed_time(
+                recorder.calls[i]["events"][1]) for i in idx]
+            shown.append(
+                f"{len(idx)} x {'-'.join(map(str, dims))} B={B}, {steps} {mode} steps: "
+                f"{min(ms):.3f}-{max(ms):.3f} ms a call (mcpc_chain {min(chain_ms):.3f}-"
+                f"{max(chain_ms):.3f}), {1e3 * statistics.median(ms) / steps:.3f} us/step "
+                f"(median), bound {chain_bound_ms(dims, B, steps):.3f} ms "
+                f"[{plan_text(dims, B, recorder.calls[idx[0]]['kw'])}]")
+        print(f"phase 8: {name}: {wall8[name]:.3f} s in all (host work included)"
+              + "".join("; " + s_ for s_ in shown) + f" {tag}")
+
+    # what each path computed
+    kls = out8["figure 5b"]
+    check(kls.shape == (3, len(FIG5_EPOCHS), len(FIG5_SEEDS)) and bool(np.isfinite(kls).all()),
+          f"figure 5b: KLs of shape {kls.shape}, or not finite")
+    for k, stim in enumerate(figure_5.STIMULI):
+        print(f"phase 8: figure 5b KL(spontaneous || {stim.strip()}) by epoch "
+              f"{FIG5_EPOCHS}, mean over seeds {FIG5_SEEDS}: "
+              + ", ".join(f"{v:.4f}" for v in kls[k].mean(-1)))
+    for mode in ("mcpc", "pc"):
+        res = out8[f"figure 5a {mode}"]
+        mean = res["mean"]
+        check(bool(np.isfinite(mean).any()) and np.isnan(mean).sum() < len(mean) // 2,
+              f"figure 5a {mode}: the rolling variability is not finite")
+        half = len(mean) // 2
+        print(f"phase 8: figure 5a {mode}: {len(mean)} captures; rolling std of the latents, "
+              f"mean over the units: {np.nanmean(mean[:half]):.4f} before the onset, "
+              f"{np.nanmean(mean[half:]):.4f} after it")
+    rec4e = out8["figure 4e"]
+    for k in ("img_pc", "img_mc", "img_dlgm"):
+        img = rec4e[k]
+        check(img.shape == (1024, 784) and bool(np.isfinite(img).all())
+              and img.min() >= 0.0 and img.max() <= 1.0, f"figure 4e {k}: {img.shape}")
+    hidden = rec4e["data"][:, :392]   # the top half, which the models did not see
+    print("phase 8: figure 4e, B=1024: MSE on the hidden half, thresholded at 0.5: "
+          + ", ".join(f"{k[4:]} {np.mean(((rec4e[k][:, :392] > 0.5) - hidden) ** 2):.5f}"
+        for k in ("img_pc", "img_mc", "img_dlgm")))
+    for k in ("pc", "dlgm"):
+        img = out8["figure 4d"][k]
+        check(img.shape == (256, 28, 28) and bool(np.isfinite(img).all())
+              and img.min() >= 0.0 and img.max() <= 1.0, f"figure 4d {k}: {img.shape}")
+
+    # one figure-5 chain (captured, B=256) and one figure-4e launch (masked,
+    # B=1024) again on their recorded inputs, held by phase 1's rule at a cut
+    # length as in phase 5
+    i5 = parts8["figure 5b"][0] + 1
+    check(recorder.calls[i5]["kw"].get("capture_stride"), "the figure-5 chain is not captured")
+    fig8_failed = hold_replay(8, "figure 5b, seed 0's spontaneous chain", recorder.calls[i5],
+                              FID)
+    fig8_failed += hold_replay(8, "figure 4e, mcpc_mse_1",
+                               recorder.calls[parts8["figure 4e"][0]], MSE)
+    check(not fig8_failed, "phase 8 " + "; ".join(fig8_failed))
+
+    # the step engine's paths: the 1-D models at FIG_ENGINE_SCALE on the card,
+    # then figure 6's on the CPU for the engine's cost a step on each
+    engine_calls = []
+
+    def host_timed(self, inputs, *args, **kwargs):
+        """PCTrainer.train_on_batch on the host's clock (synchronised), with
+        the path it took."""
+        kernel_before = self.kernel_calls
+        t_call = time.perf_counter()
+        out = train_on_batch(self, inputs, *args, **kwargs)
+        if inputs.is_cuda:
+            torch.cuda.synchronize()
+        engine_calls.append(dict(device=inputs.device.type, steps=self.T,
+                                 s=time.perf_counter() - t_call,
+                                 kernel=self.kernel_calls > kernel_before))
+        return out
+
+    small = common.ExperimentContext(ctx8.path_models, fig_dir, scale=FIG_ENGINE_SCALE,
+                                     device="cuda")
+    datas = figure_4._make_datas(small, 3, 256)
+    engine_parts = [
+        ("figure 2 (a, b)", lambda c: figure_2.posterior_linear_model(
+            common.ExperimentContext(c.path_models, fig_dir, scale=FIG2_SCALE,
+                                     device=c.device))),
+        ("figure 4a", lambda c: figure_4.comparison_linear_model(c, datas=datas)),
+        ("figure 4c", lambda c: figure_4.pc_linear_learning(c, datas=datas)),
+        ("figure 6", lambda c: figure_6.varying_langevin_noise(c, FIG6_NOISE)),
+    ]
+    PCTrainer.train_on_batch = host_timed
+    launches_before = read_counts()
+    try:
+        for name, fn in engine_parts:
+            first = len(engine_calls)
+            t_part = time.perf_counter()
+            out8[name] = fn(small)
+            torch.cuda.synchronize()
+            wall8[name] = time.perf_counter() - t_part
+            parts8[name] = (first, len(engine_calls))
+        first = len(engine_calls)
+        t_part = time.perf_counter()
+        cpu6 = figure_6.varying_langevin_noise(
+            common.ExperimentContext(ctx8.path_models, fig_dir, scale=FIG_ENGINE_SCALE,
+                                     device="cpu"), FIG6_NOISE)
+        wall8["figure 6, CPU"] = time.perf_counter() - t_part
+        parts8["figure 6, CPU"] = (first, len(engine_calls))
+    finally:
+        PCTrainer.train_on_batch = train_on_batch
+    check(read_counts() == launches_before, "a step-engine figure launched a kernel")
+    check(not any(c["kernel"] for c in engine_calls), "a 1-D figure took the fused chain")
+    engine_s = 0.0
+    for name in [n for n, _ in engine_parts] + ["figure 6, CPU"]:
+        a, b = parts8[name]
+        steps = sum(c["steps"] for c in engine_calls[a:b])
+        s_calls = sum(c["s"] for c in engine_calls[a:b])
+        if name != "figure 6, CPU":
+            engine_s += wall8[name]
+        print(f"phase 8: {name} (step engine, {engine_calls[a]['device']}): "
+              f"{wall8[name]:.3f} s in all, {b - a} PCTrainer calls, {steps} engine steps, "
+              f"{1e6 * s_calls / steps:.1f} us a step {tag}")
+    fig2 = out8["figure 2 (a, b)"]
+    print(f"phase 8: figure 2 (a, b) at scale {FIG2_SCALE}: MAP {fig2['map']:.4f} (0.44), "
+          f"{len(fig2['samples'])} samples: mean {fig2['samples_mean']:.4f} (0.44), variance "
+          f"{fig2['samples_var']:.4f} (0.2)")
+    check(abs(fig2["map"] - 0.44) < 0.05 and abs(fig2["samples_mean"] - 0.44) < 0.15
+          and abs(fig2["samples_var"] - 0.2) < 0.1,
+          "figure 2 (a, b): the samples are not near the posterior N(0.44, 0.2)")
+    fig4a = out8["figure 4a"]
+    print(f"phase 8: figure 4a: sample variance MCPC {fig4a['mcpc_var']:.4f}, PC "
+          f"{fig4a['pc_var']:.4f} (data 5); (mu, W) MCPC {fig4a['mcpc_params']}, PC "
+          f"{fig4a['pc_params']}")
+    check(np.isfinite(fig4a["mcpc_var"]) and fig4a["mcpc_var"] > fig4a["pc_var"],
+          "figure 4a: MCPC's variance is not above PC's")
+    check(all(bool(np.isfinite(t).all()) for t in out8["figure 4c"]["trajectories"]),
+          "figure 4c: a trajectory is not finite")
+    fig6 = out8["figure 6"]
+    print(f"phase 8: figure 6, noise variances {list(FIG6_NOISE)}: generated variance "
+          f"{list(np.round(fig6['gen_vars'], 4))} (CPU {list(np.round(cpu6['gen_vars'], 4))}), "
+          f"learned |W| {list(np.round(np.abs(fig6['weights'][:, 1]), 4))}")
+    check(bool(np.isfinite(fig6["generated"]).all())
+          and abs(fig6["weights"][0, 1]) > abs(fig6["weights"][1, 1]),
+          "figure 6: the correct noise did not learn the larger |W|")
+    print(f"phase 8: the step engine's figures took {engine_s:.3f} s on the card; figure 4b "
+          f"(4 x 3 x 3 x 151 engine steps even on 3 batches) is left to the CPU tests "
+          f"(tests/test_torch_figure4.py)")
+
+    # the stacked DLGM's metrics on the card, against the same on the CPU
+    g8 = torch.Generator().manual_seed(SEED)
+    gen_st = dlgm_stacked.init_generative_stacked(g8, **dlgm_stacked.MNIST_PRESETS["mnist"],
+                                                  device=dev)
+    rec_st, factors_st = dlgm_stacked.init_recognition_stacked(
+        g8, **dlgm_stacked.RECOGNITION_PRESETS["mnist"], device=dev)
+    x8 = next(iter(get_mnist_data({"batch_size_train": 32, "batch_size_val": 32,
+                                   "batch_size_test": 32}, device=dev)[2]))[0]
+    draws = [[torch.randn(32 * 4, d, generator=g8) for d in (201, 200)]]
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    on_card = dlgm_stacked.StackedMetrics(gen_st, rec_st, factors_st, seed=SEED)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter()
+    nll_card = on_card.importance_nll([(x8, None)], particle_size=4, eps=draws)
+    mse_card = on_card.get_mse_rec([(x8, None)])
+    ml_card = on_card.get_marginal_likelihood([(x8, None)], n_samples=500)
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t8
+    on_cpu = dlgm_stacked.StackedMetrics(to_cpu(gen_st), to_cpu(rec_st), factors_st, seed=SEED)
+    nll_cpu = on_cpu.importance_nll([(x8.cpu(), None)], particle_size=4, eps=draws)
+    mse_cpu = on_cpu.get_mse_rec([(x8.cpu(), None)])
+    print(f"phase 8: StackedMetrics, preset mnist (201 + 200 latents, Cholesky factors), 32 "
+          f"images: importance NLL (4 particles) {nll_card:.4f} (CPU {nll_cpu:.4f}), masked MSE "
+          f"{mse_card:.5f} (CPU {mse_cpu:.5f}), marginal likelihood (500 samples) "
+          f"{ml_card:.3f}; {stacked_s:.3f} s on the card {tag}")
+    check(all(np.isfinite(v) for v in (nll_card, mse_card, ml_card)),
+          "StackedMetrics: a metric is not finite")
+    check(abs(nll_card - nll_cpu) <= STACKED_RTOL * abs(nll_cpu),
+          f"StackedMetrics: the card's NLL {nll_card} against the CPU's {nll_cpu}")
+    print(f"phase 8 ends at {time.perf_counter() - t_start:.1f} s")
     launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
-                                        counts6, counts_tp, counts7)]
+                                        counts6, counts_tp, counts7, counts8)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

@@ -545,11 +545,11 @@ class PCTrainer:
         return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
     def _run_kernel(self, dispatch, cfg, inputs, loss_fn_kwargs, langevin_var,
-                    generator):
+                    generator, chain_seed=None):
         from ..ops.mcpc_chain import mcpc_chain
 
         gen = self.gen
-        seed = self._chain_seed(generator)
+        seed = self._chain_seed(generator) if chain_seed is None else int(chain_seed)
         target = loss_fn_kwargs.get("_target")
         input_var = loss_fn_kwargs.get("_var") or 1.0
         stride = dispatch.get("capture_stride", 0)
@@ -705,12 +705,15 @@ class PCTrainer:
         is_return_batchelement_loss: bool = False,
         capture_stride: int = 1,
         key: tp.Optional[torch.Generator] = None,
+        chain_seed: tp.Optional[int] = None,
     ) -> dict:
         """Run T inference iterations on one batch.  Returns the results dict
         with per-step ``loss`` / ``energy`` / ``overall`` / ``x_lr_scale``
         tensors, ``stop_t``, plus the requested captures.  ``key`` is a
         ``torch.Generator`` for this call's latent sampling, noise and chain
-        seed (default: the model's)."""
+        seed (default: the model's).  ``chain_seed`` fixes the fused chain's
+        noise seed instead of drawing it; the engine, whose noise comes from
+        the generator, does not read it."""
         inputs = torch.as_tensor(inputs)
         loss_fn_kwargs = dict(loss_fn_kwargs or {})
         # kwargs that select static slices / reductions are bound into the
@@ -791,7 +794,7 @@ class PCTrainer:
         else:
             self.kernel_calls += 1
             results = self._run_kernel(
-                dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, generator)
+                dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, generator, chain_seed)
             if not is_return_results_every_t:
                 results = _last_only_results(results)
             return results

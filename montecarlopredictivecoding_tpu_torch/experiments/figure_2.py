@@ -1,14 +1,17 @@
-"""Figure 2 (c, d): the nonlinear MNIST model's class posteriors for a
-masked digit, PC's MAP against MCPC's Langevin samples, read through a
-linear probe of the first latent; (e): how far each is from the ResNet-9
-ideal observer's posterior (KL).
+"""Figure 2 (a, b): the 1-D linear-Gaussian model, whose MCPC Langevin
+samples match the closed-form posterior while PC lands on its mode; (c, d):
+the nonlinear MNIST model's class posteriors for a masked digit, PC's MAP
+against MCPC's Langevin samples, read through a linear probe of the first
+latent; (e): how far each is from the ResNet-9 ideal observer's posterior
+(KL).
 
     python3 -m montecarlopredictivecoding_tpu_torch.experiments.figure_2 --full
 
-``posterior_non_linear_model`` and ``comparison_ideal_observer`` compute;
+``posterior_linear_model``, ``posterior_non_linear_model`` and
+``comparison_ideal_observer`` compute; ``draw_posterior_linear_model``,
 ``draw_posteriors`` and ``draw_ideal_observer`` draw (they alone import
-matplotlib).  Panels (a, b), the 1-D linear-Gaussian model, wait for their
-ROADMAP.md item.
+matplotlib).  The 1-D model is outside the fused chain's family, so
+``PCTrainer`` runs panels (a, b) in its step engine, on ``ctx.device``.
 """
 
 from __future__ import annotations
@@ -18,14 +21,136 @@ import os
 import numpy as np
 import torch
 
-from ..core.losses import bernoulli_fn, bernoulli_fn_mask
-from ..core.trainer import LangevinStep
+from ..core.losses import bernoulli_fn, bernoulli_fn_mask, fe_fn
+from ..core.model import PCModel
+from ..core.modules import PC, Linear, sample_x_fn_cte
+from ..core.trainer import GenerativeModel, LangevinStep
 from ..data import get_mnist_data
 from ..eval.classifier import get_representations, train_linear_classifier
 from ..eval.metrics import kl_divergence_discrete
 from ..models.factory import get_mcpc_trainer, get_pc_trainer
-from ..utils.plotting import proba_to_coordinate
+from ..utils.plotting import animate_frames, proba_to_coordinate, pyplot, setup_fig
 from .common import ExperimentContext, context_from_args, load_generative_checkpoint, standard_parser
+
+
+# panels (a, b): prior mean, weight, observation variance and the observation
+POST_MU0, POST_W, POST_VAR, POST_Y = 0.2, 2.0, 1.0, 1.0
+
+
+def linear_posterior_density(x: np.ndarray) -> np.ndarray:
+    """The closed-form posterior p(x1 | y) of the 1-D model at ``x``: a
+    Gaussian of mean 0.44 and variance 0.2."""
+    mu0, w, var, y = POST_MU0, POST_W, POST_VAR, POST_Y
+    return (np.sqrt(w**2 + var) / np.sqrt(2 * np.pi * var)
+            * np.exp(-0.5 * ((x - mu0) ** 2 + (y - w * x) ** 2 / var
+                             - (y - w * mu0) ** 2 / (w**2 + var))))
+
+
+def posterior_linear_model(ctx: ExperimentContext) -> dict:
+    """Panels (a, b): the model x1 ~ N(0.2, 1), y ~ N(2 x1, 1), observed
+    y = 1, latent started at 3.  ``T_pc`` Adam steps (lr 0.02) find the MAP;
+    then, from 3 again, ``sampling`` Langevin steps (lr 0.02, noise variance
+    2) sample the posterior N(0.44, 0.2).  Returns the MAP, the samples after
+    the mixing steps, both trajectories (numpy) and the samples' mean and
+    variance."""
+    device = torch.device(ctx.device)
+    model = PCModel([
+        Linear(1, 1),
+        PC(sample_x_fn=sample_x_fn_cte),
+        Linear(1, 1, use_bias=False),
+    ])
+    params = ({"w": torch.zeros((1, 1), device=device),
+               "b": torch.tensor([POST_MU0], device=device)},
+              {"w": torch.tensor([[POST_W]], device=device)})
+    gen = GenerativeModel(model, ctx.generator(0), params=params, device=device)
+    config = {
+        "input_var": POST_VAR,
+        "T_pc": ctx.steps(2000),
+        "optimizer_x_fn_pc": "adam",
+        "optimizer_x_kwargs_pc": {"lr": 0.02},
+        "mixing": 0,
+        "sampling": ctx.steps(10000),
+        "optimizer_x_kwargs_mcpc": {"lr": 0.02},
+        "optimizer_p_fn_mcpc": "adam",
+        "loss_fn": fe_fn,
+    }
+    pc_trainer = get_pc_trainer(gen, config, is_mcpc=True, training=False)
+    mcpc_trainer = get_mcpc_trainer(gen, config, training=False)
+
+    data = torch.full((1, 1), POST_Y, device=device)
+    pseudo = torch.zeros((1, 1), device=device)
+    kwargs = {"_target": data, "_var": POST_VAR}
+    pc_results = pc_trainer.train_on_batch(
+        pseudo, loss_fn=fe_fn, loss_fn_kwargs=kwargs, is_return_representations=True)
+    map_est = float(gen.latents[0][0, 0])
+    mc_results = mcpc_trainer.train_on_batch(
+        pseudo, loss_fn=fe_fn, loss_fn_kwargs=kwargs,
+        callback_after_t=LangevinStep(var=2.0),
+        is_sample_x_at_batch_start=True, is_return_representations=True,
+    )
+    mc_traj = mc_results["representations"][:, 0, 0].cpu().numpy()
+    samples = mc_traj[config["mixing"]:]
+    return {
+        "map": map_est,
+        "samples": samples,
+        "mc_traj": mc_traj,
+        "pc_traj": pc_results["representations"][:, 0, 0].cpu().numpy(),
+        "samples_mean": float(samples.mean()),
+        "samples_var": float(samples.var()),
+    }
+
+
+def draw_posterior_linear_model(ctx: ExperimentContext, result: dict) -> None:
+    """Panel b (``2b.svg``: the samples' histogram over the posterior, the
+    MAP), panel a (``2a.svg``: both trajectories) and ``2b.gif`` (the
+    histogram building up over the chain)."""
+    plt = pyplot()
+    x_post = np.linspace(-10, 10, 1000)
+    post = linear_posterior_density(x_post)
+    samples = result["samples"]
+
+    plt.figure()
+    setup_fig(zero=False)
+    plt.plot(x_post, post, "k", label=r"$p(x_1|y;\theta)$", linewidth=3)
+    plt.hist(samples, bins=20, density=True, label="MCPC")
+    plt.vlines(result["map"], 0, 1, colors="r", label="PC", linewidth=3)
+    plt.xlabel(r"$x_1$")
+    plt.ylabel("probability density")
+    plt.xlim([-2, 4.5])
+    plt.ylim([0, 1.0])
+    plt.legend(loc=1)
+    plt.tight_layout()
+    plt.savefig(ctx.fig_path("2b.svg"))
+    plt.close()
+
+    plt.figure()
+    setup_fig()
+    mc_traj = result["mc_traj"]
+    plt.plot(mc_traj, "C0", label="MCPC", linewidth=2.5)
+    plt.plot(result["pc_traj"], "red", label="PC", linewidth=3)
+    plt.xlim([-5, min(1000, len(mc_traj))])
+    plt.ylim([-1.1, 3.1])
+    plt.xlabel("time (AU)")
+    plt.ylabel(r"$x_1$")
+    plt.legend()
+    plt.tight_layout()
+    plt.savefig(ctx.fig_path("2a.svg"))
+    plt.close()
+
+    anim = samples[:: max(len(samples) // 100, 1)][:100]
+
+    def frame(i, ax):
+        ax.hist(anim[: i + 1], density=True, bins=np.linspace(-1.5, 2.5, 20),
+                label=r"hist($x_1(t)$), [0, t]")
+        ax.plot(x_post, post, "k", label=r"$p(x_1|y;\theta)$", linewidth=3)
+        ax.scatter(anim[i], 0, c="orange", s=70, label=r"$x_1$(t)")
+        ax.set_xlabel(r"$x_1$")
+        ax.set_ylabel("probability")
+        ax.set_xlim([-1.5, 3.5])
+        ax.set_ylim([-0.1, 1.4])
+        ax.legend(loc=1)
+
+    animate_frames(frame, len(anim), ctx.fig_path("2b.gif"), fps=25)
 
 
 def _mnist_config(ctx: ExperimentContext) -> dict:
@@ -113,10 +238,7 @@ def draw_posteriors(ctx: ExperimentContext, preds_pc, preds_mc, img_kept: float 
     """The simplex plots of ``posterior_non_linear_model``'s output: one per
     image under ``digit_posteriors/``, and the fifth as 2c (full image) or
     2d (masked)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = pyplot()
 
     file_type = "full" if img_kept == 1.0 else "masked"
     os.makedirs(ctx.fig_path("digit_posteriors"), exist_ok=True)
@@ -213,12 +335,7 @@ def comparison_ideal_observer(ctx: ExperimentContext, resnet_state=None) -> dict
 
 def draw_ideal_observer(ctx: ExperimentContext, kls: dict):
     """Panel e: the KL bars of MCPC, PC and the shuffled mean, as 2e.svg."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    from ..utils.plotting import setup_fig
+    plt = pyplot()
 
     for name, kl in kls.items():
         print(f"{name:12s} KL {kl:.6f}")
@@ -237,6 +354,7 @@ def draw_ideal_observer(ctx: ExperimentContext, kls: dict):
 if __name__ == "__main__":
     args = standard_parser(__doc__).parse_args()
     ctx = context_from_args(args)
+    draw_posterior_linear_model(ctx, posterior_linear_model(ctx))
     for kept in (0.5, 1.0):
         draw_posteriors(ctx, *posterior_non_linear_model(ctx, img_kept=kept), img_kept=kept)
     draw_ideal_observer(ctx, comparison_ideal_observer(ctx))

@@ -198,6 +198,31 @@ def _elbo_loss(gen_params, rec_params, factors, x, generator=None, eps=None) -> 
     return dlgm_loss(generative_forward(gen_params, z), x, mus, Rs)
 
 
+def marginal_likelihood_of(probs, batches, chunk: int = 100, device="cuda") -> float:
+    """The Monte-Carlo marginal likelihood of the data in ``batches`` under
+    generated probabilities ``probs [n, D]`` (or ``[n, 28, 28]``): the
+    probabilities as logits clamped to ±20, -BCE of every (datum, sample)
+    pair ``chunk`` data at a time, log-mean-exp over the samples (float64),
+    mean over the data."""
+    probs = torch.as_tensor(probs, dtype=torch.float32).to(device)
+    probs = probs.reshape(probs.shape[0], -1)
+    p = torch.clamp(probs, 1e-7, 1 - 1e-7)
+    logits = torch.clamp(torch.log(p / (1 - p)), -20.0, 20.0)
+    pos = torch.sum(torch.clamp(logits, min=0) + torch.log1p(torch.exp(-torch.abs(logits))),
+                    dim=1)
+    losses = []
+    with torch.no_grad(), full_f32_matmul():
+        for data, _ in batches:
+            data = data.to(device=logits.device, dtype=logits.dtype)
+            for s in range(0, data.shape[0], chunk):
+                part = pos[None, :] - torch.matmul(data[s : s + chunk], logits.T)
+                losses.append(part.cpu().numpy())
+    losses = np.concatenate(losses, axis=0)
+    m = losses.min(axis=1)
+    pm = np.exp(-(losses - m[:, None])).mean(axis=1)
+    return float((np.log(pm) - m).mean())
+
+
 # -- facade ------------------------------------------------------------------------
 
 
@@ -359,29 +384,11 @@ class DLGM:
 
     def get_marginal_likelihood(self, batches, n_samples: int = 5000, chunk: int = 100,
                                 probs=None) -> float:
-        """Monte-Carlo marginal likelihood from prior samples: the generated
-        probabilities (``probs [n_samples, D]`` if given) as logits clamped
-        to ±20, -BCE of every (datum, sample) pair, log-mean-exp over the
-        samples, mean over the data."""
+        """``marginal_likelihood_of`` the probabilities of ``n_samples``
+        prior samples (``probs [n_samples, D]`` if given)."""
         if probs is None:
             probs = self.generate_samples(n_samples, is_return_hidden=True)
-        probs = torch.as_tensor(probs, dtype=torch.float32).to(self.device)
-        probs = probs.reshape(probs.shape[0], -1)
-        p = torch.clamp(probs, 1e-7, 1 - 1e-7)
-        logits = torch.clamp(torch.log(p / (1 - p)), -20.0, 20.0)
-        pos = torch.sum(torch.clamp(logits, min=0) + torch.log1p(torch.exp(-torch.abs(logits))),
-                        dim=1)
-        losses = []
-        with torch.no_grad(), full_f32_matmul():
-            for data, _ in batches:
-                data = data.to(device=logits.device, dtype=logits.dtype)
-                for s in range(0, data.shape[0], chunk):
-                    part = pos[None, :] - torch.matmul(data[s : s + chunk], logits.T)
-                    losses.append(part.cpu().numpy())
-        losses = np.concatenate(losses, axis=0)
-        m = losses.min(axis=1)
-        pm = np.exp(-(losses - m[:, None])).mean(axis=1)
-        return float((np.log(pm) - m).mean())
+        return marginal_likelihood_of(probs, batches, chunk, self.device)
 
     def evaluate_importance_nll(self, batches, particle_size: int = 16, eps=None) -> float:
         """Importance-sampled -ln p(v) a datum: every datum repeated over
@@ -429,6 +436,7 @@ __all__ = [
     "init_generative",
     "init_recognition",
     "init_recognition_shared",
+    "marginal_likelihood_of",
     "optimal_hidden_dim_recog",
     "recognition_forward",
     "recognition_sample",

@@ -1,7 +1,8 @@
-"""Plotting kit: paper styling, GIF writers, and the class-probability
-geometry of figure 2.  Importing this module does not import matplotlib:
-each function that draws imports it itself (headless, the Agg backend), so
-every module of the package imports where matplotlib is missing."""
+"""Plotting kit: paper styling, GIF writers, the class-probability
+geometry of figure 2 and the trajectory arrows of figure 4.  Importing this
+module does not import matplotlib: each function that draws imports it
+itself (headless, the Agg backend), so every module of the package imports
+where matplotlib is missing."""
 
 from __future__ import annotations
 
@@ -112,3 +113,48 @@ def proba_to_coordinate(probs: np.ndarray):
     x = (probs * class_x).sum(1)
     y = (probs * class_y).sum(1)
     return (x, y), (class_x.squeeze(), class_y.squeeze())
+
+
+def add_arrow(line, ax, position=None, direction="right", color=None, label="", dx=1):
+    """A direction arrow on a trajectory ``line`` of ``ax``: from the point
+    whose x is nearest ``position`` (default: the mean x) towards the point
+    ``dx`` samples later (``direction="right"``) or earlier."""
+    import matplotlib.patches as patches
+
+    if color is None:
+        color = line.get_color()
+    xdata = np.asarray(line.get_xdata())
+    ydata = np.asarray(line.get_ydata())
+    if position is None:
+        position = xdata.mean()
+    start = int(np.argmin(np.abs(xdata - position)))
+    end = start + dx if direction == "right" else start - dx
+    end = int(np.clip(end, 0, len(xdata) - 1))
+    ddx = xdata[end] - xdata[start]
+    ddy = ydata[end] - ydata[start]
+    size = abs(ddx) * 5.0
+    arrow = patches.FancyArrow(
+        xdata[start] + np.sign(ddx) * size / 2.0,
+        ydata[start] + np.sign(ddy) * size / 2.0,
+        ddx,
+        ddy,
+        color=color,
+        width=0,
+        head_width=size,
+        head_length=size,
+        label=label,
+        length_includes_head=True,
+        overhang=0.3,
+        zorder=10,
+    )
+    ax.add_patch(arrow)
+
+
+def plot_line_with_arrow(x, y, ax=None, label="", position=None, dx=10, **kw):
+    """``ax.plot(x, y, **kw)`` (the current axes by default) with a direction
+    arrow ``dx`` samples long; returns the line."""
+    if ax is None:
+        ax = pyplot().gca()
+    line = ax.plot(x, y, **kw)[0]
+    add_arrow(line, ax, label=label, position=position, dx=dx)
+    return line

@@ -1,6 +1,8 @@
-"""Figure 2 (c, d) in the port: the linear probe and the representations it
-reads against the JAX package's, then the masked-digit posterior end to end
-on the CPU at a small scale, alone and against the JAX package's.
+"""Figure 2 in the port: the linear probe and the representations it reads
+against the JAX package's, then the masked-digit posterior (c, d) end to
+end on the CPU at a small scale, alone and against the JAX package's; and
+the 1-D posterior (a, b), without noise against the JAX package's and with
+it against the closed-form posterior.
 
 Where both packages draw random numbers (the latents at a batch's start, a
 chain's noise seed), the ``shared_streams`` fixture runs the JAX side first,
@@ -25,7 +27,6 @@ import torch
 
 import montecarlopredictivecoding_tpu as mcpc
 import montecarlopredictivecoding_tpu_torch as mt
-from montecarlopredictivecoding_tpu.core import trainer as jtrainer
 from montecarlopredictivecoding_tpu.data import mnist as jmnist
 from montecarlopredictivecoding_tpu.eval import classifier as jclassifier
 from montecarlopredictivecoding_tpu.experiments import common as jcommon
@@ -37,7 +38,8 @@ from montecarlopredictivecoding_tpu_torch.eval import classifier as tclassifier
 from montecarlopredictivecoding_tpu_torch.experiments import common, figure_2
 from montecarlopredictivecoding_tpu_torch.models import get_mcpc_trainer, get_pc_trainer
 from montecarlopredictivecoding_tpu_torch.utils import params_from_numpy
-from montecarlopredictivecoding_tpu_torch.utils.plotting import proba_to_coordinate
+from montecarlopredictivecoding_tpu_torch.utils.plotting import proba_to_coordinate, pyplot
+from torch_streams import langevin_off, on_the_kernel, record_results, share_streams
 
 torch.set_num_threads(1)
 
@@ -46,38 +48,7 @@ torch.set_num_threads(1)
 def shared_streams(monkeypatch):
     """The JAX package's sampled latents and chain seeds, recorded as its
     calls run and handed to the port's calls in the same order."""
-    latents, seeds = [], []
-    j_sample = mcpc.GenerativeModel.sample_latents
-    j_run = jtrainer.PCTrainer._run_pallas
-
-    def record_latents(self, inputs, key=None):
-        out = j_sample(self, inputs, key)
-        latents.append([np.asarray(x) for x in out])
-        return out
-
-    def record_seed(self, dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, key):
-        seeds.append(int(jax.random.randint(key, (), 0, 2**31 - 1)))
-        return j_run(self, dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, key)
-
-    def replay_latents(self, inputs, generator=None):
-        self.latents = tuple(torch.from_numpy(x).to(inputs.device) for x in latents.pop(0))
-        return self.latents
-
-    monkeypatch.setattr(mcpc.GenerativeModel, "sample_latents", record_latents)
-    monkeypatch.setattr(jtrainer.PCTrainer, "_run_pallas", record_seed)
-    monkeypatch.setattr(mt.GenerativeModel, "sample_latents", replay_latents)
-    monkeypatch.setattr(mt.PCTrainer, "_chain_seed", lambda self, generator: seeds.pop(0))
-    return latents, seeds
-
-
-def _on_the_kernel(factory):
-    """A JAX trainer factory whose trainers take the fused chain off TPU."""
-    def make(*args, **kwargs):
-        tr = factory(*args, **kwargs)
-        tr.use_pallas = True
-        return tr
-
-    return make
+    return share_streams(monkeypatch)
 
 
 def test_train_linear_classifier_matches_jax():
@@ -147,8 +118,8 @@ def test_get_representations_of_the_chain(shared_streams):
     labels = np.arange(8)
     jgen = mcpc.GenerativeModel(mcpc.make_mlp_model(*dims), key=0, params=params)
     jconfig = dict(config, loss_fn=mcpc.bernoulli_fn)
-    jtrainers = [_on_the_kernel(jax_get_pc_trainer)(jgen, jconfig, is_mcpc=True),
-                 _on_the_kernel(jax_get_mcpc_trainer)(jgen, jconfig, training=False)]
+    jtrainers = [on_the_kernel(jax_get_pc_trainer)(jgen, jconfig, is_mcpc=True),
+                 on_the_kernel(jax_get_mcpc_trainer)(jgen, jconfig, training=False)]
     gen = mt.GenerativeModel(mt.make_mlp_model(*dims), 0,
                              params=params_from_numpy(params, "cpu"), device="cpu")
     tconfig = dict(config, loss_fn=mt.bernoulli_fn)
@@ -233,7 +204,7 @@ def test_posterior_non_linear_model_matches_jax(small_synthetic, shared_streams,
         monkeypatch.setattr(fig, "_mnist_config", lambda ctx, small=small: dict(
             small(ctx), batch_size_train=64, batch_size_val=64, batch_size_test=64))
     for name in ("get_pc_trainer", "get_mcpc_trainer"):
-        monkeypatch.setattr(jfigure_2, name, _on_the_kernel(getattr(jfigure_2, name)))
+        monkeypatch.setattr(jfigure_2, name, on_the_kernel(getattr(jfigure_2, name)))
     probe_init = jax.device_get(
         jclassifier.LinearClassifier(20, key=jax.random.PRNGKey(0)).params)
     monkeypatch.setattr(figure_2, "train_linear_classifier", functools.partial(
@@ -263,3 +234,62 @@ def test_load_generative_checkpoint(tmp_path):
     args = common.standard_parser("x").parse_args(["--full", "--device", "cpu"])
     assert common.context_from_args(args).scale == 1.0
     assert common.context_from_args(args).device == "cpu"
+
+
+def test_posterior_linear_model_without_noise_matches_jax(monkeypatch, tmp_path):
+    """Panels (a, b) at 1/20 of the published steps (100 Adam steps, then
+    500 Langevin steps from the constant start) with the noise variance 0 in
+    both packages: the MAP and both trajectories against the JAX package's
+    step engine, atol 2e-5 (the engine tests' bound)."""
+    langevin_off(monkeypatch, figure_2)
+    monkeypatch.setattr(jfigure_2, "animate_frames", lambda *a, **k: None)
+    jcalls = record_results(monkeypatch)
+    jctx = jcommon.ExperimentContext("models", str(tmp_path / "jax"), scale=0.05)
+    want = jfigure_2.posterior_linear_model(jctx)
+    ctx = common.ExperimentContext("models", str(tmp_path / "port"), scale=0.05, device="cpu")
+    got = figure_2.posterior_linear_model(ctx)
+    assert len(jcalls) == 2
+    assert got["pc_traj"].shape == (100,) and got["mc_traj"].shape == (500,)
+    np.testing.assert_allclose(got["pc_traj"], jcalls[0]["representations"][:, 0, 0],
+                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got["mc_traj"], jcalls[1]["representations"][:, 0, 0],
+                               rtol=0, atol=2e-5)
+    for k in ("map", "samples_mean", "samples_var"):
+        assert abs(got[k] - want[k]) <= 2e-5, k
+    np.testing.assert_array_equal(got["samples"], got["mc_traj"])  # no mixing steps
+
+
+def test_posterior_linear_model_samples_the_closed_form_posterior(monkeypatch, tmp_path):
+    """At the published steps (2000 Adam steps, 10,000 Langevin steps at lr
+    0.02, noise variance 2) on the CPU: the MAP within 1e-3 of the mode
+    0.44, and the samples' mean and variance within 4 standard errors of
+    the closed-form posterior's 0.44 and 0.2, the errors from the means of
+    20 batches of 500 successive samples.  The chain's step adds a bias of
+    lr * precision / 2 = 5% to the variance (0.2105), well inside them."""
+    ctx = common.ExperimentContext("models", str(tmp_path), scale=1.0, device="cpu")
+    got = figure_2.posterior_linear_model(ctx)
+    samples = got["samples"]
+    assert samples.shape == (10000,) and np.isfinite(samples).all()
+    assert abs(got["map"] - 0.44) <= 1e-3
+    batches = samples.reshape(20, 500)
+    for stat, want in ((batches.mean(1), 0.44), (batches.var(1), 0.2)):
+        se = stat.std(ddof=1) / np.sqrt(len(stat))
+        assert abs(stat.mean() - want) <= 4 * se, (stat.mean(), want, se)
+    x = np.linspace(-10, 10, 20001)
+    density = figure_2.linear_posterior_density(x)
+    assert abs(density.sum() * (x[1] - x[0]) - 1.0) < 1e-6
+    assert abs(x[np.argmax(density)] - 0.44) < 1e-3
+    frames = []
+
+    def first_frames(render_frame, n_frames, path, fps=50):
+        plt = pyplot()
+        fig, ax = plt.subplots()
+        for i in range(2):
+            render_frame(i, ax)
+        frames.append((n_frames, path))
+        plt.close(fig)
+
+    monkeypatch.setattr(figure_2, "animate_frames", first_frames)
+    figure_2.draw_posterior_linear_model(ctx, got)
+    assert (tmp_path / "2a.svg").exists() and (tmp_path / "2b.svg").exists()
+    assert frames == [(100, ctx.fig_path("2b.gif"))]
