@@ -183,6 +183,27 @@ Phase 8  drives figures 2 (a, b), 4, 5 and 6 (``experiments/figure_2.py``,
          stacked DLGM's metrics (``StackedMetrics``) on the card against the
          CPU.
 
+Phase 9  drives data-parallel MCPC training, the native loader, observability
+(data    and the dry run at the fid model's full width (20-128-128-784, B=256,
+parallel) 250 Adam + 50 + 100 Langevin steps, Adam at lr 0.01), counts zeroed
+         just before each path and read just after: (1) world size 1 under
+         NCCL in this process: DP_W1_BATCHES batches of
+         ``train_mcpc(mesh=1)`` with the noise on beside ``train_mcpc()``,
+         bit-identical, and each batch's step timed (``one_batch_dp``
+         against ``one_batch``: the dp wrapper's cost); (2) world size 2,
+         two spawned ranks on the one card under gloo (``phase9_rank``):
+         ``make_dp_fused_chain`` on one batch without noise against the
+         whole batch's kernel call, with noise at DP_WRAP_SEED bit-equal to
+         ``mcpc_chain`` on each shard with its wrapped shard seed,
+         DP_W2_BATCHES batches of ``train_mcpc(mesh=2)`` without noise
+         against ``train_mcpc()`` by the JAX test's rule, and
+         ``dryrun_multichip(2, "cuda")`` in that group; (3) the native
+         loader (``native_available()``, an IDX file of LOADER_ROWS images
+         read and gathered against numpy, an epoch of shuffled batches timed
+         both ways); (4) OBS_BATCHES trainer-path batches through
+         ``ProgressLogger`` and ``energy_absorption_report``, the first under
+         ``profile_trace``, whose trace's top device operations it prints.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -195,12 +216,16 @@ import functools
 import importlib
 import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -313,7 +338,8 @@ JOINT_LR = 1e-4
 # taken in double instead: 1.3 times the effect), so it is held only at
 # cut length.
 BF16_AGREE, BF16_STEP_ATOL, BF16_STEP_GRAD_REL, BF16_SHARE = 0.98, 1e-5, 2e-6, 0.5
-# phase 7: table 1's seeds; CPU images to hold the card's ResNet-9 features
+# phase 7: table 1's seeds (the script's run is seeds 1-3; seed 3 is cut to
+# keep the smoke in its time with phase 9); CPU images to hold the card's ResNet-9 features
 # against, and the bounds: features within R9_FEAT_RTOL of the largest (f32
 # sums in another order sit near 1e-6; TF32 convolutions near 1e-3); the
 # pixel statistics within float64 rounding of the repository's caches (the
@@ -321,7 +347,7 @@ BF16_AGREE, BF16_STEP_ATOL, BF16_STEP_GRAD_REL, BF16_SHARE = 0.98, 1e-5, 2e-6, 0
 # R9_STATS_RTOL of theirs (the JAX package on the CPU reproduces those files
 # exactly, so the features' f32 tolerance is what remains); DLGM and
 # ResNet-9 training steps
-TABLE_SEEDS = (1, 2, 3)
+TABLE_SEEDS = (1, 2)
 R9_CPU_IMAGES, R9_FEAT_RTOL = 256, 1e-5
 PIXEL_STATS_RTOL, R9_STATS_RTOL = 1e-12, 1e-4
 DLGM_STEPS, R9_STEPS = 200, 100
@@ -338,6 +364,30 @@ STACKED_RTOL = 1e-4
 # the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
 # sheet, 700 W): the least time the card could take for bf16 products
 PEAK_BF16_FLOPS = 989e12
+# phase 9: data-parallel training.  World size 1 (NCCL, in this process):
+# DP_W1_BATCHES batches of train_mcpc(mesh=1) with the noise on beside
+# train_mcpc(), which must give the same bits (one rank: the shard is the
+# batch, the shard seed the seed, the all-reduce a copy).  World size 2
+# (gloo on CUDA tensors, two spawned ranks on the one card: NCCL takes one
+# rank a card): the dp chain on one batch without noise, each rank's rows by
+# phase 1's latent rule and the summed gradients within P1_GRAD_REL of the
+# whole batch's kernel call (only the order of the sum differs); with noise
+# at DP_WRAP_SEED, whose shard seed on rank 1 wraps int32, each shard
+# bit-equal to mcpc_chain on it; DP_W2_BATCHES batches of train_mcpc(mesh=2)
+# without noise, each step bit-equal to the two shards' chains run on one
+# rank with their gradients added, and against the single-device run by the
+# JAX test's _quantile_close (DP_QUANTILE: tolerance, share beyond it,
+# largest) on the entries whose gradient is clear of rounding (P3_CLEAR) in
+# every batch: elsewhere Adam's first steps are lr * sign(g) of a sum the
+# two runs take in other orders (on every entry the rule is printed).  The native
+# loader on LOADER_ROWS images of 28 x 28; OBS_BATCHES trainer-path batches
+# through ProgressLogger, the first under profile_trace
+DP_W1_BATCHES, DP_W2_BATCHES = 10, 4
+DP_WRAP_SEED = 2**31 - 2
+DP_QUANTILE = (5e-4, 0.01, 0.02)
+DP_RANK_TIMEOUT_S = 300
+LOADER_ROWS = 60000
+OBS_BATCHES = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -628,6 +678,394 @@ class ChainRecorder:
         return out
 
 
+def quantile_close(a, b, tol: float, frac: float, max_abs_: float) -> str:
+    """The JAX test's rule for two Adam trajectories (tests/test_train_mesh.py):
+    under ``frac`` of the elements beyond ``tol``, none beyond ``max_abs_``;
+    '' where it holds, else what failed."""
+    diff = (a - b).abs()
+    share, worst = float((diff > tol).double().mean()), float(diff.max())
+    return "" if share < frac and worst < max_abs_ else f"{share:.4f} beyond {tol}, largest {worst}"
+
+
+def phase9_rank(rank: int, here: str, tmp: str) -> None:
+    """One of phase 9's two ranks, a spawned process on cuda:0 in a gloo
+    group of 2 (``file://`` rendezvous in ``tmp``): the dp chain without and
+    with noise against ``mcpc_chain``, ``train_mcpc(mesh=2)`` and the dry
+    run in this group.  Prints its lines, raises on a failed check (a
+    non-zero exit), and leaves ``rank<r>.pt`` in ``tmp``: the trained
+    parameters and the launches of its dp paths.  The synthetic MNIST set
+    is the parent's, from ``tmp/mnist.npz`` (the same seeds make the same
+    arrays; reading them saves making them)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, here)
+    mnist = importlib.import_module("montecarlopredictivecoding_tpu_torch.data.mnist")
+    with np.load(os.path.join(tmp, "mnist.npz")) as f:
+        arrays = (f["train_x"], f["train_y"]), (f["test_x"], f["test_y"])
+    mnist._synthetic_mnist = lambda n_train, n_test, seed=0: arrays
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                            rank=rank, world_size=2)
+    try:
+        out = phase9_rank_body(torch, rank, tmp)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def phase9_rank_body(torch, rank: int, tmp: str) -> dict:
+    from montecarlopredictivecoding_tpu_torch import dryrun
+    from montecarlopredictivecoding_tpu_torch.data import get_mnist_data
+    from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
+    from montecarlopredictivecoding_tpu_torch.models import get_model
+    from montecarlopredictivecoding_tpu_torch.parallel import make_dp_fused_chain, make_mesh, place_dp
+    from montecarlopredictivecoding_tpu_torch.parallel.fused_dp import (
+        all_reduce_tree, shard_rows, shard_seed)
+
+    chain = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
+    dev = torch.device("cuda", 0)
+    tag = f"[{card_line()}]"
+    launched = [0, 0]
+
+    def counted(fn):
+        """Run one dp path with the counts zeroed just before and read just
+        after, and add them up."""
+        chain.mcpc_chain.launches = chain.sum_block_partials.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launched[0] += chain.mcpc_chain.launches
+        launched[1] += chain.sum_block_partials.launches
+        return out
+
+    def say(line):
+        print(f"phase 9 [rank {rank}]: {line}", flush=True)
+
+    config = train_mnist.mcpc_training_config()
+    gen = get_model(config, SEED, device=dev)
+    train, _, _ = get_mnist_data(config, device=dev)
+    data = next(iter(train))[0]
+    latents = gen.model.init_latents(
+        gen.params, torch.zeros(BATCH, config["input_size"], device=dev),
+        torch.Generator().manual_seed(SEED + 9))
+    mesh = make_mesh(data=2, model=1, device=dev)
+    rows = shard_rows(mesh, BATCH)
+    placed = place_dp(mesh, gen.params, latents, data)
+
+    # without noise: the rows evolve alone (a row's arithmetic does not
+    # depend on the others), the gradients are summed in another order than
+    # the whole batch's kernel call sums them.  Held against that call, not
+    # float64: after 250 Adam steps at lr 0.7 two f32 summation orders part
+    # by up to 0.1 (the plain version on the CPU, on 128 rows against 256)
+    quiet = train_mnist.chain_options(config, None)
+    new, pgrads = counted(lambda: make_dp_fused_chain(gen.model, mesh, **quiet)(*placed, SEED))
+    whole = chain.mcpc_chain(gen.params, latents, data, SEED, **quiet)
+    mine = tuple(x[rows] for x in whole[0])
+    bits = all(torch.equal(a, b) for a, b in zip(new, mine))
+    dx, g = max_abs(new, mine), grad_rel(pgrads, whole[1])
+    say(f"make_dp_fused_chain, noise off, rows {rows.start}-{rows.stop - 1} of {BATCH}: latents "
+        f"{dx:.3e} from the whole batch's kernel call (allowance {P1_ATOL}; bit-equal: {bits}), "
+        f"summed gradients {g:.3e} of each tensor's largest from its (allowance "
+        f"{P1_GRAD_REL}) {tag}")
+    check(dx <= P1_ATOL, f"phase 9 rank {rank}: dp latents {dx} from the whole batch's")
+    check(g <= P1_GRAD_REL, f"phase 9 rank {rank}: dp gradients {g} from the whole batch's")
+
+    # with noise at a seed whose shard seed wraps: this rank's call is
+    # mcpc_chain on its shard with the shard seed
+    noisy = train_mnist.chain_options(config, 2.0)
+    new2, pgrads2 = counted(
+        lambda: make_dp_fused_chain(gen.model, mesh, **noisy)(*placed, DP_WRAP_SEED))
+    seed_r = shard_seed(DP_WRAP_SEED, rank)
+    own = chain.mcpc_chain(*placed, seed_r, **noisy)
+    own_sum = all_reduce_tree(own[1], mesh.get_group("data"))
+    same = (all(torch.equal(a, b) for a, b in zip(new2, own[0]))
+            and grads_equal(torch, pgrads2, own_sum))
+    say(f"noise on, seed {DP_WRAP_SEED}: shard seed {seed_r}; latents and summed gradients "
+        f"bit-equal to mcpc_chain on the shard with it: {same}")
+    check(same, f"phase 9 rank {rank}: the noisy shard differs from mcpc_chain on it")
+    check(rank == 0 or seed_r < 0, "phase 9: rank 1's shard seed did not wrap")
+
+    # train_mcpc(mesh=2), each batch's step kept; afterwards each step again
+    # on one rank's worth of work: the two shards' chains with their shard
+    # seeds, their gradients added (a sum of two is the same bits in either
+    # order, as the all-reduce of two ranks gives it) and param_step over
+    # the global batch must give the step's bits
+    recorded = []
+    dp_step = train_mnist.one_batch_dp
+
+    def recording(params, opt_state, latents, seed, data, **kw):
+        out = dp_step(params, opt_state, latents, seed, data, **kw)
+        recorded.append((params, opt_state, latents, seed, data, out[0]))
+        return out
+
+    train_mnist.one_batch_dp = recording
+    try:
+        trained = counted(lambda: train_mnist.train_mcpc(
+            1, os.path.join(tmp, "dp"), batches_per_epoch=DP_W2_BATCHES, log=False,
+            langevin_var=None, mesh=2, device=dev))
+    finally:
+        train_mnist.one_batch_dp = dp_step
+    exact = len(recorded) == DP_W2_BATCHES
+    for params, opt_state, lat, seed, data, stepped in recorded:
+        halves = [chain.mcpc_chain(params, tuple(x[r * BATCH // 2:(r + 1) * BATCH // 2]
+                                                 for x in lat),
+                                   data[r * BATCH // 2:(r + 1) * BATCH // 2],
+                                   shard_seed(seed, r), **quiet)[1] for r in range(2)]
+        summed = tuple({k: a[k] + b[k] for k in a} for a, b in zip(*halves))
+        want = train_mnist.param_step(params, opt_state, summed, data.shape[0], config=config)[0]
+        exact = exact and all(torch.equal(p[k], q[k]) for p, q in zip(stepped, want)
+                              for k in ("w", "b"))
+    say(f"train_mcpc(mesh=2), {DP_W2_BATCHES} batches without noise: each step bit-equal to "
+        f"the two shards' chains on one rank, their gradients added, and param_step over the "
+        f"global batch: {exact}")
+    check(exact, f"phase 9 rank {rank}: a train_mcpc(mesh=2) step is not the shards' sum")
+    counted(lambda: dryrun.dryrun_multichip(2, "cuda"))
+    return {"params": [{k: v.cpu() for k, v in p.items()} for p in trained.params],
+            "launches": launched}
+
+
+def run_phase9(torch, here: str, dev, tag: str, zero_counts, read_counts) -> list:
+    """Phase 9: data-parallel training at world sizes 1 and 2, the native
+    loader, observability and the dry run.  Returns the launch counts of its
+    main paths, as ``read_counts`` gives them."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from montecarlopredictivecoding_tpu_torch.core.trainer import LangevinStep
+    from montecarlopredictivecoding_tpu_torch.data import get_mnist_data, native_loader
+    from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
+    from montecarlopredictivecoding_tpu_torch.models import (
+        get_mcpc_trainer, get_model, get_pc_trainer)
+    from montecarlopredictivecoding_tpu_torch.utils import (
+        ProgressLogger, energy_absorption_report, profile_trace)
+
+    tmp9 = tempfile.mkdtemp(prefix="phase9_", dir=os.path.join(here, "build", "chip_smoke"))
+    config9 = train_mnist.mcpc_training_config()
+
+    def same_params(pa, pb) -> bool:
+        return all(torch.equal(a[k], b[k]) for a, b in zip(pa, pb) for k in ("w", "b"))
+
+    # (1) world size 1 under NCCL in this process: train_mcpc(mesh=1) beside
+    # train_mcpc(), each batch's step timed (CUDA events and the host clock)
+    step_ms = {"one_batch": [], "one_batch_dp": []}
+    step_host_ms = {"one_batch": [], "one_batch_dp": []}
+    steps = {name: getattr(train_mnist, name) for name in step_ms}
+
+    def timed_step(name):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t_host = time.perf_counter()
+            start.record()
+            out = steps[name](*args, **kw)
+            end.record()
+            end.synchronize()
+            step_host_ms[name].append(1e3 * (time.perf_counter() - t_host))
+            step_ms[name].append(start.elapsed_time(end))
+            return out
+        return run
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp9, "rendezvous"),
+                            rank=0, world_size=1)
+    try:
+        for name in steps:
+            setattr(train_mnist, name, timed_step(name))
+        zero_counts()
+        gen_dp = train_mnist.train_mcpc(1, os.path.join(tmp9, "mesh1"), log=False, mesh=1,
+                                        batches_per_epoch=DP_W1_BATCHES, device=dev)
+        gen_one = train_mnist.train_mcpc(1, os.path.join(tmp9, "single"), log=False,
+                                         batches_per_epoch=DP_W1_BATCHES, device=dev)
+        torch.cuda.synchronize()
+        counts9 = read_counts()
+    finally:
+        for name, fn in steps.items():
+            setattr(train_mnist, name, fn)
+        dist.destroy_process_group()
+    identical = same_params(gen_dp.params, gen_one.params)
+    print(f"phase 9: world size 1 (NCCL): main path launches over 2 x {DP_W1_BATCHES} batches: "
+          f"mcpc_chain {counts9[0]}, sum_block_partials {counts9[2]}; train_mcpc(mesh=1) "
+          f"bit-identical to train_mcpc(), noise on: {identical}")
+    check(identical, "phase 9: train_mcpc(mesh=1) differs from train_mcpc()")
+    check(counts9[0] == counts9[2] == 2 * DP_W1_BATCHES,
+          f"phase 9: {counts9[0]} chain launches for 2 x {DP_W1_BATCHES} batches")
+    ms9 = {name: (statistics.median(step_ms[name][1:]), statistics.median(step_host_ms[name][1:]))
+           for name in steps}
+    print(f"phase 9: a batch's step (median of {DP_W1_BATCHES - 1} after the first; CUDA "
+          f"events, host clock): one_batch_dp {ms9['one_batch_dp'][0]:.3f}, "
+          f"{ms9['one_batch_dp'][1]:.3f} ms; one_batch {ms9['one_batch'][0]:.3f}, "
+          f"{ms9['one_batch'][1]:.3f} ms; the dp wrapper's cost "
+          f"{ms9['one_batch_dp'][0] - ms9['one_batch'][0]:.3f} ms (events) {tag}")
+
+    # (2) world size 2: two ranks on this card under gloo, against the
+    # single-device run without noise
+    ref_grads = []
+    param_step = train_mnist.param_step
+
+    def recording(params, opt_state, pgrads, batch_size, **kw):
+        ref_grads.append([{k: v.clone() for k, v in g.items()} for g in pgrads])
+        return param_step(params, opt_state, pgrads, batch_size, **kw)
+
+    train_mnist.param_step = recording
+    try:
+        zero_counts()
+        gen_ref = train_mnist.train_mcpc(1, os.path.join(tmp9, "reference"), log=False,
+                                         batches_per_epoch=DP_W2_BATCHES, langevin_var=None,
+                                         device=dev)
+        torch.cuda.synchronize()
+        counts9 = [a + b for a, b in zip(counts9, read_counts())]
+    finally:
+        train_mnist.param_step = param_step
+    # the entries whose gradient is at least P3_CLEAR of its tensor's largest
+    # in every batch: elsewhere Adam's first steps follow the rounding of
+    # the gradient sums (lr * sign(g)), which the two runs take in other
+    # orders, and a step may differ by up to 2 * lr
+    clear = [{k: functools.reduce(torch.logical_and, [
+        g[i][k].abs() >= P3_CLEAR * g[i][k].abs().max() for g in ref_grads]).cpu()
+        for k in ("w", "b")} for i in range(len(gen_ref.params))]
+    t9 = time.perf_counter()
+    mnist = importlib.import_module("montecarlopredictivecoding_tpu_torch.data.mnist")
+    (train_x, train_y), (test_x, test_y) = mnist._synthetic_mnist(60000, 10000)
+    np.savez(os.path.join(tmp9, "mnist.npz"), train_x=train_x, train_y=train_y,
+             test_x=test_x, test_y=test_y)
+    spawn = multiprocessing.get_context("spawn")
+    ranks = [spawn.Process(target=phase9_rank, args=(r, here, tmp9)) for r in range(2)]
+    for proc in ranks:
+        proc.start()
+    try:
+        for proc in ranks:
+            proc.join(DP_RANK_TIMEOUT_S)
+    finally:
+        for proc in ranks:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    codes = [proc.exitcode for proc in ranks]
+    check(codes == [0, 0], f"phase 9: the world-size-2 ranks exited with {codes}")
+    outs = [torch.load(os.path.join(tmp9, f"rank{r}.pt")) for r in range(2)]
+    rank_launches = [sum(o["launches"][i] for o in outs) for i in range(2)]
+    counts9 = [counts9[0] + rank_launches[0], counts9[1], counts9[2] + rank_launches[1],
+               counts9[3], counts9[4]]
+    check(same_params(outs[0]["params"], outs[1]["params"]),
+          "phase 9: the two ranks' parameters differ")
+    pairs = [(a[k].cpu(), b[k], m[k]) for a, b, m in zip(gen_ref.params, outs[0]["params"], clear)
+             for k in ("w", "b")]
+    far_all = [quantile_close(a, b, *DP_QUANTILE) for a, b, _ in pairs]
+    far_clear = [quantile_close(a[m], b[m], *DP_QUANTILE) if bool(m.any()) else ""
+                 for a, b, m in pairs]
+    n_clear = sum(int(m.sum()) for _, _, m in pairs)
+    n_all = sum(m.numel() for _, _, m in pairs)
+    print(f"phase 9: world size 2 (gloo on cuda:0, 2 spawned ranks, "
+          f"{time.perf_counter() - t9:.1f} s with their start): launches of the dp paths "
+          f"mcpc_chain {rank_launches[0]}, sum_block_partials {rank_launches[1]}; "
+          f"train_mcpc(mesh=2), {DP_W2_BATCHES} batches without noise, against train_mcpc() "
+          f"by the JAX test's rule {DP_QUANTILE}, per tensor (w, b of each layer): on every "
+          f"entry {far_all}; on the {n_clear} of {n_all} entries whose gradient is at least "
+          f"{P3_CLEAR} of its tensor's largest in every batch {far_clear}")
+    check(not any(far_clear),
+          f"phase 9: train_mcpc(mesh=2) against train_mcpc() where the gradients are clear: "
+          f"{far_clear}")
+
+    # (3) the native loader: an IDX file of LOADER_ROWS images, read and
+    # gathered natively and by numpy, and an epoch of shuffled batches
+    check(native_loader.native_available(), "phase 9: the native loader did not build")
+    rng9 = np.random.RandomState(SEED)
+    images = rng9.randint(0, 256, (LOADER_ROWS, 28, 28), dtype=np.uint8)
+    idx_path = os.path.join(tmp9, "train-images-idx3-ubyte")
+    with open(idx_path, "wb") as f:
+        f.write(struct.pack(">HBB3I", 0, 0x08, 3, *images.shape))
+        f.write(images.tobytes())
+    t_read = time.perf_counter()
+    native_images = native_loader.read_idx_native(idx_path)
+    t_read, t_py = time.perf_counter() - t_read, time.perf_counter()
+    with open(idx_path, "rb") as f:
+        f.read(16)
+        numpy_images = np.frombuffer(f.read(), dtype=np.uint8).reshape(images.shape)
+    t_py = time.perf_counter() - t_py
+    check(np.array_equal(native_images, images) and np.array_equal(numpy_images, images),
+          "phase 9: the IDX file reads back wrong")
+    # x * (1/255) in float32 against numpy's x / 255: the JAX test's 1e-7
+    flat = native_loader.preprocess_images(native_images.reshape(LOADER_ROWS, -1))
+    scale_err = float(np.abs(flat - native_images.reshape(LOADER_ROWS, -1) / np.float32(255)).max())
+    check(scale_err <= 1e-7, f"phase 9: preprocess_images {scale_err} from numpy's")
+    order = rng9.permutation(LOADER_ROWS)
+    starts = range(0, LOADER_ROWS, BATCH)
+    for s0 in (starts[0], starts[-1]):
+        check(np.array_equal(native_loader.gather_batch(flat, order[s0:s0 + BATCH]),
+                             flat[order[s0:s0 + BATCH]]), "phase 9: gather_batch differs")
+    epoch_s = {}
+    for way, gather in (("native", native_loader.gather_batch), ("numpy", lambda d, i: d[i]),
+                        ("native again", native_loader.gather_batch),
+                        ("numpy again", lambda d, i: d[i])):
+        t_epoch = time.perf_counter()
+        for s0 in starts:
+            gather(flat, order[s0:s0 + BATCH])
+        epoch_s[way] = time.perf_counter() - t_epoch
+    print(f"phase 9: native loader ({native_loader.library_path().name}): an IDX file of "
+          f"{LOADER_ROWS} x 28 x 28 read in {1e3 * t_read:.1f} ms (numpy {1e3 * t_py:.1f} ms), "
+          f"equal; scaled to [0, 1] {scale_err:.1e} from numpy's; an epoch of {len(starts)} shuffled batches of {BATCH} rows gathered in "
+          + ", ".join(f"{way} {1e3 * v:.1f} ms" for way, v in epoch_s.items())
+          + f" (the card machine's CPU) {tag}")
+
+    # (4) observability: trainer-path batches (a PC warm start, then the
+    # MCPC trainer) through ProgressLogger, the first under the profiler
+    gen_obs = get_model(config9, SEED, device=dev)
+    warm_obs = get_pc_trainer(gen_obs, config9, is_mcpc=True, training=True)
+    mc_obs = get_mcpc_trainer(gen_obs, config9, training=True)
+    train9, _, _ = get_mnist_data(config9, device=dev)
+    logger = ProgressLogger(prefix="phase 9: ProgressLogger ")
+    per_batch = []
+
+    def trainer_batch(batch):
+        """(the PC warm start's results, the MCPC trainer's), every step"""
+        pseudo9 = torch.zeros((batch.shape[0], config9["input_size"]), device=dev)
+        warm = warm_obs.train_on_batch(pseudo9, loss_fn=config9["loss_fn"],
+                                       loss_fn_kwargs={"_target": batch})
+        res = mc_obs.train_on_batch(pseudo9, loss_fn=config9["loss_fn"],
+                                    loss_fn_kwargs={"_target": batch},
+                                    callback_after_t=LangevinStep(var=2.0),
+                                    is_sample_x_at_batch_start=False)
+        torch.cuda.synchronize()
+        return warm, res
+
+    zero_counts()
+    for i, (batch, _) in enumerate(train9):
+        if i >= OBS_BATCHES:
+            break
+        if i == 0:
+            with profile_trace(os.path.join(here, "build", "chip_smoke", "profile")) as prof:
+                warm, res = trainer_batch(batch)
+        else:
+            warm, res = trainer_batch(batch)
+        logger(res, T=config9["T_pc"] + config9["mixing"] + config9["sampling"])
+        per_batch.append(warm)
+    counts_obs = read_counts()
+    counts9 = [a + b for a, b in zip(counts9, counts_obs)]
+    check(counts_obs[0] == 2 * OBS_BATCHES and len(logger.history) == OBS_BATCHES,
+          f"phase 9: {counts_obs[0]} chain launches for {OBS_BATCHES} trainer-path batches")
+    with open(prof.trace_path) as f:
+        trace_events = json.load(f)["traceEvents"]
+
+    def device_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    top = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=device_ms, reverse=True)[:5]
+    check(bool(top) and device_ms(top[0]) > 0, "phase 9: the trace holds no device time")
+    print(f"phase 9: profile_trace around one trainer-path batch wrote "
+          f"{os.path.relpath(prof.trace_path, here)} ({len(trace_events)} events); top device "
+          f"operations: " + "; ".join(f"{e.key[:60]} {device_ms(e):.3f} ms x{e.count}"
+                                       for e in top) + f" {tag}")
+    report = energy_absorption_report(per_batch)
+    # the health check of PC inference: the warm starts' Adam MAP descent
+    print(f"phase 9: energy_absorption_report over the {OBS_BATCHES} warm starts: mean absorption "
+          f"{report['mean_absorption']:.4f}, overall falling on "
+          f"{report['mean_overall_monotone_frac']:.4f} of the steps")
+    shutil.rmtree(tmp9)
+    return counts9
+
+
 def main() -> int:
     import torch
 
@@ -680,7 +1118,11 @@ def main() -> int:
     # every source twice, f32 and bf16 products: four nvcc started together
     libraries = [(name, bf16) for name in ("mcpc_chain", "mcpc_chain_unpacked")
                  for bf16 in (False, True)]
-    lib_paths = _build.build_all(libraries)
+    # the synthetic MNIST set (numpy on the host) is made while nvcc runs
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        made = pool.submit(mnist._synthetic_mnist, 60000, 10000)
+        lib_paths = _build.build_all(libraries)
+        made.result()
     print(f"phase 0: built {', '.join(os.path.relpath(p, here) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
     for (source, bf16), lib_path in zip(libraries, lib_paths):
@@ -1944,8 +2386,6 @@ def main() -> int:
     # table 1 end to end and figure 2e.  cuDNN's TF32 flag goes back to
     # torch's default (True): the port's ResNet-9 and Inception functions
     # must turn it off themselves, and this phase holds that they do.
-    import tempfile
-
     from montecarlopredictivecoding_tpu_torch.data.mnist import load_mnist_arrays
     from montecarlopredictivecoding_tpu_torch.eval import fid as fid_mod
     from montecarlopredictivecoding_tpu_torch.experiments import table_1
@@ -2398,8 +2838,11 @@ def main() -> int:
     check(abs(nll_card - nll_cpu) <= STACKED_RTOL * abs(nll_cpu),
           f"StackedMetrics: the card's NLL {nll_card} against the CPU's {nll_cpu}")
     print(f"phase 8 ends at {time.perf_counter() - t_start:.1f} s")
+    # ---------------------------------------------------------- phase 9
+    counts9 = run_phase9(torch, here, dev, tag, zero_counts, read_counts)
+    print(f"phase 9 ends at {time.perf_counter() - t_start:.1f} s")
     launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
-                                        counts6, counts_tp, counts7, counts8)]
+                                        counts6, counts_tp, counts7, counts8, counts9)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import typing as tp
 
 import torch
@@ -171,6 +172,20 @@ def _value_and_grads(objective, xs_tree, params, inputs, loss_kwargs,
     return (overall.detach(), aux), g_x, g_p
 
 
+def _normal_like(x: Tensor, generator: tp.Optional[torch.Generator]) -> Tensor:
+    """Standard normals shaped like ``x`` from ``generator``.  For a DTensor
+    latent (``parallel/sharding.py``) every rank draws the whole tensor from
+    its generator, in the same state on every rank, and keeps its shard, so
+    the noise is the same whatever the mesh, as ``jax.random``'s is."""
+    noise = random_tensor("normal", x.shape, generator, x.dtype, x.device)
+    # no DTensor exists before its module is imported (it takes a second)
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and isinstance(x, dtensor.DTensor):
+        noise = dtensor.distribute_tensor(noise, x.device_mesh, x.placements,
+                                          src_data_rank=None)
+    return noise
+
+
 def _run_segment(
     cfg: EngineConfig,
     model: PCModel,
@@ -237,10 +252,8 @@ def _run_segment(
             # the noise follows the current learning-rate scale (after this
             # step's annealing)
             std = noise_std * lr_scale
-            latents = tuple(
-                x + std * random_tensor("normal", x.shape, carry["generator"],
-                                        x.dtype, x.device)
-                for x in xs_tree["latents"])
+            latents = tuple(x + std * _normal_like(x, carry["generator"])
+                            for x in xs_tree["latents"])
             xs_tree = dict(xs_tree, latents=latents)
 
         # -- dense in-loop parameter update -----------------------------------

@@ -7,7 +7,9 @@
   4000 as test.
 
 The whole split is held as one host numpy array and each batch is moved to
-the device as one dense ``[B, 784]`` tensor.
+the device as one dense ``[B, 784]`` tensor; uncompressed IDX files are read
+and shuffled batches gathered by the native C++ loader
+(``native_loader.py``).
 
 Data source: standard IDX files under ``<root>/MNIST/raw`` (the torchvision
 layout; raw or gzipped).  When no files exist, a deterministic procedural
@@ -26,6 +28,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from .native_loader import gather_batch, native_available, read_idx_native
+
 _RAW_NAMES = {
     "train_images": "train-images-idx3-ubyte",
     "train_labels": "train-labels-idx1-ubyte",
@@ -35,7 +39,14 @@ _RAW_NAMES = {
 
 
 def _read_idx(path: str) -> np.ndarray:
-    """Read one IDX file (raw or gzipped) into a uint8 array of its shape."""
+    """Read one IDX file (raw or gzipped) into a uint8 array of its shape:
+    an uncompressed one through the native reader (``native_loader``) where
+    it builds, the rest in Python."""
+    if not path.endswith(".gz") and native_available():
+        try:
+            return read_idx_native(path)
+        except ValueError:
+            pass  # not a uint8 IDX file the native reader takes: say why below
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         zero, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
@@ -223,8 +234,11 @@ class Batches:
             sel = idx[s : s + self.batch_size]
             if self.drop_last and len(sel) < self.batch_size:
                 return
-            imgs = torch.from_numpy(np.ascontiguousarray(self.images[sel]))
-            imgs = imgs.to(self.device)
+            if self.shuffle and self.images.dtype == np.float32:
+                rows = gather_batch(self.images, sel)  # the native loader's gather
+            else:
+                rows = np.ascontiguousarray(self.images[sel])
+            imgs = torch.from_numpy(rows).to(self.device)
             if self.labels is None:
                 yield imgs, None
             else:

@@ -31,9 +31,12 @@ Usage:
     python3 -m ...train_mnist --model resnet9 --epochs 1 --out models/resnet9.msgpack
     python3 -m ...train_mnist --model mcpc --snapshot-epochs 0 5 10 \\
         --out models/epoch_save/mcpc_aging_0
+    torchrun --nproc_per_node=N -m \\
+        montecarlopredictivecoding_tpu_torch.experiments.train_mnist \\
+        --model mcpc --mesh N --out models/mcpc_fid_1.msgpack
 
-Not ported yet: ``--mesh`` (raises ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 8).
+``--mesh N`` trains data-parallel over the N ranks torchrun starts (one card
+each; NCCL on CUDA, gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import time
 import typing as tp
 
 import torch
+import torch.distributed as dist
 
 from ..core.losses import bernoulli_fn
 from ..core.optim import OptimizerSpec, Transform, apply_updates
@@ -51,6 +55,8 @@ from ..core.trainer import LangevinStep
 from ..data import get_mnist_data
 from ..models.factory import get_mcpc_trainer, get_model, get_pc_trainer
 from ..ops.mcpc_chain import mcpc_chain
+from ..parallel.fused_dp import broadcast_params, make_dp_fused_chain, shard_rows
+from ..parallel.mesh import make_mesh, rank_device
 from ..utils.checkpoint import save_checkpoint, save_resnet9
 
 
@@ -140,6 +146,16 @@ def param_optimizer(config: dict) -> Transform:
     return OptimizerSpec("adam", lr=config["optimizer_p_kwargs_mcpc"]["lr"]).make()
 
 
+def param_step(params, opt_state, pgrads, batch_size: int, *, config: dict):
+    """The Monte-Carlo Adam update from the chain's gradient sums over
+    ``batch_size`` datapoints: divided by ``sampling·batch_size``, then
+    optax's Adam.  Returns ``(params', opt_state')``."""
+    scale = config["sampling"] * batch_size
+    grads = tuple({k: v / scale for k, v in g.items()} for g in pgrads)
+    updates, opt_state = param_optimizer(config).update(grads, opt_state, params)
+    return apply_updates(params, updates), opt_state
+
+
 def one_batch(params, opt_state, latents, seed: int, data, *,
               config: dict, langevin_var: tp.Optional[float] = 2.0):
     """One training batch, pure: the fused warm + chain call with parameter
@@ -148,10 +164,20 @@ def one_batch(params, opt_state, latents, seed: int, data, *,
     opt_state')``."""
     _, pgrads = mcpc_chain(params, latents, data, seed,
                            **chain_options(config, langevin_var))
-    scale = config["sampling"] * data.shape[0]
-    grads = tuple({k: v / scale for k, v in g.items()} for g in pgrads)
-    updates, opt_state = param_optimizer(config).update(grads, opt_state, params)
-    return apply_updates(params, updates), opt_state
+    return param_step(params, opt_state, pgrads, data.shape[0], config=config)
+
+
+def one_batch_dp(params, opt_state, latents, seed: int, data, *,
+                 config: dict, dp_chain, mesh):
+    """:func:`one_batch` over the mesh: this rank's rows of the global
+    ``latents`` and ``data`` run through ``dp_chain``
+    (:func:`..parallel.fused_dp.make_dp_fused_chain`), whose gradients come
+    back summed over every rank, and every rank takes the same Adam step,
+    divided by the global batch.  Returns ``(params', opt_state')``."""
+    rows = shard_rows(mesh, data.shape[0])
+    _, pgrads = dp_chain(params, tuple(x[rows].contiguous() for x in latents),
+                         data[rows].contiguous(), seed)
+    return param_step(params, opt_state, pgrads, data.shape[0], config=config)
 
 
 def train_mcpc(
@@ -184,17 +210,36 @@ def train_mcpc(
     without it the final parameters go to ``<out>``.  Returns the
     :class:`GenerativeModel`.
 
-    ``mesh`` is not ported yet.
+    ``mesh=N`` trains data-parallel over the N ranks of the default
+    ``torch.distributed`` process group, which the caller initialises (the
+    command line does, from torchrun's environment; NCCL on CUDA, gloo on
+    the CPU): every rank builds the same model and data from ``seed``, draws
+    the same global latents and chain seed, runs its rows of the batch
+    through the fused kernel (:func:`one_batch_dp`), and takes the same Adam
+    step from the gradients summed over the ranks.  It needs the fused
+    path; batches that N does not divide are skipped, counted and reported.
+    Only rank 0 prints and writes checkpoints; every rank returns its model.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "train_mcpc(mesh=N), data-parallel training, is not ported yet: "
-            "ROADMAP.md queue 1 item 8 (parallelism)")
-    device = torch.device(device)
+        if fused is False:
+            raise ValueError("mesh training requires the fused kernel path")
+        if not dist.is_initialized() or dist.get_world_size() != mesh:
+            raise ValueError(
+                f"mesh={mesh} needs an initialised torch.distributed process group of "
+                f"{mesh} ranks (torchrun --nproc_per_node={mesh})")
+    lead = mesh is None or dist.get_rank() == 0
+    device = torch.device(device) if mesh is None else rank_device(device)
     config = apply_preset(mcpc_training_config(), preset, "mcpc")
     train, _, _ = get_mnist_data(config, seed=seed, device=device)
     gen = get_model(config, seed, device=device)
     fused = True if fused is None else bool(fused)
+    skipped = 0
+    if mesh is not None:
+        mesh_obj = make_mesh(data=mesh, model=1, device=device)
+        dp_chain = make_dp_fused_chain(gen.model, mesh_obj,
+                                       **chain_options(config, langevin_var))
+        # replicated: every rank steps from rank 0's parameters
+        gen.params = broadcast_params(mesh_obj, gen.params)
     if fused:
         opt_state = param_optimizer(config).init(gen.params)
     else:
@@ -203,8 +248,9 @@ def train_mcpc(
         langevin = None if langevin_var is None else LangevinStep(var=langevin_var)
 
     def snap(tag):
-        path = out + (f"_epoch{tag}" if tag is not None else "")
-        save_checkpoint(_msgpack(path), gen.params)
+        if lead:
+            path = out + (f"_epoch{tag}" if tag is not None else "")
+            save_checkpoint(_msgpack(path), gen.params)
 
     if 0 in snapshot_epochs:
         snap("_init")
@@ -224,17 +270,28 @@ def train_mcpc(
                     callback_after_t=langevin, is_sample_x_at_batch_start=False,
                     is_return_results_every_t=False)
                 continue
+            if mesh is not None and data.shape[0] % mesh != 0:
+                skipped += 1  # the data axis must divide the batch
+                continue
             latents = gen.model.init_latents(gen.params, pseudo, gen.generator)
             chain_seed = int(torch.randint(0, 2**31 - 1, (), generator=gen.generator))
-            gen.params, opt_state = one_batch(
-                gen.params, opt_state, latents, chain_seed, data,
-                config=config, langevin_var=langevin_var)
+            if mesh is None:
+                gen.params, opt_state = one_batch(
+                    gen.params, opt_state, latents, chain_seed, data,
+                    config=config, langevin_var=langevin_var)
+            else:
+                gen.params, opt_state = one_batch_dp(
+                    gen.params, opt_state, latents, chain_seed, data,
+                    config=config, dp_chain=dp_chain, mesh=mesh_obj)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # so the epoch's time is honest
-        if log:
+        if log and lead:
             print(f"epoch {epoch}: {time.time() - t0:.1f}s")
         if epoch in snapshot_epochs:
             snap(epoch)
+    if skipped and log and lead:
+        print(f"mesh={mesh}: skipped {skipped} batch(es) whose size "
+              f"didn't divide the data axis")
     if not snapshot_epochs:
         snap(None)
     return gen
@@ -326,7 +383,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
     p.add_argument("--preset", choices=["fid", "ml", "mse"], default="fid",
                    help="architecture preset matching the reference checkpoint families")
     p.add_argument("--mesh", type=int, default=None,
-                   help="data-parallel training over N devices (not ported yet)")
+                   help="data-parallel training over the N ranks torchrun starts "
+                        "(MCPC only; the fused kernel a shard, one gradient all_reduce)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the kernel) or 'cpu' (the plain version)")
     args = p.parse_args(argv)
@@ -346,16 +404,24 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
                             is_mask=args.model == "resnet9_mask",
                             batches_per_epoch=args.batches_per_epoch, device=args.device)
         return
-    train_mcpc(
-        args.epochs,
-        args.out,
-        seed=args.seed,
-        snapshot_epochs=tuple(args.snapshot_epochs),
-        batches_per_epoch=args.batches_per_epoch,
-        preset=args.preset,
-        mesh=args.mesh,
-        device=args.device,
-    )
+    if args.mesh is not None:
+        # torchrun's environment gives the address, the rank and the size
+        cuda = torch.device(args.device).type == "cuda"
+        dist.init_process_group("nccl" if cuda else "gloo")
+    try:
+        train_mcpc(
+            args.epochs,
+            args.out,
+            seed=args.seed,
+            snapshot_epochs=tuple(args.snapshot_epochs),
+            batches_per_epoch=args.batches_per_epoch,
+            preset=args.preset,
+            mesh=args.mesh,
+            device=args.device,
+        )
+    finally:
+        if args.mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -174,10 +174,13 @@ def test_train_mcpc_runs_the_last_smaller_batch(small_synthetic, tmp_path, monke
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=2), "queue 1 item 8"),
+    (dict(mesh=2), "needs an initialised torch.distributed process group of 2 ranks"),
 ])
 def test_train_mcpc_unported_paths_name_their_item(kwargs, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every path of ``train_mcpc`` is ported; ``mesh=2`` outside a process
+    group of 2 ranks is refused before anything is written
+    (tests/test_torch_parallel.py trains over 2 ranks)."""
+    with pytest.raises(ValueError, match=item):
         ttrain.train_mcpc(1, str(tmp_path / "x"), log=False, device="cpu", **kwargs)
     assert not list(tmp_path.iterdir())
 
