@@ -5,8 +5,8 @@
 Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          matrix product of the plain versions is full f32) and builds every
          CUDA kernel of the port from the sources in this checkout, one
-         ``nvcc`` per library (each source for f32 and for bf16 products),
-         all started together.  The synthetic MNIST set that stands in for
+         ``nvcc`` per library (each chain source for f32 and for bf16
+         products, the per-op probe's for f32), all started together.  The synthetic MNIST set that stands in for
          the IDX files is made once and shared by every phase.
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
@@ -203,6 +203,19 @@ parallel) 250 Adam + 50 + 100 Langevin steps, Adam at lr 0.01), counts zeroed
          both ways); (4) OBS_BATCHES trainer-path batches through
          ``ProgressLogger`` and ``energy_absorption_report``, the first under
          ``profile_trace``, whose trace's top device operations it prints.
+Phase 10 the per-op probe (``benchmarks/vpu_op_bench.py`` of the port, the
+(probe)  JAX package's last Pallas kernel): each of its 14 variants at
+         B=256 and 64, over 64 steps from 0.3 and over 5 and 13 steps from
+         the signed start (``PROBE_HOLDS``), against its plain version on
+         the card (``card_tolerance``; the random ones at noise scale 1,
+         where a wrong draw shows, and at the probe's 1e-6), the card's
+         ``sincos_2pi`` against the plain one, the plain versions' time a
+         step; then its entry point, ``main`` at B=256 and 64 with
+         PROBE_ARGS' lengths (the command line's are 100,000 and 500,000),
+         both kernels' launches counted: each variant's µs a step, its
+         excess over ``baseline`` and its bound from the operations a step
+         needs (``STEP_OPS``; the pipe that sets it), with ``bm_poly``
+         beside ``bm_hw`` and ``sigmoid_tanh`` beside ``sigmoid``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -388,6 +401,18 @@ DP_QUANTILE = (5e-4, 0.01, 0.02)
 DP_RANK_TIMEOUT_S = 300
 LOADER_ROWS = 60000
 OBS_BATCHES = 3
+# phase 10: the per-op probe held at each batch its entry point runs, from
+# 0.3 over 64 steps (the unrolled loop alone) and from the signed start over
+# 5 (the remainder alone) and 13 steps (both), where the start still shows;
+# then its entry point at the smoke's lengths, least of 3 calls a length; the
+# plain versions' time a step between PROBE_PLAIN_T steps; the choices of
+# the JAX package it weighs
+PROBE_B, PROBE_BATCHES = 256, (256, 64)
+PROBE_HOLDS = (("0.3", 64), ("signed", 5), ("signed", 13))
+PROBE_ARGS = [str(b) for b in PROBE_BATCHES] + ["--t-lo", "10000", "--t-hi", "50000",
+                                                "--reps", "3"]
+PROBE_PLAIN_T = (16, 64)
+PROBE_PAIRS = (("bm_poly", "bm_hw"), ("sigmoid_tanh", "sigmoid"))
 
 
 class SmokeFailure(RuntimeError):
@@ -1066,6 +1091,97 @@ def run_phase9(torch, here: str, dev, tag: str, zero_counts, read_counts) -> lis
     return counts9
 
 
+def run_phase10(torch, tag: str) -> dict:
+    """Phase 10: the per-op probe held against its plain version on the
+    card, then driven through its entry point; returns its entry of the
+    kernels line (times a step, B=256)."""
+    probe = importlib.import_module("montecarlopredictivecoding_tpu_torch.benchmarks.vpu_op_bench")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    held = {}  # (name, noise scale) -> the largest |Δ| over batches and starts
+    for B in PROBE_BATCHES:
+        for start, steps in PROBE_HOLDS:
+            x0 = None if start == "0.3" else probe.signed_start(B, SEED, dev)
+            for name in probe.VARIANTS:
+                for scale in ((1.0, 1e-6) if name in probe.RANDOM_VARIANTS else (1e-6,)):
+                    got = probe.run_variant(name, B, steps, SEED, noise_scale=scale, x0=x0)
+                    want = probe.run_variant_reference(name, B, steps, SEED, dev,
+                                                       noise_scale=scale, x0=x0)
+                    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                          f"phase 10: {name}: the kernel's tile is not finite or not [{B}, 384]")
+                    err, tol = max_abs([got], [want]), probe.card_tolerance(name, want)
+                    check(err <= tol, f"phase 10: {name} at B={B}, {steps} steps from {start}, "
+                                      f"noise scale {scale}: the kernel is {err} from the plain "
+                                      f"version (tolerance {tol})")
+                    held[name, scale] = max(err, held.get((name, scale), 0.0))
+    sincos_err = probe.sincos_errors()["device_vs_plain"]
+    check(sincos_err <= probe.SINCOS_ATOL,
+          f"phase 10: the card's sincos_2pi is {sincos_err} from the plain version")
+    holds = len(PROBE_BATCHES) * len(PROBE_HOLDS) * (len(probe.VARIANTS) + len(probe.RANDOM_VARIANTS))
+    print(f"phase 10: {holds} holds at B={', '.join(map(str, PROBE_BATCHES))}, from 0.3 "
+          f"and the signed start ({', '.join(f'{s} over {t}' for s, t in PROBE_HOLDS)} steps): "
+          f"max|d| kernel-plain "
+          + ", ".join(f"{n}{'' if s == 1e-6 else ' (noise 1)'} {e:.2e}"
+                      for (n, s), e in held.items())
+          + f"; sincos_2pi on {probe.SINCOS_POINTS} points {sincos_err:.2e}")
+
+    def plain_ms(name, steps):
+        return probe.min_ms(
+            lambda seed: probe.run_variant_reference(name, PROBE_B, steps, seed, dev), 3)
+
+    plain_us = {}
+    for name in probe.VARIANTS:
+        lo, hi = (plain_ms(name, steps) for steps in PROBE_PLAIN_T)
+        plain_us[name] = (hi - lo) / (PROBE_PLAIN_T[1] - PROBE_PLAIN_T[0]) * 1e3
+    print(f"phase 10: the holds and the plain versions' times end after "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: the probe's entry point, its launches counted
+    t1 = time.perf_counter()
+    probe.run_variant.launches = probe.device_sincos_2pi.launches = 0
+    results = probe.main(PROBE_ARGS)
+    launches, sincos_launches = probe.run_variant.launches, probe.device_sincos_2pi.launches
+    entry_s = time.perf_counter() - t1
+    check(launches > 0 and sincos_launches > 0,
+          f"phase 10: the probe's entry point launched the probe kernel {launches} and the "
+          f"sincos_2pi kernel {sincos_launches} times")
+    rows = results["batches"][PROBE_B]["variants"]
+    small = results["batches"][int(PROBE_ARGS[1])]["variants"]
+    print(f"phase 10: main({' '.join(PROBE_ARGS)}): {launches} probe launches, "
+          f"{sincos_launches} sincos_2pi launches in {entry_s:.1f} s")
+    for name in probe.VARIANTS:
+        r = rows[name]
+        print(f"phase 10: {name}: {r['us']:.4f} us/step (+{r['us'] - rows['baseline']['us']:.4f} "
+              f"over baseline), bound {r['bound_us']:.4f} ({r['pipe']}), {r['us'] / r['bound_us']:.2f}x;"
+              f" at B={PROBE_ARGS[1]} {small[name]['us']:.4f} (B={PROBE_B} takes "
+              f"{r['us'] / small[name]['us']:.2f}x for {PROBE_B // int(PROBE_ARGS[1])}x the "
+              f"elements); plain version "
+              f"{plain_us[name]:.1f} us/step {tag}")
+    for mine, other in PROBE_PAIRS:
+        a, b = rows[mine]["us"], rows[other]["us"]
+        print(f"phase 10: {mine} {a:.4f} against {other} {b:.4f} us/step: {a / b:.3f} of its time; "
+              f"excess over baseline {a - rows['baseline']['us']:.4f} against "
+              f"{b - rows['baseline']['us']:.4f} {tag}")
+    worst = max(err for (_, scale), err in held.items() if scale == 1e-6)
+    return {
+        "name": "vpu_op_probe", "route": "cuda",
+        "source": "montecarlopredictivecoding_tpu_torch/ops/csrc/op_probe.cu",
+        "replaces": "benchmarks/vpu_op_bench.py:110", "launches": launches,
+        "max_abs_err": worst, "ms": rows["bm_poly"]["us"] / 1e3,
+        "plain_ms": plain_us["bm_poly"] / 1e3, "bound_ms": rows["bm_poly"]["bound_us"] / 1e3,
+        "bound_by": "operations", "library_ms": None,
+        # times are of one step of bm_poly (marginal fit) at B=256
+        "per": f"step, bm_poly, B={PROBE_B}", "clock_mhz": results["batches"][PROBE_B]["clock_mhz"],
+        "sincos_max_abs_err": sincos_err, "sincos_launches": sincos_launches,
+        "variants": {name: {
+            "us_per_step": rows[name]["us"], "bound_us_per_step": rows[name]["bound_us"],
+            "bound_pipe": rows[name]["pipe"], "plain_us_per_step": plain_us[name],
+            "us_per_step_B64": small[name]["us"], "max_abs_err": held[name, 1e-6],
+            **({"max_abs_err_noise_1": held[name, 1.0]} if (name, 1.0) in held else {}),
+        } for name in probe.VARIANTS},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1115,9 +1231,10 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t_start = time.perf_counter()
     t0 = time.perf_counter()
-    # every source twice, f32 and bf16 products: four nvcc started together
+    # each chain source twice, f32 and bf16 products, and the per-op probe
+    # once (f32): five nvcc started together
     libraries = [(name, bf16) for name in ("mcpc_chain", "mcpc_chain_unpacked")
-                 for bf16 in (False, True)]
+                 for bf16 in (False, True)] + [("op_probe", False)]
     # the synthetic MNIST set (numpy on the host) is made while nvcc runs
     with ThreadPoolExecutor(max_workers=1) as pool:
         made = pool.submit(mnist._synthetic_mnist, 60000, 10000)
@@ -2841,6 +2958,9 @@ def main() -> int:
     # ---------------------------------------------------------- phase 9
     counts9 = run_phase9(torch, here, dev, tag, zero_counts, read_counts)
     print(f"phase 9 ends at {time.perf_counter() - t_start:.1f} s")
+    # --------------------------------------------------------- phase 10
+    probe_entry = run_phase10(torch, tag)
+    print(f"phase 10 ends at {time.perf_counter() - t_start:.1f} s")
     launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
                                         counts6, counts_tp, counts7, counts8, counts9)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
@@ -2889,6 +3009,7 @@ def main() -> int:
             "bound_by": "operations", "library_ms": None,
             "bound_f32_ms": chains16["c, unpacked"][4], "steps": bf16_c["T"],
         },
+        probe_entry,
     ]}))
     print(f"chain (a): {plan_text(FID, BATCH, CHAIN_A)} {tag}")
     print(f"chain (c): {plan_text(FID, BATCH, CHAIN_C)} {tag}")

@@ -2,12 +2,14 @@
 
 Each kernel source under ``csrc/`` (``mcpc_chain.cu`` and
 ``mcpc_chain_unpacked.cu``, which both instantiate the cluster kernel of
-``mcpc_cluster.cuh``) has a plain ``extern "C"`` interface and
-is compiled by ``nvcc`` into its own shared library, loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds).  A source is built twice:
-once for f32 products and once with ``-DMCPC_BF16`` for bf16 ones, into a
-library of its own (``<name>_bf16``), so each library holds only the
-instantiations of its kind and the two compile side by side.  Libraries go
+``mcpc_cluster.cuh``, and ``op_probe.cu``, the per-op probe) has a plain
+``extern "C"`` interface and is compiled by ``nvcc`` into its own shared
+library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  A chain source is built twice: once for f32 products and once
+with ``-DMCPC_BF16`` for bf16 ones, into a library of its own
+(``<name>_bf16``), so each library holds only the instantiations of its
+kind and the two compile side by side.  The probe has no bf16 variant and
+is built once.  Libraries go
 to ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of the source, the shared headers and the flags, so an
 edited source or header rebuilds and an unchanged one is reused.  The first

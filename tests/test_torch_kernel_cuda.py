@@ -10,7 +10,9 @@ Without a CUDA device every test here skips.  Tolerances: latents atol 1e-4
 and scalars rtol 1e-5 on these short chains (the kernel sums in another
 order than cuBLAS; measured differences are ~2e-6).  Parameter gradients
 are batch sums with entries up to ~1e5, so each tensor is held to 1e-5 of its
-largest entry.
+largest entry.  The per-op probe (``benchmarks/vpu_op_bench.py``): its
+``card_tolerance`` (1e-5, scaled for the random variants by the tile's
+largest |x|) and 1e-6 for the card's ``sincos_2pi``.
 """
 
 import importlib
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 import montecarlopredictivecoding_tpu_torch as mt
+from montecarlopredictivecoding_tpu_torch.benchmarks import vpu_op_bench as probe
+from montecarlopredictivecoding_tpu_torch.ops.mcpc_chain import sincos_2pi
 
 chain_mod = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
 
@@ -751,3 +755,50 @@ def test_unpacked_launch_refuses_a_plan_it_was_not_sized_for(cuda_device):
     assert chain_mod.mcpc_chain.launches_unpacked == before
     chain_mod._kernel(c, params, latents, target, plan=plan)
     assert chain_mod.mcpc_chain.launches_unpacked == before + 1
+
+
+# ------------------------------------------------- the per-op probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", probe.VARIANTS)
+def test_op_probe_matches_plain_version(cuda_device, name):
+    """Each variant at B=256 and 64 against its plain version on the card
+    (``probe.card_tolerance``): over 64 steps from 0.3, and over 5 and 13
+    steps from the signed start (the loop's remainder, and where |x| and
+    x < 0 still show); the random ones at noise scale 1, where a wrong draw
+    shows, and at the probe's 1e-6."""
+    for B in (256, 64):
+        for x0, steps in ((None, 64), (probe.signed_start(B, 11, cuda_device), 5),
+                          (probe.signed_start(B, 11, cuda_device), 13)):
+            for scale in ((1.0, 1e-6) if name in probe.RANDOM_VARIANTS else (1e-6,)):
+                before = probe.run_variant.launches
+                got = probe.run_variant(name, B, steps, 11, noise_scale=scale, x0=x0)
+                torch.cuda.synchronize()
+                assert probe.run_variant.launches == before + 1
+                want = probe.run_variant_reference(name, B, steps, 11, cuda_device,
+                                                   noise_scale=scale, x0=x0)
+                assert got.shape == (B, probe.COLS) and bool(torch.isfinite(got).all())
+                assert float((got - want).abs().max()) <= probe.card_tolerance(name, want)
+
+
+@pytest.mark.cuda
+def test_op_probe_sincos_2pi_matches_plain_version(cuda_device):
+    u = torch.linspace(0.0, 0.999999, probe.SINCOS_POINTS, device=cuda_device)
+    before = probe.device_sincos_2pi.launches
+    for got, want in zip(probe.device_sincos_2pi(u), sincos_2pi(u)):
+        assert float((got - want).abs().max()) <= probe.SINCOS_ATOL
+    assert probe.device_sincos_2pi.launches == before + 1
+    assert probe.sincos_errors()["device_vs_plain"] <= probe.SINCOS_ATOL
+
+
+@pytest.mark.cuda
+def test_op_probe_refuses_what_it_does_not_take(cuda_device):
+    before = probe.run_variant.launches
+    with pytest.raises(ValueError, match="unknown variant"):
+        probe.run_variant("nope", 8, 4, 0)
+    with pytest.raises(ValueError, match="float32"):
+        probe.device_sincos_2pi(torch.zeros(4, dtype=torch.float64, device=cuda_device))
+    assert probe.run_variant.launches == before
+    assert torch.equal(probe.run_variant("baseline", 3, 0, 0),
+                       torch.full((3, probe.COLS), probe.X0, device=cuda_device))

@@ -8,7 +8,10 @@ tensors, lists and strings).  The parent holds them against the JAX package.
 """
 
 import multiprocessing
+import multiprocessing.connection
 import os
+import socket
+import time
 
 import numpy as np
 import torch
@@ -31,37 +34,85 @@ DP_OPTIONS = dict(T=10, lr=0.02, loss="bernoulli", mixing=4, with_pgrads=True,
 RANK_TIMEOUT_S = 240
 
 
-def run_ranks(body, world: int, tmp_dir: str):
+def run_ranks(body, world: int, tmp_dir: str, master_port=None):
     """Spawn ``world`` ranks of ``body(rank, world, tmp_dir)``, join them
-    with a timeout, and return each rank's result file's contents."""
+    with a timeout, and return each rank's result file's contents.  The
+    ranks meet in a gloo group through a ``file://`` rendezvous; with
+    ``master_port`` they get torchrun's environment instead (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` localhost, ``MASTER_PORT``) and no
+    group, which the body makes itself.  Once a rank fails, the others are
+    stopped; the error names each rank's exit code and exception."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(body, r, world, tmp_dir))
+    procs = [ctx.Process(target=_rank_main, args=(body, r, world, tmp_dir, master_port))
              for r in range(world)]
     for p in procs:
         p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
-        for p in procs:
-            p.join(RANK_TIMEOUT_S)
+        running = list(procs)
+        while running and time.monotonic() < deadline:
+            multiprocessing.connection.wait([p.sentinel for p in running],
+                                            deadline - time.monotonic())
+            running = [p for p in running if p.exitcode is None]
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
     finally:
         for p in procs:
             if p.is_alive():
                 p.terminate()
-                p.join()
+            p.join()
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
-        raise RuntimeError(f"rank exit codes {codes}")
+        errors = [_read(os.path.join(tmp_dir, f"rank{r}.err")) for r in range(world)]
+        raise RuntimeError(f"rank exit codes {codes}; errors {errors}")
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt")) for r in range(world)]
 
 
-def _rank_main(body, rank: int, world: int, tmp_dir: str) -> None:
+def _read(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def port_taken(err: RuntimeError) -> bool:
+    """Whether ``run_ranks`` failed as a rank found its port taken (another
+    process bound it between ``free_port`` and the rank's own bind)."""
+    text = str(err)
+    return "EADDRINUSE" in text or "address already in use" in text.lower()
+
+
+def _rank_main(body, rank: int, world: int, tmp_dir: str, master_port=None) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp_dir, "rendezvous"),
-                            rank=rank, world_size=world)
     try:
-        out = body(rank, world, tmp_dir)
-    finally:
-        dist.destroy_process_group()
+        if master_port is not None:
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                              MASTER_PORT=str(master_port))
+            out = body(rank, world, tmp_dir)
+        else:
+            join_group(rank, world, tmp_dir, "rendezvous")
+            try:
+                out = body(rank, world, tmp_dir)
+            finally:
+                dist.destroy_process_group()
+    except BaseException as err:
+        with open(os.path.join(tmp_dir, f"rank{rank}.err"), "w") as f:
+            f.write(f"{type(err).__name__}: {err}")
+        raise
     torch.save(out, os.path.join(tmp_dir, f"rank{rank}.pt"))
+
+
+def join_group(rank: int, world: int, tmp_dir: str, name: str) -> None:
+    """A gloo group of the ranks through the rendezvous file ``name``."""
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp_dir, name),
+                            rank=rank, world_size=world)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def small_mnist(root="MNIST_data", allow_synthetic=True):
@@ -186,3 +237,36 @@ def engine_config(mt, langevin_var):
         langevin_var=langevin_var,
         loss_fn=mt.bernoulli_fn,
     )
+
+
+MESH_CLI_ARGS = ["--model", "mcpc", "--device", "cpu", "--epochs", "1", "--batches-per-epoch",
+                 "2", "--seed", "3"]
+
+
+def mesh_cli_rank(rank: int, world: int, tmp_dir: str) -> dict:
+    """``train_mnist``'s command line with ``--mesh world`` in the tiny
+    setting (it makes its own gloo group from torchrun's environment and
+    ends it), each rank with its own ``--out``; then the same ranks meet
+    again and run ``train_mcpc(mesh=world)`` on the same data and seed."""
+    import contextlib
+    import io
+
+    from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
+
+    tiny_training(train_mnist)
+    cli_out = os.path.join(tmp_dir, f"cli_rank{rank}.msgpack")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        train_mnist.main(MESH_CLI_ARGS + ["--mesh", str(world), "--out", cli_out])
+    out = {"rank": rank, "stdout": printed.getvalue(), "cli_wrote": os.path.exists(cli_out),
+           "group_after_cli": dist.is_initialized()}
+    join_group(rank, world, tmp_dir, "rendezvous_reference")
+    try:
+        ref_out = os.path.join(tmp_dir, f"reference_rank{rank}.msgpack")
+        gen = train_mnist.train_mcpc(1, ref_out, seed=3, batches_per_epoch=2, log=False,
+                                     mesh=world, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    out["reference_params"] = [{k: v.clone() for k, v in p.items()} for p in gen.params]
+    out["reference_wrote"] = os.path.exists(ref_out)
+    return out
