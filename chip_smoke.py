@@ -6,7 +6,9 @@ Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          matrix product of the plain versions is full f32) and builds every
          CUDA kernel of the port from the sources in this checkout, one
          ``nvcc`` per library (each chain source for f32 and for bf16
-         products, the per-op probe's for f32), all started together.  The synthetic MNIST set that stands in for
+         products, the per-op probe's for f32), all started together, and
+         prints each instantiation's registers and spills as ptxas reports
+         them.  The synthetic MNIST set that stands in for
          the IDX files is made once and shared by every phase.
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
@@ -112,12 +114,16 @@ Phase 5  drives this slice's paths at full width (synthetic MNIST; the
          held, and said so).
 
 Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
-(bf16)   (20-128-128-784, Bernoulli).  It holds both kernels' bf16 builds
+(bf16)   (20-128-128-784, Bernoulli).  It counts the tensor-core products
+         (HMMA) in each chain library's SASS: every chain kernel of the bf16
+         libraries must hold them, no kernel of the f32 ones.  It holds both kernels' bf16 builds
          against the plain bf16 version by two rules (BF16_* below): one
          Langevin step of relu, tanh and the unpacked kernel, with gradients,
          at B=37 and B=256; then relu and tanh with 50 Adam and 100 Langevin
          steps and gradients, relu warm-only with ``warm_pgrads`` and the
-         unpacked chain with gradients (150 steps), at B=37 and B=256, the
+         unpacked chain with gradients (150 steps), at B=37 and B=256, one
+         step of relu, tanh and the unpacked kernel at B=1024 (four waves),
+         the output-PC site at B=256, the
          unpacked kernel's one step at B=1100 and 150 steps with gradients at
          10-256-256-784, and
          the options' instantiation at B=37 (masked and captured, tanh with
@@ -130,7 +136,9 @@ Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
          Adam + 50 + 100 Langevin steps + the Adam step on the parameters,
          at B=256 and B=1024; CUDA events, median), and the unpacked chain
          (c) in bf16.  Chain (a) and (c) in bf16 are held and timed against
-         the plain version at T=1000.  Last, ``train_mcpc(fused=False)``:
+         the plain version at T=1000, and chain (a)'s SM clocks a step by
+         phase (``chain_phase_clocks``) are read over PHASE_CLOCK_T steps, f32
+         beside bf16.  Last, ``train_mcpc(fused=False)``:
          10 batches at B=256 through ``PCTrainer``, 2 chain launches and one
          summing pass a batch, no engine call, the parameters finite and
          changed, the test batch's loss lower; ms a batch beside phase 3's
@@ -377,6 +385,8 @@ STACKED_RTOL = 1e-4
 # the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
 # sheet, 700 W): the least time the card could take for bf16 products
 PEAK_BF16_FLOPS = 989e12
+# phase 6: the steps of chain (a) over which the phase clocks are read
+PHASE_CLOCK_T = 2000
 # phase 9: data-parallel training.  World size 1 (NCCL, in this process):
 # DP_W1_BATCHES batches of train_mcpc(mesh=1) with the noise on beside
 # train_mcpc(), which must give the same bits (one rank: the shard is the
@@ -1246,11 +1256,10 @@ def main() -> int:
         name = source + ("_bf16" if bf16 else "")
         with open(str(lib_path) + ".log") as log:
             print(f"phase 0: {name}: {log.readline().strip()}")
-            for line in log:
-                # "Compiling entry function" names the kernel and, as its
-                # template argument, the rows per block
-                if "Compiling entry" in line or "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}:", line.strip())
+        # every instantiation: registers a thread and spills (ptxas -v)
+        for kernel, (regs, stores, loads) in sorted(_build.ptxas_resources(lib_path).items()):
+            print(f"  ptxas {name}: {kernel}: {regs} registers, spill stores {stores} B, "
+                  f"spill loads {loads} B")
 
     # ---------------------------------------------------------- phase 1
     gen = torch.Generator().manual_seed(SEED)
@@ -1269,19 +1278,21 @@ def main() -> int:
     gen_c = torch.Generator().manual_seed(SEED + 11)
 
     def chain_plan(dims, B, kw):
-        """the plan of the call's own kernel, packed or unpacked"""
-        packed = kw.get("packed", True)
+        """the plan of the call's own kernel, packed or unpacked, f32 or bf16"""
+        packed, bf16 = kw.get("packed", True), kw.get("bf16_matmul", False)
         return chain.chain_plan(dims, B, warm=kw.get("warm_T", 0) > 0,
                                 with_pgrads=kw.get("with_pgrads", False),
-                                budget=chain.smem_budget(dev, packed),
-                                max_clusters=chain.max_active_clusters(dev, packed=packed),
-                                output_pc=kw.get("output_var") is not None)
+                                budget=chain.smem_budget(dev, packed, bf16),
+                                max_clusters=chain.max_active_clusters(dev, packed=packed,
+                                                                       bf16=bf16),
+                                output_pc=kw.get("output_var") is not None, bf16=bf16)
 
     def plan_text(dims, B, kw):
         plan = chain_plan(dims, B, kw)
-        packed = kw.get("packed", True)
-        return (("" if packed else "unpacked: ")
-                + plan.describe(chain.max_active_clusters(dev, plan, packed=packed)))
+        packed, bf16 = kw.get("packed", True), kw.get("bf16_matmul", False)
+        return (("" if packed else "unpacked: ") + ("bf16: " if bf16 else "")
+                + plan.describe(chain.max_active_clusters(dev, plan, packed=packed,
+                                                          bf16=bf16)))
 
     warm = dict(warm_T=50, warm_lr=0.1, lr=0.03, return_scalars=True)
     pg = dict(warm, T=60, mixing=20, with_pgrads=True)
@@ -1511,14 +1522,15 @@ def main() -> int:
                 check(not failed, "phase 1 " + "; ".join(failed))
                 del got, ref, ref64
 
-    def output_pc_case(B):
+    def output_pc_case(B, generator=None):
         """The fid model with a trailing PC site, x3 at least one unit off
-        its prediction."""
+        its prediction; from ``gen`` unless told."""
+        g = gen if generator is None else generator
         model = port.make_mlp_model(*FID, output_pc=port.PC(
             energy_fn=port.scaled_gaussian_energy(OUT_PC["output_var"])))
-        params = model.init(gen, device=dev)
-        lat = model.init_latents(params, torch.zeros(B, FID[0], device=dev), gen)
-        return params, off_prediction(torch, lat, gen)
+        params = model.init(g, device=dev)
+        lat = model.init_latents(params, torch.zeros(B, FID[0], device=dev), g)
+        return params, off_prediction(torch, lat, g)
 
     def out_moments(m):
         """(m, v, m3, v3) as handed out -> the per-latent moments a call takes."""
@@ -2197,6 +2209,19 @@ def main() -> int:
     # version, by the rules of BF16_* (module top)
     bf = dict(bf16_matmul=True)
     bf16_failed = []
+    # the bf16 libraries' products run on the tensor cores: HMMA in every
+    # chain kernel of theirs, none in the f32 libraries (cuobjdump -sass)
+    for (source, bf16), lib_path in zip(libraries, lib_paths):
+        if source == "op_probe":
+            continue
+        hmma = {_build.kernel_name(f): k for f, k in _build.sass_counts(lib_path, "HMMA").items()
+                if "mcpc_chain_kernel" in f}
+        name = source + ("_bf16" if bf16 else "")
+        print(f"phase 6: HMMA in {name}: " + ", ".join(f"{k}: {v}" for k, v in sorted(hmma.items())))
+        check(len(hmma) == (16 if source == "mcpc_chain" else 4),
+              f"{name}: {len(hmma)} chain kernels in its SASS")
+        check(all(v >= 3 for v in hmma.values()) if bf16 else not any(hmma.values()),
+              f"{name}: HMMA where it should not be, or missing where it should")
 
     def bf16_runs(p_in, l_in, t_in, kw):
         """(kernel bf16, plain bf16, plain bf16 in float64, plain f32)"""
@@ -2311,10 +2336,30 @@ def main() -> int:
                 text, failed = one_step_held(name, runs)
             else:
                 text, failed = share_held(name, runs, kw)
-            print(f"phase 6: bf16 {name}: B={B} [{plan_text(FID, B, kw)}] rule "
+            print(f"phase 6: bf16 {name}: B={B} [{plan_text(FID, B, dict(kw, **bf))}] rule "
                   f"({'i' * rule}): {text}")
             bf16_failed += failed
             del runs
+    # both kernels' tensor-core products in four waves (B=1024), and the
+    # output-PC site at the main path's batch; drawn from a generator of
+    # their own, so the other cases keep their inputs
+    gen_12 = torch.Generator().manual_seed(SEED + 12)
+    for name, B, kw, rule, inputs in (
+        ("relu, one step", 1024, one_step, 1, None),
+        ("tanh, one step", 1024, dict(one_step, activation="tanh"), 1, None),
+        ("unpacked, one step", 1024, dict(one_step, packed=False), 1, None),
+        ("the output-PC site, gradients, captures", BATCH,
+         dict(long_kw, capture_stride=10, **OUT_PC), 2, "output_pc"),
+    ):
+        p_row, l_row, t_row = (output_pc_case(B, gen_12) + (None,) if inputs
+                               else random_case(FID, B, gen_12))
+        runs = bf16_runs(p_row, l_row, t_row, kw)
+        text, failed = (one_step_held(name, runs) if rule == 1
+                        else share_held(name, runs, kw))
+        print(f"phase 6: bf16 {name}: B={B} [{plan_text(FID, B, dict(kw, **bf))}] rule "
+              f"({'i' * rule}): {text}")
+        bf16_failed += failed
+        del runs
     # the unpacked kernel beyond one tile, and at 10-256-256-784 with its
     # gradient slice through L2
     for name, dims, B, kw, rule in (
@@ -2326,7 +2371,7 @@ def main() -> int:
         runs = bf16_runs(p_row, l_row, t_row, kw)
         text, failed = (one_step_held(name, runs) if rule == 1
                         else share_held(name, runs, kw))
-        print(f"phase 6: bf16 {name}: B={B} [{plan_text(dims, B, kw)}] rule "
+        print(f"phase 6: bf16 {name}: B={B} [{plan_text(dims, B, dict(kw, **bf))}] rule "
               f"({'i' * rule}): {text}")
         bf16_failed += failed
         del runs
@@ -2402,7 +2447,7 @@ def main() -> int:
                   f"{CHAIN_A['T'] / (ms / 1e3):.1f} steps/s; training step {step_ms:.3f} ms, "
                   f"{1e3 * step_ms / steps:.3f} us/step, {B / (step_ms / 1e3):.1f} images/s; "
                   f"bound (a) {chain_bound_ms(FID, B, CHAIN_A['T'], peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS):.3f} ms; "
-                  f"[{plan_text(FID, B, CHAIN_A)}] {tag}")
+                  f"[{plan_text(FID, B, dict(CHAIN_A, bf16_matmul=bf16))}] {tag}")
     # chains (a) and (c) in bf16 cut to T=1000, held by rule (ii) and timed
     # beside the plain version and their bounds
     bf16_a = dict(CHAIN_A, T=1000, **bf)
@@ -2442,6 +2487,18 @@ def main() -> int:
         check(rms16 <= BF16_SHARE * rms_eff16,
               f"phase 6: chain ({name}) bf16 {rms16} (rms) from the plain version, "
               f"effect {rms_eff16}")
+    # where a step's SM clocks go, f32 beside bf16, at chain (a) cut to
+    # PHASE_CLOCK_T steps (thread 0 of each block, barrier waits included)
+    for bf16 in (False, True):
+        kw_pc = dict(CHAIN_A, T=PHASE_CLOCK_T, bf16_matmul=bf16)
+        clocks = chain.chain_phase_clocks(params, latents, data, SEED, **kw_pc)
+        per_step = (clocks.double().mean(dim=0) / PHASE_CLOCK_T).tolist()
+        total_clk = sum(per_step)
+        print(f"phase 6: phase clocks, chain (a) {'bf16' if bf16 else 'f32 '} T={PHASE_CLOCK_T} "
+              f"[{plan_text(FID, BATCH, kw_pc)}]: SM clocks a step "
+              + ", ".join(f"{p} {c:.0f} ({100 * c / total_clk:.1f}%)"
+                          for p, c in zip(chain.PHASES, per_step))
+              + f"; sum {total_clk:.0f} {tag}")
 
     # train_mcpc's trainer path: two PCTrainer calls a batch, both to the chain
     made, spans = [], []
@@ -2998,7 +3055,10 @@ def main() -> int:
             "max_abs_err": chains16["a"][2], "ms": chains16["a"][0],
             "plain_ms": chains16["a"][1], "bound_ms": chains16["a"][3],
             "bound_by": "operations", "library_ms": None,
+            "share": chains16["a"][3] / chains16["a"][0],
             "bound_f32_ms": chains16["a"][4], "steps": bf16_a["T"],
+            # chain (a) at T=10000 (bench.py's bf16 rows), B=256 and B=1024
+            "ms_T10000": {str(B): bench_rows[B, True][0] for B in (BATCH, 1024)},
         },
         {
             "name": "mcpc_chain_unpacked_bf16", "route": "cuda",
@@ -3007,6 +3067,7 @@ def main() -> int:
             "max_abs_err": chains16["c, unpacked"][2], "ms": chains16["c, unpacked"][0],
             "plain_ms": chains16["c, unpacked"][1], "bound_ms": chains16["c, unpacked"][3],
             "bound_by": "operations", "library_ms": None,
+            "share": chains16["c, unpacked"][3] / chains16["c, unpacked"][0],
             "bound_f32_ms": chains16["c, unpacked"][4], "steps": bf16_c["T"],
         },
         probe_entry,

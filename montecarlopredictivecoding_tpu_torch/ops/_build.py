@@ -28,6 +28,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -113,6 +114,66 @@ def build_all(libraries: tp.Sequence[tp.Tuple[str, bool]]) -> tp.List[Path]:
     each, all started together; returns their paths in order."""
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         return list(pool.map(lambda lib: build(*lib), libraries))
+
+
+_CHAIN_KERNEL = re.compile(r"mcpc_chain_kernelILi(\d+)ELb(\d)ELi(\d)ELb(\d)ELi(\d)E")
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled function of these libraries: the chain
+    kernel's template arguments (rows a cluster, OPT, ACT, BF16, NOISE)
+    spelled out, anything else as it is."""
+    m = _CHAIN_KERNEL.search(mangled)
+    if m is None:
+        for code, kind in (("IdE", "double"), ("IfE", "float"), ("I6float4E", "float4")):
+            if "sum_partials_kernel" + code in mangled:
+                return f"sum_partials_kernel<{kind}>"
+        return mangled
+    rg, opt, act, bf16, noise = (int(g) for g in m.groups())
+    return (f"mcpc_chain_kernel<rows {2 * rg}, {'OPT' if opt else 'plain'}, "
+            f"{'tanh' if act else 'relu'}, {'bf16' if bf16 else 'f32'}, "
+            f"{'unpacked' if noise else 'packed'}>")
+
+
+def ptxas_resources(library: Path) -> tp.Dict[str, tp.Tuple[int, int, int]]:
+    """ptxas's report of each kernel of a built ``library`` (from the
+    ``.log`` that :func:`build` keeps): ``{kernel_name: (registers, spill
+    store bytes, spill load bytes)}``."""
+    out: tp.Dict[str, tp.Tuple[int, int, int]] = {}
+    name, spill = None, (0, 0)
+    for line in Path(str(library) + ".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)),) + spill
+            name, spill = None, (0, 0)
+    return out
+
+
+def sass_counts(library: Path, opcode: str) -> tp.Dict[str, int]:
+    """How often each function of a built ``library`` holds the SASS
+    instruction ``opcode`` (``"HMMA"``: a tensor-core product), read with the
+    toolkit's ``cuobjdump -sass``: ``{mangled function name: count}``, every
+    function of the library listed."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    op = re.compile(rf"\b{re.escape(opcode)}[.\s]")
+    counts: tp.Dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            name = line[len("Function : "):]
+            counts[name] = 0
+        elif name is not None and op.search(line):
+            counts[name] += 1
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

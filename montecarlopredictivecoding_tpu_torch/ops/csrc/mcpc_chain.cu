@@ -10,8 +10,8 @@
 // computes, its bound on an H100, its design and its options are described
 // there), instantiated with the packed noise indexing for every row count of
 // MCPC_CLUSTER_ROWS, with and without the options' code (OPT), relu and tanh
-// (ACT): 16 kernels a library, f32 products here and bf16 ones in the build
-// with -DMCPC_BF16.
+// (ACT): 16 kernels a library, f32 products here and bf16 ones on the
+// tensor cores in the build with -DMCPC_BF16.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -87,7 +87,7 @@ int mcpc_chain_phase_count() { return N_PHASE; }
 // in shared memory; outpc: an output-PC site
 size_t mcpc_chain_smem_bytes(int d0, int d1, int d2, int D, int rows, int warm,
                              int grads, int outpc) {
-  return make_layout(d0, d1, d2, D, rows, warm, grads, outpc).total * sizeof(float);
+  return make_layout<kBF16>(d0, d1, d2, D, rows, warm, grads, outpc).total * sizeof(float);
 }
 
 // dynamic shared memory a block may use on `device`, or -1

@@ -22,10 +22,11 @@
 // and the seed unshifted (mcpc_cluster.cuh, "Noise indexing").
 //
 // bf16 products (the JAX kernel's bf16_matmul: its mm rounds both operands
-// of every product): the build with -DMCPC_BF16 rounds them as the packed
-// kernel does (mcpc_cluster.cuh, "bf16 products"): the weights once, by the
-// wrapper; h_l where it is stored; err1, err2 and s where the products read
-// them.  err_l and s themselves, the bias gradients and the update stay f32.
+// of every product): the build with -DMCPC_BF16 runs them as the packed
+// kernel does (mcpc_cluster.cuh, "bf16 products"), on the tensor cores: the
+// weights rounded once, by the wrapper, and kept as bf16 slices; h_l and
+// err1, err2 and s kept as bf16 copies beside the f32 values.  err_l and s
+// themselves, the bias gradients and the update stay f32.
 //
 // Bound on an H100: operations, as the packed kernel (4*B*(d0 d1 + d1 d2 +
 // d2 D) FLOP a step, plus half of that on a step that samples).
@@ -67,7 +68,7 @@ extern "C" {
 // no parameter gradients, 1 the block's gradient slice in device memory, 2
 // in shared memory
 size_t mcpc_chain_unpacked_smem_bytes(int d0, int d1, int d2, int D, int rows, int grads) {
-  return make_layout(d0, d1, d2, D, rows, 0, grads, 0).total * sizeof(float);
+  return make_layout<kBF16>(d0, d1, d2, D, rows, 0, grads, 0).total * sizeof(float);
 }
 
 // dynamic shared memory a block may use on `device`, or -1

@@ -57,10 +57,13 @@
 // Bound on an H100: operations.  One step at width 20-128-128-784 is
 // 4*B*(20*128 + 128*128 + 128*784) FLOP = 122 MFLOP at B=256, so a
 // T=10000 chain is 1.22 TFLOP: 18 ms at the published 67 TFLOP/s f32 of an
-// H100 SXM at 700 W.  Bytes (weights 477 KB, latents and target) are
-// negligible next to that.  Products are f32 FMAs on the CUDA cores: no
-// TF32, no tensor cores, no --use_fast_math (tanhf, logf, log1pf, expf and
-// sqrtf stay IEEE).
+// H100 SXM at 700 W, and 1.2 ms at its 989 TFLOP/s of dense bf16 on the
+// tensor cores (the bf16 build, "bf16 products" below).  Bytes (weights 477
+// KB, latents and target) are negligible next to that.  The f32 build's
+// products are FMAs on the CUDA cores: no TF32, no tensor cores.  Neither
+// build uses --use_fast_math (tanhf, logf, log1pf, expf and sqrtf stay
+// IEEE).  A step is a few hundred small dependent products and two cluster
+// barriers, so what sets the pace is latency, not either peak.
 //
 // Design.  The chain is thousands of small dependent steps, so what it needs
 // from the card is every SM at work and no trip to L2 inside a step.
@@ -76,8 +79,8 @@
 //    plan cuts the slices and passes their bounds, ChainArgs::lo), and
 //    keeps W_l[:, slice k] of every layer in its shared memory for the whole
 //    chain (119,296 floats / 8 at 20-128-128-784: 66 KB with the padding of
-//    slice_stride; 146 KB at 10-256-256-784).  Weights are read from device
-//    memory once, in the prologue.
+//    slice_stride; 146 KB at 10-256-256-784; the bf16 build's slices, 38 and
+//    83 KB).  Weights are read from device memory once, in the prologue.
 //  * Every block holds the full act(X) of the cluster's rows, H [n][rows],
 //    feature-major.  Forward is one phase with no exchange: block k computes
 //    err_l[:, slice k] and S[:, slice k] of all layers from H and its own
@@ -95,10 +98,11 @@
 //  * A cluster barrier costs over a thousand clocks (its release is a
 //    device-wide fence), and the noise needs no memory: each barrier is split
 //    into arrive and wait, and the step's normals are drawn in between.
-//  * Both products are bound by the 128 bytes a clock that go from shared
-//    memory to registers, not by the FMA pipe, so a thread keeps a register
-//    tile of 4 columns x half of the rows, and 4 lanes share a tile and split
-//    its k ("products" below).
+//  * The f32 build's products are bound by the 128 bytes a clock that go
+//    from shared memory to registers, not by the FMA pipe, so a thread keeps
+//    a register tile of 4 columns x half of the rows, and 4 lanes share a
+//    tile and split its k ("products" below; the bf16 build's run on the
+//    tensor cores: "bf16 products").
 //  * Every block of a cluster reaches every barrier: pad rows (beyond B)
 //    evolve like real rows and are skipped only in sums and stores.
 //
@@ -158,22 +162,52 @@
 // BF16, which only the library built with -DMCPC_BF16 instantiates (it sets
 // kBF16, mcpc_common.cuh): the f32 library carries none of its code, and
 // the two build side by side.  Every product takes bf16 operands, rounded to
-// nearest even, and sums in f32, as the JAX kernel's mm / mmT:
-//  * the weights are rounded once by the wrapper, so the slices in shared
-//    memory, the layout and the plan are the f32 kernel's;
-//  * H holds act(x) rounded (the prologue and the owner's write into every
-//    block's H), which is what the forward and Hebbian products read;
-//  * the backward products round err1, err2 and S as they read them, and the
-//    Hebbian products round err_l and S into their register tiles;
+// nearest even, and sums in f32 on the tensor cores, as the JAX kernel's mm
+// / mmT with preferred_element_type=f32 do on the MXU: mma.sync m16n8k16
+// (m16n8k8 for a last 8 rows) with f32 accumulators, its operands read from
+// shared memory by ldmatrix ("tensor-core tiles" below).
+//  * Operands live in shared memory as bf16, feature-major with the rows
+//    contiguous: act(X) of every latent column (H16, each layer's columns
+//    padded to 16), the own columns' err1, err2 and S (E16, rounded as the
+//    forward pass makes them), and the weight slices W_l[:, slice k] (rounded
+//    once by the wrapper, stored once).  A row of these arrays holds the
+//    cluster's rows padded to whole n8 tiles (24 for 18 rows), at a pitch of
+//    8 * odd bf16, so the 8 rows an ldmatrix reads fall in 8 different
+//    16-byte bank groups.  Every pad (rows of a layer, columns of a slice,
+//    rows of the cluster) is zero from the prologue on, and H16 and E16 hold
+//    zero at rows beyond the batch, so a padded sum adds exact zeros.
+//  * The rows take the narrow side of each product (N: 18 rows pad to 24,
+//    not to 32 as M would): forward err^T[slice][rows] = W_slice^T H16
+//    (ldmatrix.trans of the weights), backward partial^T[in][rows] = W E16^T,
+//    Hebbian gW[in][slice] += H16 E16^T with K = rows and the C fragment read
+//    from and written back to the f32 gradient slice.  One weight slice
+//    serves both: the forward product reads it transposed.
+//  * A warp takes a whole tile: 16 output columns (or 16 latent columns, or
+//    16 input features of a gradient) by all the rows.  The warps deal the
+//    tiles in snake order, longest first (snake_tile), so that at
+//    20-128-128-784 the forward's two short tiles (err2, err1) share one
+//    warp.  The forward and backward products load the next k step's
+//    fragments while this one multiplies, and sum the k steps in order; a
+//    Hebbian warp loads its A fragments once and walks the own columns 8 at
+//    a time, each 8 loading the next 8's running sums first.
+//  * The epilogues read the D fragments: the errors, S, the loss and energy
+//    sums, and the partials' DSMEM stores into the owner's P at this rank.
+//    The forward's computes every element of a tile branch-free (indices
+//    clamped) before it stores the real ones, and loads the target before
+//    the products; the rare double-precision loss sums are out of line
+//    (loss_term).  The rank-order sum, the update and everything else is
+//    the f32 code.
+//  * What a bf16 step costs (chip_smoke.py phase 6, PERF.md): the products
+//    are a small part of it; each tile's epilogue, issued by two warps a
+//    scheduler, and the two cluster barriers are most of it.
 //  * act' is taken from the unrounded x: 1 - tanh(x)^2 is recomputed by the
-//    owner from its own x, since the H it holds is rounded;
-//  * errors, S, the bias gradients, the scalars, the Adam state, the x3 step
-//    and the noise stay f32.
-// The product of two bf16 values is exact in f32, so the FMAs differ from a
-// bf16 matrix unit only in the order of the sums.  The products still run on
-// the CUDA cores (tensor cores and bf16 slices in shared memory are later
-// work), so a bf16 chain costs what an f32 one does plus the roundings.
-//
+//    owner from its own x, since the H16 it holds is rounded;
+//  * errors, S, the bias gradients, the scalars, the Adam state, the x3 step,
+//    the noise and the partials P stay f32.
+// The product of two bf16 values is exact in f32, so the products differ
+// from the plain version's only in the order (and the tensor cores'
+// rounding) of the f32 sums.
+
 // Noise indexing.  A fifth template argument, NOISE, picks the packed or the
 // unpacked indexing inside the one function that computes an element's
 // normal (the latents' noise lambda, also used for the draws ahead of a
@@ -296,6 +330,17 @@ struct Rows {
   }
 };
 
+// The bf16 build's [..][rows] arrays (H16, E16: "bf16 products" in the
+// header) hold the R rows padded to whole n8 tiles, at a pitch of 8 * odd
+// bf16: the 8 rows of 16 bytes that an ldmatrix reads then lie in 8
+// different 16-byte bank groups.  The rows keep the f32 arrays' positions
+// (Rows<RG>::pos), so a D fragment's column is a position there too.
+__host__ __device__ constexpr int rows_n8(int R) { return (R + 7) / 8 * 8; }
+__host__ __device__ constexpr int bf16_pitch(int R) {
+  return rows_n8(R) / 8 % 2 ? rows_n8(R) : rows_n8(R) + 8;
+}
+__host__ __device__ constexpr int up16(int d) { return (d + 15) / 16 * 16; }
+
 // Shared memory of one block, in floats.  Every block of a cluster uses the
 // same offsets (sized by the widest slice), so an offset means the same
 // place in a peer's shared memory.
@@ -303,17 +348,27 @@ struct Layout {
   int N0, N1, N2, ND;      // widest slice of x0, x1, x2 and the output
   int J1, J2, OWN;         // where the x1 and x2 slices start among a block's
                            // own latent columns, and how many those are
-  int LD1, LD2, LD3;       // row strides of the weight slices (8 * odd)
-  size_t H, X, E, S, P, M, V;   // [..][row_pitch(R)] arrays
+  int LD1, LD2, LD3;       // row strides of the f32 weight and gradient slices (8 * odd)
+  size_t H, X, E, S, P, M, V;   // [..][row_pitch(R)] arrays (BF16: H is H16)
   size_t X3, M3, V3;            // the same: an output-PC site's own columns, moments
   size_t W1, W2, W3, BI;        // weight slices, own biases [OWN + ND]
   size_t OT;                    // owner and own-column index of every latent column [n]
   size_t G1, G2, G3, GB;        // gradient slices, own bias gradients
   size_t total;
+  // BF16 only (bf16 arrays; their offsets in floats, the rest in bf16):
+  int HP;                  // pitch of H16 and E16: bf16_pitch(R)
+  int HB1, HB2;            // H16's first rows of x1 and x2 (each layer padded to 16)
+  int EB2, EBS;            // E16's first rows of err2 and S (err1 at 0; widest slices
+                           // padded to 16)
+  int LW1, LW2, LW3;       // row strides of the bf16 weight slices: up16(widest) + 8
+  size_t E16;
 };
 
 // grads: 0 none, 1 bias gradients only (weights' in device memory), 2 all;
-// outpc: an output-PC site
+// outpc: an output-PC site.  BF16: the bf16 products' layout, whose bf16
+// arrays (H16, E16, the weight slices, rows padded as the tiles read them)
+// come first and keep every later array 16-byte aligned.
+template <bool BF16 = false>
 __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
                                               int R, int warm, int grads, int outpc) {
   Layout L;
@@ -324,7 +379,19 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
   const size_t n = (size_t)d0 + d1 + d2;
   const size_t RP = row_pitch(R);
   size_t o = 0;
-  L.H = o; o += n * RP;
+  if constexpr (BF16) {
+    L.HP = bf16_pitch(R);
+    L.HB1 = up16(d0); L.HB2 = L.HB1 + up16(d1);
+    L.EB2 = up16(L.N1); L.EBS = L.EB2 + up16(L.N2);
+    L.LW1 = up16(L.N1) + 8; L.LW2 = up16(L.N2) + 8; L.LW3 = up16(L.ND) + 8;
+    L.H = o; o += (size_t)(L.HB2 + up16(d2)) * L.HP / 2;
+    L.E16 = o; o += (size_t)(L.EBS + up16(L.ND)) * L.HP / 2;
+    L.W1 = o; o += (size_t)up16(d0) * L.LW1 / 2;
+    L.W2 = o; o += (size_t)up16(d1) * L.LW2 / 2;
+    L.W3 = o; o += (size_t)up16(d2) * L.LW3 / 2;
+  } else {
+    L.H = o; o += n * RP;
+  }
   L.X = o; o += (size_t)L.OWN * RP;
   L.E = o; o += (size_t)L.OWN * RP;
   L.S = o; o += (size_t)L.ND * RP;
@@ -335,9 +402,11 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
   L.X3 = o; o += outpc ? (size_t)L.ND * RP : 0;
   L.M3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
   L.V3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
-  L.W1 = o; o += (size_t)d0 * L.LD1;
-  L.W2 = o; o += (size_t)d1 * L.LD2;
-  L.W3 = o; o += (size_t)d2 * L.LD3;
+  if constexpr (!BF16) {
+    L.W1 = o; o += (size_t)d0 * L.LD1;
+    L.W2 = o; o += (size_t)d1 * L.LD2;
+    L.W3 = o; o += (size_t)d2 * L.LD3;
+  }
   L.BI = o; o += (size_t)L.OWN + L.ND;
   L.OT = o; o += n;
   L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
@@ -375,6 +444,7 @@ __device__ __forceinline__ void cluster_wait() {
 
 // ------------------------------------------------------------ products
 //
+// The f32 build's products (the bf16 build's: "tensor-core tiles" below).
 // Both products of a step are small matrix products out[col][row] =
 // sum_k A[k][row] * W(k, col) whose operands lie in shared memory.  What
 // bounds them is the 128 bytes a clock that an SM can move from shared
@@ -430,8 +500,7 @@ __device__ __forceinline__ void load_feature(float (&v)[2 * RG], const float* fe
 
 // acc[u][r] += sum over k = part, part + KSPLIT, ... < K of
 //              A[k][row r of half g] * W[k * ldk + off[u]]
-// with ROUND, each A value rounded to bf16 as it is read
-template <int RG, bool ROUND = false>
+template <int RG>
 __device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, int g,
                                          const float* W, int ldk, const int (&off)[4],
                                          int part, int K) {
@@ -439,10 +508,6 @@ __device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, in
   for (int k = part; k < K; k += KSPLIT) {
     float av[RG], w[4];
     load_rows<RG>(av, A + k * Rows<RG>::PITCH, g);
-    if constexpr (ROUND) {
-#pragma unroll
-      for (int r = 0; r < RG; ++r) av[r] = operand<true>(av[r]);
-    }
 #pragma unroll
     for (int u = 0; u < 4; ++u) w[u] = W[k * ldk + off[u]];
 #pragma unroll
@@ -474,6 +539,187 @@ __device__ __forceinline__ void quad_reduce(float (&out)[RG], const float (&acc)
   }
 }
 
+// ------------------------------------------------ tensor-core tiles
+//
+// The bf16 build's products (BF16; "bf16 products" in the header), one warp
+// a tile: mma.sync m16n8k16 (and m16n8k8 for a last 8 of K) with bf16
+// operands and f32 accumulators.  A lane is (gq, tq) = (lane / 4, lane % 4)
+// in the fragments: an accumulator acc[4] of a 16 x 8 tile holds rows gq
+// (acc[0], acc[1]) and gq + 8 (acc[2], acc[3]) at columns 2 tq and 2 tq + 1.
+// The operands come from feature-major bf16 arrays in shared memory through
+// ldmatrix, whose lane l gives the address of row l % 8 of 8 x 8 matrix
+// l / 8; .trans hands each lane a column pair instead of a row pair.
+
+using bf16_t = __nv_bfloat16;
+
+// The tile a warp takes at its turn-th turn when a block's warps deal `count` tiles in
+// snake order (warp w: w, 2 NWARP - 1 - w, 2 NWARP + w, ...), or -1 when
+// done: the tiles are listed longest first, so a warp with a second tile
+// takes a short one, and the two shortest go to the same warp.
+__device__ __forceinline__ int snake_tile(int warp, int turn, int count) {
+  const int tile = turn * NWARP + (turn & 1 ? NWARP - 1 - warp : warp);
+  return tile < count ? tile : -1;
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The loads read what other threads wrote before a barrier: "memory" keeps
+// the compiler from moving them across it.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(shared_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(shared_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(shared_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(shared_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x1(uint32_t& r, const bf16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];"
+               : "=r"(r) : "r"(shared_addr(p)) : "memory");
+}
+
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; d f32
+__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b: a 16 x 8, b 8 x 8
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// acc[nt] += the products of k steps 0 .. ksteps-1 in that order, whose
+// fragments load(a, b, ks) brings: step ks + 1 loads while step ks
+// multiplies.  ksteps may be 0 (a rank without columns): the first load then
+// reads zero pads and nothing is added.  (Odd steps summed into a second
+// accumulator ran a step about 100 SM clocks faster, but that order left a
+// phase-6 chain's scalars just outside chip_smoke.py's rule (ii): PERF.md.)
+template <int NB, typename Load>
+__device__ __forceinline__ void tile_pairs(float (&acc)[NB][4], Load load, int ksteps) {
+  uint32_t a0[4], b0[NB][2], a1[4], b1[NB][2];
+  load(a0, b0, 0);
+  int ks = 0;
+  for (; ks + 2 <= ksteps; ks += 2) {
+    load(a1, b1, ks + 1);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) mma_k16(acc[nt], a0, b0[nt]);
+    if (ks + 2 < ksteps) load(a0, b0, ks + 2);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) mma_k16(acc[nt], a1, b1[nt]);
+  }
+  if (ks < ksteps) {
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) mma_k16(acc[nt], a0, b0[nt]);
+  }
+}
+
+// The forward product of 16 own columns: acc[nt][..] += sum over k <
+// 16 ksteps of W[k][j0 + m] * H[k][8 nt + n], for the NB n8 tiles of the
+// rows.  W is a weight slice [k][ldw] (A = W^T: ldmatrix.trans), H the
+// layer's rows of H16 [k][hp] (B: .trans).  The next k step's fragments load
+// while this one's products run (tile_pairs).
+template <int NB>
+__device__ __forceinline__ void tile_forward(float (&acc)[NB][4], const bf16_t* W, int ldw,
+                                             int j0, const bf16_t* H, int hp, int ksteps,
+                                             int lane) {
+  const int q = lane >> 3, rr = lane & 7;
+  const bf16_t* wa = W + (rr + 8 * (q >> 1)) * ldw + j0 + 8 * (q & 1);
+  const bf16_t* hb = H + (rr + 8 * (q & 1)) * hp;
+  auto load = [&](uint32_t (&a)[4], uint32_t (&b)[NB][2], int ks) {
+    ldsm_x4_trans(a, wa + ks * 16 * ldw);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) ldsm_x2_trans(b[nt], hb + ks * 16 * hp + nt * 8);
+  };
+  tile_pairs<NB>(acc, load, ksteps);
+}
+
+// The backward product of 16 latent columns: acc[nt][..] += sum over the
+// own columns j < 16 ksteps of W[i0 + m][j] * E[j][8 nt + n].  W is a weight
+// slice [i][ldw] (A: ldmatrix), E the own err or S of E16 [j][hp] (B:
+// .trans).  The k steps load ahead, as tile_forward's.
+template <int NB>
+__device__ __forceinline__ void tile_backward(float (&acc)[NB][4], const bf16_t* W, int ldw,
+                                              int i0, const bf16_t* E, int hp, int ksteps,
+                                              int lane) {
+  const int q = lane >> 3, rr = lane & 7;
+  const bf16_t* wa = W + (i0 + rr + 8 * (q & 1)) * ldw + 8 * (q >> 1);
+  const bf16_t* eb = E + (rr + 8 * (q & 1)) * hp;
+  auto load = [&](uint32_t (&a)[4], uint32_t (&b)[NB][2], int ks) {
+    ldsm_x4(a, wa + ks * 16);
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt) ldsm_x2_trans(b[nt], eb + ks * 16 * hp + nt * 8);
+  };
+  tile_pairs<NB>(acc, load, ksteps);
+}
+
+// The Hebbian products of 16 input features: their rows of H16 [k][hp]
+// over the KR = rows_n8(R) row positions are the A fragments (ldmatrix),
+// loaded once for all the own columns; 16 positions take a k16 step, a last
+// 8 a k8 step.
+template <int KR>
+struct HebbianA {
+  static constexpr int K16 = KR / 16;
+  uint32_t k16[K16 > 0 ? K16 : 1][4];
+  uint32_t k8[2];
+  __device__ __forceinline__ void load(const bf16_t* H, int hp, int lane) {
+    const int q = lane >> 3, rr = lane & 7;
+    const bf16_t* ha = H + (rr + 8 * (q & 1)) * hp + 8 * (q >> 1);
+#pragma unroll
+    for (int s = 0; s < K16; ++s) ldsm_x4(k16[s], ha + 16 * s);
+    if constexpr (KR % 16 != 0) ldsm_x2(k8, ha + KR - 8);
+  }
+};
+
+// acc[..] += sum over the positions p of H[m][p] * (E[n][p] ^ flip), a 16 x 8
+// gradient tile: A the features' fragments, E the 8 own columns' rows of
+// E16 [j][hp] (B: ldmatrix; flip 0x80008000 negates both bf16 of a
+// register).
+template <int KR>
+__device__ __forceinline__ void tile_hebbian(float (&acc)[4], const HebbianA<KR>& A,
+                                             const bf16_t* E, int hp, uint32_t flip,
+                                             int lane) {
+  const bf16_t* eb = E + (lane & 7) * hp + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int s = 0; s < HebbianA<KR>::K16; ++s) {
+    uint32_t b[2];
+    ldsm_x2(b, eb + 16 * s);
+    b[0] ^= flip;
+    b[1] ^= flip;
+    mma_k16(acc, A.k16[s], b);
+  }
+  if constexpr (KR % 16 != 0) {
+    uint32_t b;
+    ldsm_x1(b, eb + KR - 8);
+    mma_k8(acc, A.k8, b ^ flip);
+  }
+}
+
+// The sensory loss of one logit l with target y, in double (bernoulli or
+// gaussian): out of line, as few steps sum it and inlined per element of a
+// tile its code filled most of the forward pass's instructions.
+__device__ __noinline__ double loss_term(double l, double y, int loss, float inv_var) {
+  return loss == 1 ? fmax(l, 0.0) - l * y + log1p(exp(-fabs(l)))
+                   : 0.5 * (double)inv_var * (l - y) * (l - y);
+}
+
 constexpr int NOISE_SLOTS = 4; // own elements a thread draws noise for ahead
 constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
 
@@ -489,6 +735,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   using RW = Rows<RG>;
   constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
   constexpr int RP = RW::PITCH;
+  constexpr int NB = rows_n8(R) / 8;   // BF16: n8 tiles of the rows
   extern __shared__ __align__(16) float smem[];
   __shared__ double red[2][NWARP];
 
@@ -503,9 +750,9 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   const int c1 = d0, c2 = d0 + d1;   // packed columns where x1 and x2 start
   const bool with_pg = a.partials != nullptr;
   const bool out_pc = OPT && a.x3 != nullptr;   // an output-PC site
-  const Layout L = make_layout(d0, d1, d2, D, R, a.warm_T > 0,
-                               with_pg ? (a.grads_resident ? 2 : 1) : 0, out_pc);
-  float* H = smem + L.H;     // [n][RP] act(latents), all columns (BF16: rounded)
+  const Layout L = make_layout<BF16>(d0, d1, d2, D, R, a.warm_T > 0,
+                                     with_pg ? (a.grads_resident ? 2 : 1) : 0, out_pc);
+  float* H = smem + L.H;     // [n][RP] act(latents), all columns (not BF16)
   float* X = smem + L.X;     // [OWN][RP] own latent columns
   float* E = smem + L.E;     // [OWN][RP] their errors
   float* S = smem + L.S;     // [ND][RP] dLoss/dlogits of the own output columns
@@ -521,6 +768,15 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   float* X3 = smem + L.X3;   // [ND][RP] own columns of x3 (output-PC site)
   float* M3 = smem + L.M3;   // [ND][RP] their Adam moments (warm only)
   float* V3 = smem + L.V3;
+  // BF16: the products' operands ("bf16 products" in the header), [..][HP]
+  // by position, pads zero
+  bf16_t* H16 = BF16 ? reinterpret_cast<bf16_t*>(smem + L.H) : nullptr;   // act(X):
+                             // x0 at row 0, x1 at HB1, x2 at HB2
+  bf16_t* E16 = BF16 ? reinterpret_cast<bf16_t*>(smem + L.E16) : nullptr;  // own err1 |
+                             // err2 (at EB2) | S (at EBS)
+  bf16_t* W16_1 = BF16 ? reinterpret_cast<bf16_t*>(smem + L.W1) : nullptr;  // [up16(d0)][LW1]
+  bf16_t* W16_2 = BF16 ? reinterpret_cast<bf16_t*>(smem + L.W2) : nullptr;  // [up16(d1)][LW2]
+  bf16_t* W16_3 = BF16 ? reinterpret_cast<bf16_t*>(smem + L.W3) : nullptr;  // [up16(d2)][LW3]
 
   // own slices: first column and width, per layer
   const int lo0 = a.lo[0][rank], n0 = a.lo[0][rank + 1] - lo0;
@@ -573,6 +829,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   }
 
   // ---- prologue: state, weights and biases into shared memory
+  if constexpr (BF16) {
+    // the bf16 arrays, which come first, start at zero: their pads stay so
+    for (size_t e = tid; e < L.X / 4; e += NT)
+      reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
   for (int e = tid; e < R * n; e += NT) {
     const int r = e / n, c = e - r * n;
     const int row = row0 + r;
@@ -582,7 +844,12 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       else if (c < c2) x = a.x1[(size_t)row * d1 + (c - c1)];
       else x = a.x2[(size_t)row * d2 + (c - c2)];
     }
-    H[c * RP + RW::pos(r)] = operand<BF16>(activate<ACT>(x));
+    if constexpr (BF16) {   // x = 0 beyond the batch: H16 0 there
+      const int hc = c + (c < c1 ? 0 : c < c2 ? L.HB1 - c1 : L.HB2 - c2);
+      H16[hc * L.HP + RW::pos(r)] = __float2bfloat16_rn(activate<ACT>(x));
+    } else {
+      H[c * RP + RW::pos(r)] = activate<ACT>(x);
+    }
     int j = -1;   // own column?
     if (c < c1) { if (c >= lo0 && c < lo0 + n0) j = c - lo0; }
     else if (c < c2) { if (c - c1 >= lo1 && c - c1 < lo1 + n1) j = L.J1 + c - c1 - lo1; }
@@ -605,9 +872,22 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       dst[k * ld + c] = w[(size_t)k * N + lo + c];
     }
   };
-  load_slice(W1, L.LD1, a.w1, d0, d1, lo1, n1);
-  load_slice(W2, L.LD2, a.w2, d1, d2, lo2, n2);
-  load_slice(W3, L.LD3, a.w3, d2, D, loD, nD);
+  if constexpr (BF16) {   // the wrapper rounded the weights: exact
+    auto load_slice16 = [&](bf16_t* dst, int ld, const float* w, int K, int N, int lo,
+                            int nk) {
+      for (int e = tid; e < K * nk; e += NT) {
+        const int k = e / nk, c = e - k * nk;
+        dst[k * ld + c] = __float2bfloat16_rn(w[(size_t)k * N + lo + c]);
+      }
+    };
+    load_slice16(W16_1, L.LW1, a.w1, d0, d1, lo1, n1);
+    load_slice16(W16_2, L.LW2, a.w2, d1, d2, lo2, n2);
+    load_slice16(W16_3, L.LW3, a.w3, d2, D, loD, nD);
+  } else {
+    load_slice(W1, L.LD1, a.w1, d0, d1, lo1, n1);
+    load_slice(W2, L.LD2, a.w2, d1, d2, lo2, n2);
+    load_slice(W3, L.LD3, a.w3, d2, D, loD, nD);
+  }
   for (int c = tid; c < n; c += NT) {
     const int layer = c < c1 ? 0 : c < c2 ? 1 : 2;
     const int col = c < c1 ? c : c < c2 ? c - c1 : c - c2;
@@ -757,6 +1037,93 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     }
 
     // ---- forward: the own columns' errors and S, from H and the own weights
+    if constexpr (BF16) {
+      // a warp a tile of 16 own columns and all the rows: S first (K = d2),
+      // then err2 (K = d1), then err1 (K = d0)
+      const int mS = (nS + 15) / 16, m2 = mS + (n2 + 15) / 16, m1 = m2 + (n1 + 15) / 16;
+      for (int turn = 0, item; (item = snake_tile(tid >> 5, turn, m1)) >= 0; ++turn) {
+        const bf16_t* W; const bf16_t* Hl; bf16_t* E16l;
+        int ldw, j0, ncols, K, jbase;
+        if (item < mS) {
+          W = W16_3; ldw = L.LW3; Hl = H16 + L.HB2 * L.HP; E16l = E16 + L.EBS * L.HP;
+          j0 = 16 * item; ncols = nS; K = d2; jbase = -1;
+        } else if (item < m2) {
+          W = W16_2; ldw = L.LW2; Hl = H16 + L.HB1 * L.HP; E16l = E16 + L.EB2 * L.HP;
+          j0 = 16 * (item - mS); ncols = n2; K = d1; jbase = L.J2;
+        } else {
+          W = W16_1; ldw = L.LW1; Hl = H16; E16l = E16;
+          j0 = 16 * (item - m2); ncols = n1; K = d0; jbase = L.J1;
+        }
+        // the target (x3 at an output-PC site) of the tile's elements, loaded
+        // before the products so that their latency hides behind them
+        float acc[NB][4], yv[NB][4];
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[nt][i] = 0.f;
+            const int col = j0 + (lane >> 2) + 8 * (i >> 1);
+            const int p = 8 * nt + 2 * (lane & 3) + (i & 1);
+            const int row = row0 + RW::row_at(p < R ? p : 0);
+            yv[nt][i] = jbase >= 0 || col >= ncols || p >= R ? 0.f
+                        : out_pc ? X3[col * RP + p]
+                        : row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
+          }
+        tile_forward<NB>(acc, W, ldw, j0, Hl, L.HP, up16(K) / 16, lane);
+        // The epilogue computes every element of the tile, its indices
+        // clamped into the arrays, and stores the real ones: straight-line
+        // code whose sigmoids and loads overlap (a branch an element left
+        // them one after another, several thousand clocks a step).
+        float out[NB][4];
+        auto each = [&](auto f) {   // out = f(product, target, column, position)
+#pragma unroll
+          for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              out[nt][i] = f(acc[nt][i], yv[nt][i],
+                             min(j0 + (lane >> 2) + 8 * (i >> 1), ncols - 1),
+                             min(8 * nt + 2 * (lane & 3) + (i & 1), R - 1));
+        };
+        if (jbase >= 0) {
+          each([&](float v, float, int col, int p) {
+            return X[(jbase + col) * RP + p] - (v + BI[jbase + col]);
+          });
+        } else if (a.loss == 1) {   // masked columns (OPT) are not clamped: 0
+          each([&](float v, float y, int col, int) {
+            const float lg = v + BI[L.OWN + col];
+            return !OPT || loD + col >= a.mask_lo ? (0.5f + 0.5f * tanhf(0.5f * lg)) - y : 0.f;
+          });
+        } else {
+          each([&](float v, float y, int col, int) {
+            const float lg = v + BI[L.OWN + col];
+            return !OPT || loD + col >= a.mask_lo ? (lg - y) * a.inv_var : 0.f;
+          });
+        }
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = j0 + (lane >> 2) + 8 * (i >> 1);
+            const int p = 8 * nt + 2 * (lane & 3) + (i & 1);   // a position
+            if (col >= ncols || p >= R) continue;
+            const bool valid = row0 + RW::row_at(p) < a.B;
+            if (jbase >= 0) E[(jbase + col) * RP + p] = out[nt][i];
+            else S[col * RP + p] = out[nt][i];
+            // the operand of the backward and Hebbian products: 0 beyond the batch
+            E16l[col * L.HP + p] = __float2bfloat16_rn(valid ? out[nt][i] : 0.f);
+            if (!sums_now || !valid) continue;
+            if (jbase >= 0) {
+              en_acc += (double)out[nt][i] * out[nt][i];
+            } else if (!OPT || loD + col >= a.mask_lo) {
+              const double l = acc[nt][i] + BI[L.OWN + col], yd = yv[nt][i];
+              if (out_pc)   // the site's energy; the 0.5 comes with the layers'
+                en_acc += (double)a.inv_var * (l - yd) * (l - yd);
+              else
+                loss_acc += loss_term(l, yd, a.loss, a.inv_var);
+            }
+          }
+      }
+    } else  // f32: FMAs on the CUDA cores
     for (int base = tid - lane; base < fwd_jobs; base += NT) {
       const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
       const bool live = item < 2 * fq2;
@@ -864,6 +1231,55 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     // S of the state before the update.  Nothing below writes H, E or S
     // before the next cluster barrier, so no barrier is needed after it.
     if (with_pg && (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
+      if constexpr (BF16) {
+        // a warp the 16 x (own columns) tile of 16 input features of gW3,
+        // gW2 or gW1, 8 columns at a time; K = the row positions; C is the
+        // running sum in the slice
+        const int a3 = (d2 + 15) / 16, a2 = a3 + (d1 + 15) / 16, a1 = a2 + (d0 + 15) / 16;
+        for (int turn = 0, item; (item = snake_tile(tid >> 5, turn, a1)) >= 0; ++turn) {
+          const bf16_t* Hl; const bf16_t* E16l; float* gw;
+          size_t gs;   // where the resident slice starts in shared memory
+          int K, nk, ldg, k0; uint32_t flip;   // flip: -err, as the f32 code's sign
+          if (item < a3) {
+            Hl = H16 + L.HB2 * L.HP; E16l = E16 + L.EBS * L.HP; gw = G3; gs = L.G3;
+            K = d2; nk = nS; ldg = ldg3; k0 = 16 * item; flip = 0u;
+          } else if (item < a2) {
+            Hl = H16 + L.HB1 * L.HP; E16l = E16 + L.EB2 * L.HP; gw = G2; gs = L.G2;
+            K = d1; nk = n2; ldg = ldg2; k0 = 16 * (item - a3); flip = 0x80008000u;
+          } else {
+            Hl = H16; E16l = E16; gw = G1; gs = L.G1;
+            K = d0; nk = n1; ldg = ldg1; k0 = 16 * (item - a2); flip = 0x80008000u;
+          }
+          HebbianA<rows_n8(R)> A;
+          A.load(Hl + k0 * L.HP, L.HP, lane);
+          // the running sums of 8 columns from j0 on: each tile loads the
+          // next one's before its own products, so their latency (device
+          // memory where the slice is not resident) overlaps
+          float next[4];
+          auto sums_of = [&](int j0, float (&c)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int k = k0 + (lane >> 2) + 8 * (i >> 1), j = j0 + 2 * (lane & 3) + (i & 1);
+              const size_t at = (size_t)k * ldg + j;
+              c[i] = !(k < K && j < nk) ? 0.f : a.grads_resident ? smem[gs + at] : gw[at];
+            }
+          };
+          sums_of(0, next);
+          for (int j0 = 0; j0 < nk; j0 += 8) {
+            float acc[4] = {next[0], next[1], next[2], next[3]};
+            if (j0 + 8 < nk) sums_of(j0 + 8, next);
+            tile_hebbian<rows_n8(R)>(acc, A, E16l + j0 * L.HP, L.HP, flip, lane);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int k = k0 + (lane >> 2) + 8 * (i >> 1), j = j0 + 2 * (lane & 3) + (i & 1);
+              const size_t at = (size_t)k * ldg + j;
+              if (!(k < K && j < nk)) continue;
+              if (a.grads_resident) smem[gs + at] = acc[i];
+              else gw[at] = acc[i];
+            }
+          }
+        }
+      } else  // f32: FMAs on the CUDA cores
       for (int job = tid; job < h3; job += NT) {
         const float* A; const float* Vc; float* gw;
         int K, nk, NQ, ldg, jb; float sign;
@@ -886,7 +1302,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
           load_feature<RG>(v[u], Vc + min(col, nk - 1) * RP);
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            v[u][r] = col < nk && RW::row_at(r) < nvalid ? operand<BF16>(sign * v[u][r]) : 0.f;
+            v[u][r] = col < nk && RW::row_at(r) < nvalid ? sign * v[u][r] : 0.f;
         }
         // gw[k][col] += dot; the resident slice is addressed as shared memory
         auto add = [&](int k, const float (&dot)[4]) {
@@ -924,6 +1340,48 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 
     // ---- backward: for every latent column, the partial product over the
     // own out-columns, written into the owner's P at this block's rank
+    if constexpr (BF16) {
+      // a warp a tile of 16 latent columns and all the rows: the x2 columns
+      // (K = the own output columns), then x1 (K = the own x2 columns), then
+      // x0 (K = the own x1 columns)
+      const int mb2 = has_s ? (d2 + 15) / 16 : 0, mb1 = mb2 + (d1 + 15) / 16;
+      const int mb0 = mb1 + (d0 + 15) / 16;
+      for (int turn = 0, item; (item = snake_tile(tid >> 5, turn, mb0)) >= 0; ++turn) {
+        const bf16_t* W; const bf16_t* E16l;
+        int ldw, i0, ncols, K, cbase;
+        if (item < mb2) {
+          W = W16_3; ldw = L.LW3; E16l = E16 + L.EBS * L.HP;
+          i0 = 16 * item; ncols = d2; K = nD; cbase = c2;
+        } else if (item < mb1) {
+          W = W16_2; ldw = L.LW2; E16l = E16 + L.EB2 * L.HP;
+          i0 = 16 * (item - mb2); ncols = d1; K = n2; cbase = c1;
+        } else {
+          W = W16_1; ldw = L.LW1; E16l = E16;
+          i0 = 16 * (item - mb1); ncols = d0; K = n1; cbase = 0;
+        }
+        float acc[NB][4];
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+        tile_backward<NB>(acc, W, ldw, i0, E16l, L.HP, (K + 15) / 16, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + (lane >> 2) + 8 * h;
+          if (i >= ncols) continue;
+          const int home = OT[cbase + i];   // owner << 16 | its own-column index
+          float* dst = cluster.map_shared_rank(P, home >> 16) +
+                       ((size_t)rank * L.OWN + (home & 0xffff)) * RP;
+#pragma unroll
+          for (int nt = 0; nt < NB; ++nt) {
+            const int p = 8 * nt + 2 * (lane & 3);   // R is even: p + 1 < R too
+            if (p < R)
+              *reinterpret_cast<float2*>(dst + p) = make_float2(acc[nt][2 * h],
+                                                                acc[nt][2 * h + 1]);
+          }
+        }
+      }
+    } else  // f32: FMAs on the CUDA cores
     for (int base = tid - lane; base < bwd_jobs; base += NT) {
       const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
       const bool live = item < 2 * bq2;
@@ -942,7 +1400,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG, BF16>(acc, A, g, W, 1, off, part, K);
+      quad_dot<RG>(acc, A, g, W, 1, off, part, K);
       float out[RG];
       quad_reduce<RG>(out, acc, lane);
       const int i = q + part * NQ;   // this lane's column after the reduce
@@ -1025,10 +1483,17 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         if (noisy) x = x + a.noise_std * (have_z ? zp : noise(t, r, layer, col));
       }
       X[j * RP + r] = x;
-      const float h = operand<BF16>(activate<ACT>(x));
-      const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
+      if constexpr (BF16) {   // 0 beyond the batch, where the Hebbian sums read it
+        const bf16_t h = __float2bfloat16_rn(RW::row_at(r) < nvalid ? activate<ACT>(x) : 0.f);
+        const int c = (layer == 0 ? 0 : layer == 1 ? L.HB1 : L.HB2) + col;
 #pragma unroll
-      for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
+        for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H16, k)[c * L.HP + r] = h;
+      } else {
+        const float h = activate<ACT>(x);
+        const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
+#pragma unroll
+        for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
+      }
     };
 #pragma unroll
     for (int p = 0; p < NOISE_SLOTS; ++p) update(p, z[p], true);

@@ -1,15 +1,14 @@
 // Device code shared by the MCPC chain kernels (mcpc_cluster.cuh, which
 // mcpc_chain.cu and mcpc_chain_unpacked.cu instantiate): the threads of a
-// block, the counter-hash noise, the rounding of a product's operand to bf16
-// and the layout of a partial of the parameter gradients.
+// block, the counter-hash noise and the layout of a partial of the
+// parameter gradients.
 //
 // bf16 products.  Each source is compiled twice (ops/_build.py): as it is,
 // and with -DMCPC_BF16, which sets kBF16 and so instantiates its kernels for
-// bf16 products.  There every matrix product takes operands rounded to bf16
-// (to nearest, ties to even: the JAX package's astype(jnp.bfloat16)) and
-// sums in f32; the product of two bf16 values is exact in f32, so an FMA on
-// rounded operands differs from a bf16 matrix unit only in the order of the
-// sums.  The f32 build carries none of this code.
+// bf16 products: every matrix product takes operands rounded to bf16 (to
+// nearest, ties to even: the JAX package's astype(jnp.bfloat16)) and runs on
+// the tensor cores with f32 sums (mcpc_cluster.cuh, "bf16 products").  The
+// f32 build carries none of that code.
 
 #pragma once
 
@@ -28,13 +27,6 @@ constexpr bool kBF16 = true;      // this build's kernels take bf16 operands
 #else
 constexpr bool kBF16 = false;
 #endif
-
-// x as a product takes it: rounded to bf16 and held as a float when BF16
-template <bool BF16>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
-  else return x;
-}
 
 // ---------------------------------------------------------------- noise
 //

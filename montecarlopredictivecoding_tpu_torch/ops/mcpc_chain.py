@@ -41,8 +41,9 @@ call), ``act(x)`` in the forward products, ``[err1 | err2 | -S]`` in the
 backward ones, and both factors of the Hebbian products.  ``act'`` and the
 bias gradients use the unrounded values, and so do the captured steps'
 recomputed scalars (as the JAX wrapper's, in full f32 from the f32
-weights).  A product of two bf16 values is exact in f32, so an FMA on
-rounded operands differs from a bf16 matrix unit only in the order of the
+weights).  A product of two bf16 values is exact in f32, so the kernels'
+bf16 build, whose products run on the tensor cores (``mma`` with f32
+accumulators), differs from the plain version only in the order of the
 sums.
 
 On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
@@ -980,13 +981,15 @@ def column_slices(d: int, ranks: int = CLUSTER_SIZE) -> tp.Tuple[tp.Tuple[int, i
 
 
 def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
-                     output_pc: bool = False) -> int:
+                     output_pc: bool = False, bf16: bool = False) -> int:
     """Dynamic shared memory of one block of the cluster kernel (the layout of
     ``make_layout`` in ``csrc/mcpc_cluster.cuh``, whose launches refuse a
     plan sized otherwise).  ``grads``: 0 no parameter gradients, 1 the
     block's gradient slice in device memory, 2 in shared memory;
     ``output_pc``: the own columns of an output-PC latent (and, warm, their
-    Adam moments)."""
+    Adam moments); ``bf16``: the bf16 build's layout, whose products read
+    bf16 copies of act(X), of the own errors and S, and of the weight
+    slices."""
     d0, d1, d2, D = dims
     n0, n1, n2, nD = (-(-d // CLUSTER_SIZE) for d in dims)  # widest slices
     own = n0 + n1 + n2
@@ -999,24 +1002,38 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
     # them holds a float4
     pitch = -(-rows // 4) * 4 if rows >= 8 else rows
     floats = (
-        (d0 + d1 + d2) * pitch             # relu(X), all columns
-        + (2 + (2 if warm else 0)) * own * pitch  # own X, errors, Adam moments
+        (2 + (2 if warm else 0)) * own * pitch  # own X, errors, Adam moments
         + nD * pitch                       # own S
         + CLUSTER_SIZE * own * pitch       # the ranks' partial backward products
         # an output-PC site's own columns and, warm, their Adam moments
         + ((3 if warm else 1) * nD * pitch if output_pc else 0)
-        + weights + own + nD               # weight slices, own biases
+        + own + nD                         # own biases
         + d0 + d1 + d2                     # every latent column's owner
-        + (weights if grads == 2 else 0)
+        + (weights if grads == 2 else 0)   # gradient slices, f32 in both builds
         + (own + nD if grads else 0)
     )
-    return 4 * floats
+    if not bf16:
+        return 4 * (floats + (d0 + d1 + d2) * pitch + weights)  # act(X), weight slices
+
+    def up16(d):
+        return -(-d // 16) * 16
+
+    # the rows padded to whole n8 tiles, at a pitch of 8 * odd bf16
+    rn = -(-rows // 8) * 8
+    hp = rn if rn // 8 % 2 else rn + 8
+    halves = (
+        (up16(d0) + up16(d1) + up16(d2)) * hp         # act(X), each layer padded to 16
+        + (up16(n1) + up16(n2) + up16(nD)) * hp       # own err1, err2, S
+        # weight slices: rows padded to 16, strides up16(width) + 8
+        + up16(d0) * (up16(n1) + 8) + up16(d1) * (up16(n2) + 8) + up16(d2) * (up16(nD) + 8)
+    )
+    return 4 * floats + 2 * halves
 
 
 def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
                max_clusters: int,
                row_counts: tp.Sequence[int] = CLUSTER_ROWS,
-               output_pc: bool = False) -> ChainPlan:
+               output_pc: bool = False, bf16: bool = False) -> ChainPlan:
     """The cluster kernel's plan for ``dims = (d0, d1, d2, D)`` and batch
     ``B``, given ``budget`` bytes of dynamic shared memory a block and the
     ``max_clusters`` the card runs at once (15 on an H100 SXM: its 132 SMs
@@ -1031,14 +1048,16 @@ def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
     small batch takes few rows a cluster and so more SMs.  The gradient
     slice is resident when it fits beside the weights at that row count,
     else it stays in device memory.  ``output_pc`` sizes the blocks for an
-    output-PC site.  Raises ``ValueError`` when not even two rows fit."""
+    output-PC site, ``bf16`` for the bf16 build's layout (pass that
+    library's budget and cluster count).  Raises ``ValueError`` when not
+    even two rows fit."""
     if B < 1 or max_clusters < 1:
         raise ValueError("chain_plan needs a batch and a cluster count of at least 1")
     dims = tuple(int(d) for d in dims)
     options = (2, 1) if with_pgrads else (0,)
     best = None
     for rows in row_counts:
-        fits = [(g, chain_smem_bytes(dims, rows, warm, g, output_pc)) for g in options]
+        fits = [(g, chain_smem_bytes(dims, rows, warm, g, output_pc, bf16)) for g in options]
         fits = [(g, need) for g, need in fits if need <= budget]
         if not fits:
             continue
@@ -1047,7 +1066,7 @@ def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
         if best is None or cost < best[0]:
             best = (cost, rows, clusters) + fits[0]
     if best is None:
-        least = chain_smem_bytes(dims, min(row_counts), warm, options[-1], output_pc)
+        least = chain_smem_bytes(dims, min(row_counts), warm, options[-1], output_pc, bf16)
         raise ValueError(
             f"dims {dims} need {least} bytes of shared memory a block at "
             f"{min(row_counts)} rows a cluster; the budget is {budget}")
@@ -1142,24 +1161,27 @@ def _device_index(device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_budget_of(index: int, packed: bool = True) -> int:
-    budget = getattr(_library(packed), _prefix(packed) + "_smem_budget")(index)
+def _smem_budget_of(index: int, packed: bool = True, bf16: bool = False) -> int:
+    budget = getattr(_library(packed, bf16), _prefix(packed) + "_smem_budget")(index)
     if budget < 0:
         raise RuntimeError("could not query the device's shared memory")
     return budget
 
 
-def smem_budget(device, packed: bool = True) -> int:
+def smem_budget(device, packed: bool = True, bf16: bool = False) -> int:
     """Bytes of dynamic shared memory one block of the packed (or, with
     ``packed=False``, the unpacked) kernel may use on the CUDA ``device``:
-    the ``budget`` of :func:`chain_plan`."""
-    return _smem_budget_of(_device_index(device), packed)
+    the ``budget`` of :func:`chain_plan`.  ``bf16`` asks the bf16 library's
+    own instantiation."""
+    return _smem_budget_of(_device_index(device), packed, bf16)
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters_of(index: int, rows: int, smem_bytes: int, packed: bool = True) -> int:
+def _max_clusters_of(index: int, rows: int, smem_bytes: int, packed: bool = True,
+                     bf16: bool = False) -> int:
     with torch.cuda.device(index):
-        count = getattr(_library(packed), _prefix(packed) + "_max_clusters")(rows, smem_bytes)
+        count = getattr(_library(packed, bf16),
+                        _prefix(packed) + "_max_clusters")(rows, smem_bytes)
     if count < 0:
         raise RuntimeError("the cluster occupancy query failed: "
                            f"{_error_message(-count, packed)} ({-count})")
@@ -1171,16 +1193,18 @@ def _max_clusters_of(index: int, rows: int, smem_bytes: int, packed: bool = True
 
 
 def max_active_clusters(device, plan: tp.Optional[ChainPlan] = None,
-                        packed: bool = True) -> int:
+                        packed: bool = True, bf16: bool = False) -> int:
     """Clusters of the packed (or, with ``packed=False``, the unpacked)
-    kernel that the CUDA ``device`` runs at once, asked of CUDA once per
-    shape of that kernel's own instantiation: those of ``plan``, or without
-    one those of the largest block, the ``max_clusters`` of
-    :func:`chain_plan`.  Raises when the device cannot run even one."""
+    kernel (with ``bf16``, of its bf16 build) that the CUDA ``device`` runs
+    at once, asked of CUDA once per shape of that kernel's own
+    instantiation: those of ``plan``, or without one those of the largest
+    block, the ``max_clusters`` of :func:`chain_plan`.  Raises when the
+    device cannot run even one."""
     index = _device_index(device)
     if plan is None:
-        return _max_clusters_of(index, CLUSTER_ROWS[0], _smem_budget_of(index, packed), packed)
-    return _max_clusters_of(index, plan.rows, plan.smem_bytes, packed)
+        return _max_clusters_of(index, CLUSTER_ROWS[0], _smem_budget_of(index, packed, bf16),
+                                packed, bf16)
+    return _max_clusters_of(index, plan.rows, plan.smem_bytes, packed, bf16)
 
 
 def plan_options(c: _Chain) -> tp.Dict[str, bool]:
@@ -1192,22 +1216,22 @@ def plan_options(c: _Chain) -> tp.Dict[str, bool]:
 
 @functools.lru_cache(maxsize=None)
 def _device_plan_of(index: int, dims, B: int, warm: bool, with_pgrads: bool,
-                    output_pc: bool, packed: bool,
+                    output_pc: bool, packed: bool, bf16: bool,
                     row_counts: tp.Tuple[int, ...]) -> ChainPlan:
     return chain_plan(dims, B, warm=warm, with_pgrads=with_pgrads,
-                      budget=_smem_budget_of(index, packed),
-                      max_clusters=max_active_clusters(index, packed=packed),
-                      row_counts=row_counts, output_pc=output_pc)
+                      budget=_smem_budget_of(index, packed, bf16),
+                      max_clusters=max_active_clusters(index, packed=packed, bf16=bf16),
+                      row_counts=row_counts, output_pc=output_pc, bf16=bf16)
 
 
 def device_plan(c: _Chain, B: int, device,
                 row_counts: tp.Sequence[int] = CLUSTER_ROWS) -> ChainPlan:
     """:func:`chain_plan` of a validated call on the CUDA ``device``, with
-    the budget and the cluster count of the call's own kernel (packed or
-    unpacked)."""
+    the layout, the budget and the cluster count of the call's own kernel
+    (packed or unpacked, f32 or bf16)."""
     o = plan_options(c)
     return _device_plan_of(_device_index(device), c.dims, B, o["warm"], o["with_pgrads"],
-                           o["output_pc"], c.packed, tuple(row_counts))
+                           o["output_pc"], c.packed, c.bf16_matmul, tuple(row_counts))
 
 
 def sum_block_partials_reference(partials: Tensor) -> Tensor:
@@ -1294,7 +1318,7 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     pointers = [t.data_ptr() for t in (x0, x1, x2, *outs, y, b0, b1, b2, b3, w1, w2, w3)]
     plan = device_plan(c, B, device) if plan is None else plan
     # raises if not even one cluster runs
-    max_active_clusters(device, plan, packed=c.packed)
+    max_active_clusters(device, plan, packed=c.packed, bf16=c.bf16_matmul)
     # every cluster zeroes and fills its own partial gradients
     partials = None
     if c.with_pgrads:
@@ -1391,7 +1415,8 @@ def chain_phase_clocks(params, latents, target, seed, *,
     thread 0 of each block spent in each part of the steps (waits at the
     barriers included), summed over the chain.  ``rows`` (one of
     ``CLUSTER_ROWS``) forces the rows a cluster instead of the plan's own
-    choice.  A profiling aid: the chain's results are dropped."""
+    choice; ``bf16_matmul=True`` times the bf16 build.  A profiling aid: the
+    chain's results are dropped."""
     c = _chain_args(params, latents, target, seed, **options)
     device = latents[0].device
     if device.type != "cuda" or not c.packed:

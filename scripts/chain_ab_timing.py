@@ -15,7 +15,9 @@ chains; null for a checkout without them), and chain (c), the unpacked
 kernel (``packed=False``) on chain (a)'s inputs at T=1000, in f32 and with
 bf16 products (7 chains each; null for a checkout without them), each as
 ``[median, min, max]``
-ms between CUDA events after one warm-up.  To compare a change with
+ms between CUDA events after one warm-up; then, under ``ptxas``, each chain
+kernel's registers and spill bytes (stores, loads) in the checkout's four
+chain libraries, from their build logs.  To compare a change with
 its parent, unpack the parent into an ignored directory and run both trees
 in turns (parent, change, change, parent, ...) in one call: the card's speed
 moves between calls.  Needs a CUDA device and nvcc; there is no CPU mode.
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import importlib.util
 import json
 import os
 import statistics
@@ -48,6 +51,26 @@ def ms(fn, reps: int):
     return [statistics.median(times), min(times), max(times)]
 
 
+def ptxas_of(build, here: str) -> dict:
+    """``{library: {kernel: [registers, spill stores, spill loads]}}`` of the
+    tree's four chain libraries (``build`` is the tree's ``ops/_build``),
+    read by this checkout's parser of nvcc's logs."""
+    spec = importlib.util.spec_from_file_location(
+        "_build_reader", os.path.join(here, "montecarlopredictivecoding_tpu_torch", "ops",
+                                      "_build.py"))
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    out = {}
+    for name in ("mcpc_chain", "mcpc_chain_unpacked"):
+        for bf16 in (False, True):
+            lib = build.library_path(name, bf16)
+            if os.path.exists(str(lib) + ".log"):
+                out[name + ("_bf16" if bf16 else "")] = {
+                    k: list(v) for k, v in sorted(reader.ptxas_resources(lib).items())
+                    if k.startswith("mcpc_chain_kernel")}
+    return out
+
+
 def main() -> None:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -58,6 +81,7 @@ def main() -> None:
     chain = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
     from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
     from montecarlopredictivecoding_tpu_torch.models import get_model
+    from montecarlopredictivecoding_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
     config = train_mnist.mcpc_training_config()
@@ -97,6 +121,7 @@ def main() -> None:
         "train_chain_bf16": timed_if_taken(21, 99, bf16_matmul=True, **opts),
         "chain_c": timed_if_taken(7, 1234, **chain_c),
         "chain_c_bf16": timed_if_taken(7, 1234, bf16_matmul=True, **chain_c),
+        "ptxas": ptxas_of(_build, here),
     }))
 
 

@@ -1,6 +1,6 @@
 """Where a step of the packed chain kernel spends its SM clocks, on one GPU.
 
-    python3 scripts/chain_clocks.py [--steps 2000] [--batch 256] [--rows N]
+    python3 scripts/chain_clocks.py [--steps 2000] [--batch 256] [--rows N] [--bf16]
 
 For both widths (20-128-128-784 and 10-256-256-784) and three chains (a
 Langevin chain, an Adam warm phase alone, a Langevin chain that takes the
@@ -10,6 +10,8 @@ a warm-up) and the clocks per step that thread 0 of a block spends in each
 phase, barrier waits included, averaged over the blocks.  ``--rows`` forces
 the rows a cluster (one of the wrapper's ``CLUSTER_ROWS``) instead of the
 plan's own choice: this is how the plan's rule for the rows was measured.
+``--bf16`` times the bf16 build (``bf16_matmul=True``: the tensor-core
+products) instead of the f32 one.
 Needs a CUDA device and nvcc; there is no CPU mode.
 """
 
@@ -53,6 +55,7 @@ def main() -> int:
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--rows", type=int, default=None)
     parser.add_argument("--seed", type=int, default=3)
+    parser.add_argument("--bf16", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chain_clocks: no CUDA device", file=sys.stderr)
@@ -69,6 +72,7 @@ def main() -> int:
         "warm": dict(T=0, warm_T=T, lr=0.01),
         "langevin, gradients on every step": dict(T=T, lr=0.01, with_pgrads=True),
     }
+    chains = {name: dict(kw, bf16_matmul=args.bf16) for name, kw in chains.items()}
     for width, dims in WIDTHS.items():
         gen = torch.Generator().manual_seed(args.seed)
         model = port.make_mlp_model(*dims)
@@ -87,8 +91,8 @@ def main() -> int:
             ms, clocks = event_ms(lambda: chain.chain_phase_clocks(
                 params, latents, target, 1, rows=args.rows, **kw))
             per_step = (clocks.double().mean(dim=0) / T).tolist()
-            print(f"{width} {dims} B={args.batch} {name}: "
-                  f"{plan.describe(chain.max_active_clusters(dev, plan))}; "
+            print(f"{width} {dims} B={args.batch} {name}{' bf16' if args.bf16 else ''}: "
+                  f"{plan.describe(chain.max_active_clusters(dev, plan, bf16=args.bf16))}; "
                   f"{1e3 * ms / T:.3f} us/step; SM clocks a step: "
                   + ", ".join(f"{p} {c:.0f}" for p, c in zip(chain.PHASES, per_step))
                   + f"; sum {sum(per_step):.0f}", flush=True)

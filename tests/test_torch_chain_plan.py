@@ -92,13 +92,86 @@ def test_plan_fills_the_card_at_the_main_path_batch():
     assert "gradient slice resident" in text
 
 
-@pytest.mark.parametrize("dims,rows,warm,grads,expect", [
+# The bf16 build's layout (make_layout<true>), worked out from the kernel's
+# header: the bf16 arrays first, then the f32 ones of the f32 layout but
+# act(X) and the weight slices.  At FID, 18 rows, warm, gradients resident:
+#   bf16 (2 bytes): act(X) (32 + 128 + 128 rows, each layer padded to 16) x
+#     24 (18 rows padded to 24, 8 * odd) = 6912; err1 | err2 | S (16 + 16 +
+#     112) x 24 = 3456; weight slices 32 x 24 + 128 x 24 + 128 x 120 = 19200
+#     -> 29568 x 2 = 59136
+#   f32 (4 bytes), pitch 20: X, E, M, V 4 x 35 x 20 = 2800; S 98 x 20 = 1960;
+#     P 8 x 35 x 20 = 5600; biases 35 + 98 = 133; owners 276; gradient
+#     slices 20 x 24 + 128 x 24 + 128 x 104 = 16864; bias gradients 133
+#     -> 27766 x 4 = 111064
+#   170200 in all.
+@pytest.mark.parametrize("dims,rows,warm,grads,output_pc,bf16,expect", [
     # as the kernel's own layout function gave them on the card
-    (FID, 18, False, 0, 127012),
-    (FID, 18, True, 2, 200600),
+    (FID, 18, False, 0, False, False, 127012),
+    (FID, 18, True, 2, False, False, 200600),
+    (FID, 18, False, 0, False, True, 96612),
+    (FID, 18, False, 0, True, True, 104452),
+    (FID, 18, False, 1, False, True, 97144),
+    (FID, 18, False, 1, True, True, 104984),
+    (FID, 18, False, 2, False, True, 164600),
+    (FID, 18, False, 2, True, True, 172440),
+    (FID, 18, True, 0, False, True, 102212),
+    (FID, 18, True, 0, True, True, 125732),
+    (FID, 18, True, 1, False, True, 102744),
+    (FID, 18, True, 1, True, True, 126264),
+    (FID, 18, True, 2, False, True, 170200),
+    (FID, 18, True, 2, True, True, 193720),
+    (FID, 2, False, 0, False, True, 50532),
+    (FID, 2, False, 0, True, True, 51316),
+    (FID, 2, False, 1, False, True, 51064),
+    (FID, 2, False, 1, True, True, 51848),
+    (FID, 2, False, 2, False, True, 118520),
+    (FID, 2, False, 2, True, True, 119304),
+    (FID, 2, True, 0, False, True, 51092),
+    (FID, 2, True, 0, True, True, 53444),
+    (FID, 2, True, 1, False, True, 51624),
+    (FID, 2, True, 1, True, True, 53976),
+    (FID, 2, True, 2, False, True, 119080),
+    (FID, 2, True, 2, True, True, 121432),
+    (MSE, 18, False, 0, False, True, 180376),
+    (MSE, 18, False, 0, True, True, 188216),
+    (MSE, 18, False, 1, False, True, 181032),
+    (MSE, 18, False, 1, True, True, 188872),
+    (MSE, 18, False, 2, False, True, 330088),
+    (MSE, 18, False, 2, True, True, 337928),
+    (MSE, 18, True, 0, False, True, 190936),
+    (MSE, 18, True, 0, True, True, 214456),
+    (MSE, 18, True, 1, False, True, 191592),
+    (MSE, 18, True, 1, True, True, 215112),
+    (MSE, 18, True, 2, False, True, 340648),
+    (MSE, 18, True, 2, True, True, 364168),
+    (MSE, 2, False, 0, False, True, 103272),
+    (MSE, 2, False, 0, True, True, 104056),
+    (MSE, 2, False, 1, False, True, 103928),
+    (MSE, 2, False, 1, True, True, 104712),
+    (MSE, 2, False, 2, False, True, 252984),
+    (MSE, 2, False, 2, True, True, 253768),
+    (MSE, 2, True, 0, False, True, 104328),
+    (MSE, 2, True, 0, True, True, 106680),
+    (MSE, 2, True, 1, False, True, 104984),
+    (MSE, 2, True, 1, True, True, 107336),
+    (MSE, 2, True, 2, False, True, 254040),
+    (MSE, 2, True, 2, True, True, 256392),
 ])
-def test_shared_memory_formula_is_the_kernels(dims, rows, warm, grads, expect):
-    assert chain_mod.chain_smem_bytes(dims, rows, warm, grads) == expect
+def test_shared_memory_formula_is_the_kernels(dims, rows, warm, grads, output_pc, bf16,
+                                              expect):
+    assert chain_mod.chain_smem_bytes(dims, rows, warm, grads, output_pc, bf16) == expect
+
+
+def test_bf16_plan_keeps_the_main_path_on_one_wave_with_resident_gradients():
+    # the bf16 layout is smaller than the f32 one, so the training chain's
+    # plan is the f32 plan: 15 clusters of 18 rows, the gradient slice resident
+    plan = chain_mod.chain_plan(FID, 256, warm=True, with_pgrads=True, budget=BUDGET,
+                                max_clusters=MAX_CLUSTERS, bf16=True)
+    assert (plan.rows, plan.clusters, plan.grads_resident) == (18, 15, True)
+    assert plan.smem_bytes == 170200 < _plan(FID, 256, True, True).smem_bytes
+    chain = chain_mod.chain_plan(FID, 256, warm=False, with_pgrads=False, budget=BUDGET,
+                                 max_clusters=MAX_CLUSTERS, bf16=True)
+    assert (chain.rows, chain.clusters, chain.smem_bytes) == (18, 15, 96612)
 
 
 def test_slice_bounds_are_what_the_kernel_takes():

@@ -484,8 +484,9 @@ def test_output_pc_at_the_joint_sampler_batch(cuda_device):
         assert torch.equal(u, w)
 
 
-# bf16 products (bf16_matmul).  The kernels' bf16 builds against the plain
-# bf16 version by chip_smoke.py's two rules: (i) after one Langevin step
+# bf16 products (bf16_matmul: the bf16 builds' tensor-core products).  The
+# kernels' bf16 builds against the plain bf16 version by chip_smoke.py's two
+# rules: (i) after one Langevin step
 # without noise at least 98% of the latents within 1e-5 and of the gradient
 # entries within 2e-6 of their tensor's largest (the rest are where the two
 # versions' f32 sums landed on either side of a bf16 rounding boundary), and
@@ -531,7 +532,7 @@ def _assert_one_step(got, want, f32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["relu", "tanh", "unpacked"])
-@pytest.mark.parametrize("B", [37, 256])
+@pytest.mark.parametrize("B", [37, 256, 1024])
 def test_bf16_one_step_matches_plain_version(cuda_device, kind, B):
     params, latents, target = _case(FID, B, cuda_device)
     kw = dict(BF16_ONE_STEP, activation="tanh" if kind == "tanh" else "relu",
@@ -615,6 +616,88 @@ def test_bf16_output_pc_site_matches_plain_version(cuda_device):
     assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
     for i in (2, 3):   # traj, traj3
         assert _max_abs([got[i]], [want[i]]) <= 0.5 * _max_abs([f32[i]], [want[i]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_bf16_every_built_row_count_takes_the_output_pc_site(cuda_device, rows):
+    """The output-PC site with a warm Adam phase and gradients, forced onto
+    each row count of the bf16 build's options instantiation, by rule (ii)."""
+    params, latents = _output_pc_case(FID, 37, cuda_device)
+    kw = dict(BF16_CHAIN, output_var=0.5, loss="none")
+    c = chain_mod._chain_args(params, latents, None, 9, bf16_matmul=True, **kw)
+    plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+    assert plan.rows == rows
+    before = chain_mod.mcpc_chain.launches_bf16
+    got = chain_mod._kernel(c, params, latents, None, plan=plan)
+    torch.cuda.synchronize()
+    assert chain_mod.mcpc_chain.launches_bf16 == before + 1
+    want = chain_mod.mcpc_chain_reference(params, latents, None, 9, bf16_matmul=True, **kw)
+    f32 = chain_mod.mcpc_chain_reference(params, latents, None, 9, **kw)
+    assert len(got[0]) == 4
+    assert _max_abs(got[0], want[0]) <= 0.5 * _max_abs(f32[0], want[0])
+    assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_bf16_chain_in_four_waves_matches_plain_version(cuda_device, packed):
+    """B = 1024: 57 clusters of 18 rows, four waves, the last cluster with pad
+    rows, by rule (ii)."""
+    kw = BF16_CASES["relu"] if packed else BF16_CASES["unpacked"]
+    params, latents, target = _case(FID, 1024, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 9, bf16_matmul=True, **kw)
+    assert chain_mod.device_plan(c, 1024, cuda_device).clusters == 57
+    got = chain_mod.mcpc_chain(params, latents, target, 9, bf16_matmul=True, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, bf16_matmul=True, **kw)
+    f32 = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    assert _max_abs(got[0], want[0]) <= 0.5 * _max_abs(f32[0], want[0])
+    assert _grad_rel(got[1], want[1]) <= 0.5 * _grad_rel(f32[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["training", "output_pc"])
+def test_two_bf16_runs_are_bit_identical(cuda_device, case):
+    """The tensor-core products and the rank-order sums leave nothing to the
+    blocks' timing: a training chain (warm, gradients, scalars) and the
+    output-PC site give the same bits twice."""
+    if case == "training":
+        params, latents, target = _case(FID, 250, cuda_device)
+        kw = dict(T=30, mixing=10, warm_T=10, warm_lr=0.7, lr=0.1, with_pgrads=True,
+                  return_scalars=True, bf16_matmul=True)
+    else:
+        (params, latents), target = _output_pc_case(FID, 37, cuda_device), None
+        kw = dict(BF16_CHAIN, output_var=0.5, loss="none", capture_stride=6,
+                  bf16_matmul=True)
+    a = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    b = chain_mod.mcpc_chain(params, latents, target, 5, **kw)
+    for u, v in zip(a[0], b[0]):
+        assert torch.equal(u, v)
+    for g, h in zip(a[1], b[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+    for x, y in zip(a[2:], b[2:]):
+        if isinstance(x, dict):
+            assert all(torch.equal(x[k], y[k]) for k in x)
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_bf16_libraries_run_their_products_on_the_tensor_cores(cuda_device):
+    """Every chain kernel of the bf16 libraries holds tensor-core products
+    (HMMA: the forward, backward and Hebbian tiles), and the f32 libraries
+    hold none (cuobjdump -sass of the built libraries)."""
+    from montecarlopredictivecoding_tpu_torch.ops import _build
+
+    for name, kernels in (("mcpc_chain", 16), ("mcpc_chain_unpacked", 4)):
+        for bf16 in (False, True):
+            counts = _build.sass_counts(_build.build(name, bf16), "HMMA")
+            chains = {f: n for f, n in counts.items() if "mcpc_chain_kernel" in f}
+            assert len(chains) == kernels
+            if bf16:
+                assert all(n >= 3 for n in chains.values()), chains
+            else:
+                assert not any(counts.values()), counts
 
 
 # ------------------------------- the unpacked chain on the cluster plan
