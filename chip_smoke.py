@@ -116,7 +116,8 @@ Phase 5  drives this slice's paths at full width (synthetic MNIST; the
 Phase 6  drives the bf16 opt-in (``bf16_matmul``) at full width
 (bf16)   (20-128-128-784, Bernoulli).  It counts the tensor-core products
          (HMMA) in each chain library's SASS: every chain kernel of the bf16
-         libraries must hold them, no kernel of the f32 ones.  It holds both kernels' bf16 builds
+         libraries must hold them, in the BF16 forms, no kernel of the f32
+         ones.  It holds both kernels' bf16 builds
          against the plain bf16 version by two rules (BF16_* below): one
          Langevin step of relu, tanh and the unpacked kernel, with gradients,
          at B=37 and B=256; then relu and tanh with 50 Adam and 100 Langevin
@@ -382,9 +383,14 @@ FID_SAMPLES = 5000  # samples a model, as table 1's FID column takes
 FIG5_SEEDS, FIG5_EPOCHS = (0, 1, 2), (0, 5, 10, 15)
 FIG2_SCALE, FIG_ENGINE_SCALE, FIG6_NOISE = 0.2, 0.01, (2.0, 16.0)
 STACKED_RTOL = 1e-4
-# the published dense bf16 tensor-core peak of an H100 SXM (NVIDIA data
-# sheet, 700 W): the least time the card could take for bf16 products
+# the published dense bf16 and TF32 tensor-core peaks of an H100 SXM
+# (NVIDIA data sheet, 700 W): the least time the card could take for bf16
+# products, and for f32 ones as split-TF32 products, three TF32 products
+# for each f32 one (SPLIT_TF32_PRODUCTS), the bound of a tensor-core route
+# for the f32 build (PERF.md: one was measured and not kept)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+SPLIT_TF32_PRODUCTS = 3
 # phase 6: the steps of chain (a) over which the phase clocks are read
 PHASE_CLOCK_T = 2000
 # phase 9: data-parallel training.  World size 1 (NCCL, in this process):
@@ -1645,6 +1651,11 @@ def main() -> int:
     bound_a = chain_bound_ms(FID, BATCH, CHAIN_A["T"])
     bound_b = chain_bound_ms(FID, BATCH, CHAIN_B["T"] + CHAIN_B["warm_T"])
     bound_c = chain_bound_ms(FID, BATCH, CHAIN_C["T"])
+    # the f32 products as split-TF32 ones on the tensor cores would take
+    # them: three TF32 products for each f32 one, at the TF32 peak
+    bound_tc_a, bound_tc_c = (
+        chain_bound_ms(FID, BATCH, steps, peak=PEAK_TF32_FLOPS / SPLIT_TF32_PRODUCTS)
+        for steps in (CHAIN_A["T"], CHAIN_C["T"]))
     for name, ms, pms, bound, steps, plain_steps in (
         ("a", a_ms, pa_ms, bound_a, CHAIN_A["T"], CHAIN_A["T"]),
         ("b", b_ms, pb_ms, bound_b, CHAIN_B["T"] + CHAIN_B["warm_T"],
@@ -1654,7 +1665,11 @@ def main() -> int:
         print(f"phase 2: chain ({name}) B={BATCH} steps={steps}: kernel "
               f"{ms:.3f} ms/chain, {1e3 * ms / steps:.3f} us/step, "
               f"{steps / (ms / 1e3):.1f} steps/s; plain {pms:.3f} ms for {plain_steps} "
-              f"steps; bound {bound:.3f} ms (operations) {tag}")
+              f"steps; bound {bound:.3f} ms (operations, at the f32 peak of the CUDA cores) "
+              f"{tag}")
+    print(f"phase 2: a split-TF32 route's bound (three TF32 products an f32 one, at the "
+          f"TF32 tensor-core peak): chain (a) {bound_tc_a:.3f} ms, share {bound_tc_a / a_ms:.4f}; "
+          f"chain (c) {bound_tc_c:.3f} ms, share {bound_tc_c / c_ms:.4f} {tag}")
     print("phase 2: library_ms null: no single PyTorch call computes a "
           "whole Langevin chain")
 
@@ -2210,18 +2225,27 @@ def main() -> int:
     bf = dict(bf16_matmul=True)
     bf16_failed = []
     # the bf16 libraries' products run on the tensor cores: HMMA in every
-    # chain kernel of theirs, none in the f32 libraries (cuobjdump -sass)
+    # chain kernel of theirs, all in the BF16 forms, none in the f32
+    # libraries (cuobjdump -sass)
+    t_sass = time.perf_counter()
     for (source, bf16), lib_path in zip(libraries, lib_paths):
         if source == "op_probe":
             continue
-        hmma = {_build.kernel_name(f): k for f, k in _build.sass_counts(lib_path, "HMMA").items()
-                if "mcpc_chain_kernel" in f}
+        forms = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.BF16")
+        counts = {op: _build.sass_counts(lib_path, op) for op in ("HMMA",) + forms}
+        hmma = {_build.kernel_name(f): {op: counts[op][f] for op in counts}
+                for f in counts["HMMA"] if "mcpc_chain_kernel" in f}
         name = source + ("_bf16" if bf16 else "")
-        print(f"phase 6: HMMA in {name}: " + ", ".join(f"{k}: {v}" for k, v in sorted(hmma.items())))
+        print(f"phase 6: HMMA in {name}: " + ", ".join(
+            f"{k}: " + " ".join(f"{op} {n}" for op, n in c.items())
+            for k, c in sorted(hmma.items())))
         check(len(hmma) == (16 if source == "mcpc_chain" else 4),
               f"{name}: {len(hmma)} chain kernels in its SASS")
-        check(all(v >= 3 for v in hmma.values()) if bf16 else not any(hmma.values()),
-              f"{name}: HMMA where it should not be, or missing where it should")
+        check(all(c["HMMA"] >= 3 and c["HMMA"] == sum(c[op] for op in forms)
+                  for c in hmma.values()) if bf16 else not any(c["HMMA"] for c in hmma.values()),
+              f"{name}: HMMA where it should not be, missing where it should, or in "
+              f"another form than {' or '.join(forms)}")
+    print(f"phase 6: the SASS counts took {time.perf_counter() - t_sass:.1f} s")
 
     def bf16_runs(p_in, l_in, t_in, kw):
         """(kernel bf16, plain bf16, plain bf16 in float64, plain f32)"""
@@ -2482,8 +2506,8 @@ def main() -> int:
               f"max|dx| kernel-plain {err16:.3e}, bf16 effect {eff16:.3e}; mean "
               f"row energy kernel {mean_row_energy(torch, params, out16[0], 'relu'):.4f}, plain "
               f"{mean_row_energy(torch, params, ref16[0], 'relu'):.4f}; bound {bound16:.3f} ms "
-              f"at the bf16 tensor-core peak, {bound16_f32:.3f} ms at the f32 peak of the FMA "
-              f"route (operations) {tag}")
+              f"at the bf16 tensor-core peak, {bound16_f32:.3f} ms at the f32 peak of the CUDA "
+              f"cores (operations) {tag}")
         check(rms16 <= BF16_SHARE * rms_eff16,
               f"phase 6: chain ({name}) bf16 {rms16} (rms) from the plain version, "
               f"effect {rms_eff16}")
@@ -3028,6 +3052,11 @@ def main() -> int:
             "replaces": pallas + ":426", "launches": launches[0],
             "max_abs_err": dx, "ms": a_ms, "plain_ms": pa_ms,
             "bound_ms": bound_a, "bound_by": "operations", "library_ms": None,
+            # bound_ms is the work at the f32 peak of the CUDA cores, where
+            # it runs; bound_tc_ms the same products as split-TF32 ones at
+            # the TF32 tensor-core peak, a route measured and not kept
+            "share": bound_a / a_ms, "bound_tc_ms": bound_tc_a,
+            "share_tc": bound_tc_a / a_ms,
         },
         {
             "name": "mcpc_sum_partials", "route": "cuda", "source": csrc + "mcpc_chain.cu",
@@ -3043,12 +3072,15 @@ def main() -> int:
             "replaces": pallas + ":1013", "launches": launches[1],
             "max_abs_err": dx_c, "ms": c_ms, "plain_ms": pc_ms,
             "bound_ms": bound_c, "bound_by": "operations", "library_ms": None,
+            "share": bound_c / c_ms, "bound_tc_ms": bound_tc_c,
+            "share_tc": bound_tc_c / c_ms,
             # at T=10000 beside chain (a) in the same call (phase 2)
             "ms_T10000": c_long_ms, "chain_a_ms_T10000": [a_ms, a2_ms],
         },
         # the bf16 builds, at chain (a)'s inputs cut to T=1000 and chain (c):
         # bound by operations at the bf16 tensor-core peak, which is what
-        # the card could do for this work; bound_f32_ms is the FMA route's
+        # the card could do for this work; bound_f32_ms is the same work at
+        # the f32 peak of the CUDA cores
         {
             "name": "mcpc_chain_bf16", "route": "cuda", "source": csrc + "mcpc_chain.cu",
             "replaces": pallas + ":426", "launches": launches[3],

@@ -155,14 +155,21 @@ def ptxas_resources(library: Path) -> tp.Dict[str, tp.Tuple[int, int, int]]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(tool: str, library: str) -> str:
+    """``cuobjdump -sass`` of ``library``, once a process however many
+    opcodes are counted in it (a library's path holds its sources' hash)."""
+    return subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_counts(library: Path, opcode: str) -> tp.Dict[str, int]:
     """How often each function of a built ``library`` holds the SASS
     instruction ``opcode`` (``"HMMA"``: a tensor-core product), read with the
     toolkit's ``cuobjdump -sass``: ``{mangled function name: count}``, every
     function of the library listed."""
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = _sass(tool, str(library))
     op = re.compile(rf"\b{re.escape(opcode)}[.\s]")
     counts: tp.Dict[str, int] = {}
     name = None

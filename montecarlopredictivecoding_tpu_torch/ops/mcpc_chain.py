@@ -44,7 +44,12 @@ recomputed scalars (as the JAX wrapper's, in full f32 from the f32
 weights).  A product of two bf16 values is exact in f32, so the kernels'
 bf16 build, whose products run on the tensor cores (``mma`` with f32
 accumulators), differs from the plain version only in the order of the
-sums.
+sums.  The f32 build's products are FMAs on the CUDA cores.
+:func:`tf32_split` and :func:`tf32_split_matmul` are split-TF32 arithmetic
+(each f32 operand as two TF32 halves, a product as three) in plain PyTorch:
+a tensor-core route for f32 products was measured and not kept
+(``PERF.md``), and they serve the diagnosis of such a route
+(``scripts/chain_c_draws.py``).
 
 On CUDA tensors it launches a hand-written kernel: ``csrc/mcpc_chain.cu``,
 which replaces the JAX package's Pallas kernel
@@ -690,6 +695,40 @@ def bf16_round(t: Tensor) -> Tensor:
     """``t`` rounded to bf16 (to nearest, ties to even) and held in its own
     dtype: a product's operand under ``bf16_matmul``."""
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _tf32_rna(x: Tensor) -> Tensor:
+    """float32 ``x`` rounded to TF32 (10 explicit significand bits), to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32``; non-finite
+    values pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    """``x`` as two TF32 halves, the operand split of split-TF32 products
+    ("3xTF32"): ``hi`` = ``x`` rounded to TF32 and ``lo`` = ``x - hi``
+    rounded so, both float32 with their low 13 bits clear, and ``|x - hi -
+    lo| <= max(2^-22 |x|, 2^-137)`` for finite float32 ``x`` (the second
+    term where ``x - hi`` is subnormal).  Non-finite values pass through
+    ``hi``; their ``lo`` is NaN.  For tests and diagnosis: nothing on the
+    main path calls it."""
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def tf32_split_matmul(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` as split-TF32 products take it: ``a_lo b_hi + a_hi b_lo +
+    a_hi b_hi`` of the split operands (:func:`tf32_split`), summed in
+    float64 and rounded to float32.  It drops ``a_lo b_lo`` and the splits'
+    own rounding, at most ``3 * 2^-22`` of each ``|a||b|`` term, and so
+    shows what the split alone does, apart from how a tensor core's f32
+    sums round.  For diagnosis: nothing on the main path calls it."""
+    ah, al = (t.double() for t in tf32_split(a))
+    bh, bl = (t.double() for t in tf32_split(b))
+    return (al @ bh + ah @ bl + ah @ bh).float()
 
 
 @torch.no_grad()

@@ -1,16 +1,18 @@
 """Hold the f32 chain libraries of two checkouts to each other, on one GPU:
 the same SASS in every chain kernel, and the same bits out of the same
-chains.
+chains.  With ``--bf16``, the bf16 libraries and chains instead.
 
-    python3 scripts/compare_f32_trees.py PARENT [CHANGE]
+    python3 scripts/compare_f32_trees.py PARENT [CHANGE] [--bf16]
 
 ``PARENT`` and ``CHANGE`` (default: this checkout) are roots of checkouts.
 Each is run in a process of its own (``--worker``), which builds its f32
-libraries (``mcpc_chain``, ``mcpc_chain_unpacked``) from its own sources,
+(or bf16) libraries (``mcpc_chain``, ``mcpc_chain_unpacked``) from its own
+sources,
 dumps each chain kernel's SASS with the toolkit's ``cuobjdump`` (addresses
 and encodings stripped) and runs three chains at B=256, 20-128-128-784:
 chain (a) cut to 1000 steps, the training chain with the parameter
-gradients, and chain (c) (the unpacked kernel) with gradients.  Prints one
+gradients, and chain (c) (the unpacked kernel) with gradients, all with
+``bf16_matmul`` under ``--bf16``.  Prints one
 JSON line: per library the kernels whose SASS differs, and per chain whether
 every output tensor is bit-identical; exits 1 if anything differs.  Needs a
 CUDA device and nvcc; there is no CPU mode.
@@ -47,8 +49,9 @@ def sass_by_kernel(cuobjdump: str, library: str) -> dict:
     return {k: v for k, v in kernels.items() if "mcpc_chain_kernel" in k}
 
 
-def worker(tree: str, out: str) -> None:
-    """Build, dump and run in ``tree``; save everything to ``out``."""
+def worker(tree: str, out: str, bf16: bool) -> None:
+    """Build, dump and run in ``tree`` (the bf16 libraries and chains with
+    ``bf16``); save everything to ``out``."""
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -59,7 +62,7 @@ def worker(tree: str, out: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = {name: sass_by_kernel(cuobjdump, str(_build.build(name, False)))
+    sass = {name: sass_by_kernel(cuobjdump, str(_build.build(name, bf16)))
             for name in LIBRARIES}
     dev = torch.device("cuda")
     config = train_mnist.mcpc_training_config()
@@ -77,7 +80,7 @@ def worker(tree: str, out: str) -> None:
     }
     results = {}
     for name, kw in chains.items():
-        res = chain.mcpc_chain(gen.params, latents, data, 7, **kw)
+        res = chain.mcpc_chain(gen.params, latents, data, 7, bf16_matmul=bf16, **kw)
         torch.cuda.synchronize()
         flat = list(res[0])
         if res[1] is not None:
@@ -93,10 +96,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
     ap.add_argument("change", nargs="?", default=here)
+    ap.add_argument("--bf16", action="store_true",
+                    help="hold the bf16 libraries and chains instead of the f32 ones")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:   # parent = the tree, change = the output file
-        worker(args.parent, args.change)
+        worker(args.parent, args.change, args.bf16)
         return 0
     import torch
 
@@ -104,11 +109,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate((args.parent, args.change)):
             out = os.path.join(tmp, f"{i}.pt")
-            subprocess.run([sys.executable, os.path.abspath(__file__), tree, out, "--worker"],
-                           check=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__), tree, out, "--worker"]
+                           + (["--bf16"] if args.bf16 else []), check=True)
             runs.append(torch.load(out))
     a, b = runs
-    report = {"sass_differs": {}, "kernels": {}, "bits_equal": {}}
+    report = {"build": "bf16" if args.bf16 else "f32", "sass_differs": {}, "kernels": {},
+              "bits_equal": {}}
     for lib in LIBRARIES:
         ka, kb = a["sass"][lib], b["sass"][lib]
         report["kernels"][lib] = len(kb)

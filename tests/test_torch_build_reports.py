@@ -70,7 +70,11 @@ def test_ptxas_resources_reads_registers_and_spills(tmp_path):
 
 
 @pytest.mark.parametrize("opcode,want", [("HMMA", (2, 0)), ("FFMA", (0, 1)),
-                                         ("HMM", (0, 0))])
+                                         ("HMM", (0, 0)),
+                                         # one form of the instruction, spelled out
+                                         ("HMMA.16816.F32.BF16", (1, 0)),
+                                         ("HMMA.1688.F32.BF16", (1, 0)),
+                                         ("HMMA.1688.F32.TF32", (0, 0))])
 def test_sass_counts_counts_an_instruction_per_function(tmp_path, monkeypatch, opcode, want):
     sass = tmp_path / "dump.txt"
     sass.write_text(SASS)

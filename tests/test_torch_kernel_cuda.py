@@ -683,21 +683,67 @@ def test_two_bf16_runs_are_bit_identical(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_bf16_libraries_run_their_products_on_the_tensor_cores(cuda_device):
+@pytest.mark.parametrize("name,bf16", [("mcpc_chain", False), ("mcpc_chain", True),
+                                       ("mcpc_chain_unpacked", False),
+                                       ("mcpc_chain_unpacked", True)])
+def test_bf16_libraries_run_their_products_on_the_tensor_cores(cuda_device, name, bf16):
     """Every chain kernel of the bf16 libraries holds tensor-core products
-    (HMMA: the forward, backward and Hebbian tiles), and the f32 libraries
-    hold none (cuobjdump -sass of the built libraries)."""
+    (HMMA: the forward, backward and Hebbian tiles), all in the BF16 forms;
+    the f32 libraries hold none, and no other function of any library does
+    (cuobjdump -sass of the built libraries)."""
     from montecarlopredictivecoding_tpu_torch.ops import _build
 
-    for name, kernels in (("mcpc_chain", 16), ("mcpc_chain_unpacked", 4)):
-        for bf16 in (False, True):
-            counts = _build.sass_counts(_build.build(name, bf16), "HMMA")
-            chains = {f: n for f, n in counts.items() if "mcpc_chain_kernel" in f}
-            assert len(chains) == kernels
-            if bf16:
-                assert all(n >= 3 for n in chains.values()), chains
-            else:
-                assert not any(counts.values()), counts
+    lib = _build.build(name, bf16)
+    every = _build.sass_counts(lib, "HMMA")
+    forms = [_build.sass_counts(lib, op) for op in ("HMMA.16816.F32.BF16", "HMMA.1688.F32.BF16")]
+    chains = [f for f in every if "mcpc_chain_kernel" in f]
+    assert len(chains) == (16 if name == "mcpc_chain" else 4)
+    for f in chains:
+        if bf16:
+            assert every[f] >= 3, (f, every[f])
+            assert every[f] == sum(c[f] for c in forms), (f, every[f])
+        else:
+            assert every[f] == 0, (f, every[f])
+    assert not any(n for f, n in every.items() if "mcpc_chain_kernel" not in f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [18, 10, 4, 2])
+def test_every_built_row_count_takes_tanh_with_the_output_pc_site(cuda_device, rows):
+    """tanh and the output-PC site together, a warm Adam phase, then Langevin
+    steps with noise, gradients and captures, forced onto each row count of
+    the f32 options instantiation, B = 37 (pad rows in the last cluster)."""
+    params, latents = _output_pc_case(FID, 37, cuda_device)
+    kw = dict(activation="tanh", output_var=0.5, loss="none", lr=0.03, warm_T=6,
+              T=15, mixing=5, with_pgrads=True, capture_stride=3, return_scalars=True)
+    c = chain_mod._chain_args(params, latents, None, 9, **kw)
+    plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+    assert plan.rows == rows
+    before = chain_mod.mcpc_chain.launches
+    got = chain_mod._kernel(c, params, latents, None, plan=plan)
+    torch.cuda.synchronize()
+    assert chain_mod.mcpc_chain.launches == before + 1
+    want = chain_mod.mcpc_chain_reference(params, latents, None, 9, **kw)
+    assert len(got[0]) == 4
+    _assert_same_outputs(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_chain_in_four_waves_matches_plain_version(cuda_device, packed):
+    """B = 1024 in f32: 57 clusters of 18 rows, four waves, the last cluster
+    with pad rows, with gradients (and, packed, a warm phase)."""
+    kw = dict(T=20, lr=0.03, mixing=5, with_pgrads=True)
+    if packed:
+        kw.update(warm_T=4, return_scalars=True)
+    else:
+        kw.update(packed=False)
+    params, latents, target = _case(FID, 1024, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    assert chain_mod.device_plan(c, 1024, cuda_device).clusters == 57
+    got = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    _assert_same_outputs(got, want)
 
 
 # ------------------------------- the unpacked chain on the cluster plan
