@@ -8,7 +8,9 @@ Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          ``nvcc`` per library (each chain source for f32 and for bf16
          products, the per-op probe's for f32), all started together, and
          prints each instantiation's registers and spills as ptxas reports
-         them.  The synthetic MNIST set that stands in for
+         them; it fails if a chain instantiation spills or holds more
+         registers than its build's launch bound allows
+         (``_build.resource_faults``).  The synthetic MNIST set that stands in for
          the IDX files is made once and shared by every phase.
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
@@ -1263,9 +1265,18 @@ def main() -> int:
         with open(str(lib_path) + ".log") as log:
             print(f"phase 0: {name}: {log.readline().strip()}")
         # every instantiation: registers a thread and spills (ptxas -v)
-        for kernel, (regs, stores, loads) in sorted(_build.ptxas_resources(lib_path).items()):
+        resources = _build.ptxas_resources(lib_path)
+        for kernel, (regs, stores, loads) in sorted(resources.items()):
             print(f"  ptxas {name}: {kernel}: {regs} registers, spill stores {stores} B, "
                   f"spill loads {loads} B")
+        if source.startswith("mcpc_chain"):
+            # no chain instantiation spills or passes its launch bound
+            threads = chain.block_threads(bf16)
+            faults = _build.resource_faults(resources, threads)
+            check(not faults, f"phase 0: {name}: " + "; ".join(faults))
+            print(f"phase 0: {name}: {threads} threads a block, no chain kernel spills, "
+                  f"at most {max(r[0] for k, r in resources.items() if 'chain_kernel' in k)} "
+                  f"registers of {_build.launch_bound_registers(threads)}")
 
     # ---------------------------------------------------------- phase 1
     gen = torch.Generator().manual_seed(SEED)

@@ -20,6 +20,11 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``, so
 ``tanhf``/``logf``/``expf``/``sqrtf`` and division stay IEEE.  No
 ``--split-compile``: it builds the packed kernel 2.6 times faster but the
 code it makes runs a chain 26% slower (PERF.md, Findings).
+
+A profiling build, ``warp_clocks=True``, adds ``-DMCPC_WARP_CLOCKS`` (each
+warp's clocks in the f32 chain kernel; ``scripts/chain_clocks.py --warps``)
+and goes to ``build/torch_kernels_warp_clocks/``, so the libraries the port
+runs never carry that code.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+WARP_CLOCKS_DIR = BUILD_DIR.parent / "torch_kernels_warp_clocks"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,38 +66,42 @@ def nvcc_path() -> str:
     return path
 
 
-def flags(bf16: bool = False) -> tp.Tuple[str, ...]:
-    """nvcc's flags for the f32 library of a source, or its bf16 one."""
-    return NVCC_FLAGS + (("-DMCPC_BF16",) if bf16 else ())
+def flags(bf16: bool = False, warp_clocks: bool = False) -> tp.Tuple[str, ...]:
+    """nvcc's flags for the f32 library of a source, or its bf16 one, and
+    for the profiling build with ``warp_clocks``."""
+    return (NVCC_FLAGS + (("-DMCPC_BF16",) if bf16 else ())
+            + (("-DMCPC_WARP_CLOCKS",) if warp_clocks else ()))
 
 
-def library_path(name: str, bf16: bool = False) -> Path:
+def library_path(name: str, bf16: bool = False, warp_clocks: bool = False) -> Path:
     """Where the library built from ``csrc/<name>.cu`` (with ``bf16``, its
-    bf16 library) lives.  The name carries a hash of the source, of every
-    header under ``csrc/`` (a source may include any of them) and of the
-    flags."""
+    bf16 library; with ``warp_clocks``, its profiling build) lives.  The
+    name carries a hash of the source, of every header under ``csrc/`` (a
+    source may include any of them) and of the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         src += header.read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags(bf16)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}{'_bf16' if bf16 else ''}-{digest}.so"
+    digest = hashlib.sha256(
+        src + " ".join(flags(bf16, warp_clocks)).encode()).hexdigest()[:16]
+    return ((WARP_CLOCKS_DIR if warp_clocks else BUILD_DIR)
+            / f"{name}{'_bf16' if bf16 else ''}-{digest}.so")
 
 
-def build(name: str, bf16: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` (with ``bf16``, for bf16 products) unless
-    its library exists; return the library's path.  nvcc's time and its
-    report (registers, shared memory, spills) are kept beside it as
-    ``<library>.log``."""
-    out = library_path(name, bf16)
+def build(name: str, bf16: bool = False, warp_clocks: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``bf16``, for bf16 products; with
+    ``warp_clocks``, the profiling build) unless its library exists; return
+    the library's path.  nvcc's time and its report (registers, shared
+    memory, spills) are kept beside it as ``<library>.log``."""
+    out = library_path(name, bf16, warp_clocks)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name and rename, so a process building at the
     # same time never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *flags(bf16), "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *flags(bf16, warp_clocks), "-o", tmp, str(CSRC / f"{name}.cu")]
         start = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - start
@@ -109,9 +119,10 @@ def build(name: str, bf16: bool = False) -> Path:
     return out
 
 
-def build_all(libraries: tp.Sequence[tp.Tuple[str, bool]]) -> tp.List[Path]:
-    """Build several ``(source name, bf16)`` libraries at once, one ``nvcc``
-    each, all started together; returns their paths in order."""
+def build_all(libraries: tp.Sequence[tp.Tuple]) -> tp.List[Path]:
+    """Build several ``(source name, bf16[, warp_clocks])`` libraries at
+    once, one ``nvcc`` each, all started together; returns their paths in
+    order."""
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         return list(pool.map(lambda lib: build(*lib), libraries))
 
@@ -155,6 +166,33 @@ def ptxas_resources(library: Path) -> tp.Dict[str, tp.Tuple[int, int, int]]:
     return out
 
 
+def launch_bound_registers(threads: int) -> int:
+    """The registers a thread may hold in a kernel built with
+    ``__launch_bounds__(threads, 1)``: the SM's 65,536 over the block, in
+    whole groups of 8 (the card allocates a warp's registers 256 at a time),
+    at most 255."""
+    return min(255, 65536 // threads // 8 * 8)
+
+
+def resource_faults(resources: tp.Dict[str, tp.Tuple[int, int, int]],
+                    threads: int) -> tp.List[str]:
+    """What a library's ptxas report (:func:`ptxas_resources`) must not
+    show for its chain kernels, run ``threads`` a block: a spill, or more
+    registers than the launch bound allows.  One line per fault; none when
+    the library is sound."""
+    cap = launch_bound_registers(threads)
+    faults = []
+    for kernel, (regs, stores, loads) in sorted(resources.items()):
+        if not kernel.startswith("mcpc_chain_kernel"):
+            continue
+        if stores or loads:
+            faults.append(f"{kernel}: spills ({stores} B stored, {loads} B loaded)")
+        if regs > cap:
+            faults.append(f"{kernel}: {regs} registers, over the {cap} of "
+                          f"{threads} threads a block")
+    return faults
+
+
 @functools.lru_cache(maxsize=None)
 def _sass(tool: str, library: str) -> str:
     """``cuobjdump -sass`` of ``library``, once a process however many
@@ -184,9 +222,9 @@ def sass_counts(library: Path, opcode: str) -> tp.Dict[str, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, bf16: bool = False) -> ctypes.CDLL:
+def load(name: str, bf16: bool = False, warp_clocks: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu`` (with
-    ``bf16``, its bf16 library) once per process.  Both libraries of a
-    source export the same C names; ``ctypes`` loads each with its own
-    symbols."""
-    return ctypes.CDLL(str(build(name, bf16)))
+    ``bf16``, its bf16 library; with ``warp_clocks``, its profiling build)
+    once per process.  The libraries of a source export the same C names;
+    ``ctypes`` loads each with its own symbols."""
+    return ctypes.CDLL(str(build(name, bf16, warp_clocks)))

@@ -82,6 +82,15 @@ int mcpc_chain_cluster_size() { return CS; }
 // parts of a step that ChainArgs::clocks tells apart
 int mcpc_chain_phase_count() { return N_PHASE; }
 
+// threads a block of this build's chain kernels (both sources)
+int mcpc_chain_block_threads() { return kBF16 ? NT : NT_F32; }
+
+#ifdef MCPC_WARP_CLOCKS
+// int64 numbers a block's row of `clocks` holds after the phases in this
+// profiling build: WARP_CLOCKS for every warp of the f32 kernel
+int mcpc_chain_warp_clock_count() { return kBF16 ? 0 : WARP_CLOCKS * (NT_F32 / 32); }
+#endif
+
 // dynamic shared memory of one block of a cluster of `rows` rows; grads: 0
 // no parameter gradients, 1 the block's gradient slice in device memory, 2
 // in shared memory; outpc: an output-PC site

@@ -98,11 +98,13 @@
 //  * A cluster barrier costs over a thousand clocks (its release is a
 //    device-wide fence), and the noise needs no memory: each barrier is split
 //    into arrive and wait, and the step's normals are drawn in between.
-//  * The f32 build's products are bound by the 128 bytes a clock that go
-//    from shared memory to registers, not by the FMA pipe, so a thread keeps
-//    a register tile of 4 columns x half of the rows, and 4 lanes share a
-//    tile and split its k ("products" below; the bf16 build's run on the
-//    tensor cores: "bf16 products").
+//  * The f32 build's products wait on the SM's shared-memory loads, not on
+//    the FMA pipe, so a lane keeps a register tile of 4 neighbouring columns
+//    by half of the rows (forward) or 4 columns by all the rows (backward,
+//    gradients), reads its operands as float4s, and 4 lanes share a tile
+//    and split its k; the warps deal the tiles in rounds of one sum length
+//    ("products" below; the bf16 build's run on the tensor cores: "bf16
+//    products").
 //  * Every block of a cluster reaches every barrier: pad rows (beyond B)
 //    evolve like real rows and are skipped only in sums and stores.
 //
@@ -230,6 +232,11 @@ namespace mcpc {
 namespace cg = cooperative_groups;
 
 constexpr int CS = 8;             // blocks a cluster
+// Threads a block of the f32 build, a constant of its own beside the bf16
+// build's NT.  A block of 512 (128 registers a thread) or 384 (168) spills
+// the products' register tiles; 256 (255 registers) holds them, so the f32
+// build runs 256 too (PERF.md, Findings).
+constexpr int NT_F32 = 256;
 
 // Rows a cluster for which the kernel is built (CLUSTER_ROWS of the wrapper,
 // whose plan picks among them): each is four instantiations in the packed
@@ -246,6 +253,20 @@ constexpr int NOISE_PACKED = 0, NOISE_UNPACKED = 1;   // the noise indexing, ano
 // to its barrier, gradient jobs, backward jobs, the wait for the peers'
 // partials, the update, the wait for the peers' new act(x).
 constexpr int N_PHASE = 6;
+
+// Per-warp clocks, a profiling build only (-DMCPC_WARP_CLOCKS; the libraries
+// the port runs never carry this code, since code that never runs still
+// costs: "Options" in the header).  Lane 0 of every warp of an f32 build
+// adds up, over the steps, WARP_CLOCKS numbers: the clocks from the step's
+// start to its first forward job, from its first forward job to the end of
+// its last, and from its first backward job to the end of its last.  They
+// follow the phases in each block's row of ChainArgs::clocks.
+#ifdef MCPC_WARP_CLOCKS
+constexpr bool kWarpClocks = true;
+#else
+constexpr bool kWarpClocks = false;
+#endif
+constexpr int WARP_CLOCKS = 3;
 
 struct ChainArgs {
   const float* x0; const float* x1; const float* x2;   // [B, d_l]
@@ -303,8 +324,9 @@ __host__ __device__ inline int slice_stride(int width) {
 }
 
 // The R = 2 * RG rows of a cluster within one feature of a [..][rows] array.
-// A job reads one half of the rows (RG of them): the first RG / 4 * 4 as
-// float4, the rest one by one.  So that the float4s are aligned, a feature
+// A forward item reads one half of the rows (RG of them): the first RG / 4 *
+// 4 as float4, the rest one by one; the backward and gradient ones read all
+// R positions, float4s then a float2.  So that the float4s are aligned, a feature
 // holds the float4 parts of both halves first, then the leftovers of both,
 // and its pitch is a multiple of 4 words (18 rows: 8 + 8 + 1 + 1, pitch 20).
 __host__ __device__ constexpr int row_pitch(int R) {
@@ -403,15 +425,24 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
   L.M3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
   L.V3 = o; o += outpc && warm ? (size_t)L.ND * RP : 0;
   if constexpr (!BF16) {
+    // the weight and gradient slices (strides 8 * odd) start 16-byte
+    // aligned, so their products read and write 4 neighbouring columns as a
+    // float4 (at 2 rows RP = 2 and the arrays above may end 8 bytes short)
+    o = (o + 3) / 4 * 4;
     L.W1 = o; o += (size_t)d0 * L.LD1;
     L.W2 = o; o += (size_t)d1 * L.LD2;
     L.W3 = o; o += (size_t)d2 * L.LD3;
+    L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
+    L.G2 = o; o += grads == 2 ? (size_t)d1 * L.LD2 : 0;
+    L.G3 = o; o += grads == 2 ? (size_t)d2 * L.LD3 : 0;
   }
   L.BI = o; o += (size_t)L.OWN + L.ND;
   L.OT = o; o += n;
-  L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
-  L.G2 = o; o += grads == 2 ? (size_t)d1 * L.LD2 : 0;
-  L.G3 = o; o += grads == 2 ? (size_t)d2 * L.LD3 : 0;
+  if constexpr (BF16) {
+    L.G1 = o; o += grads == 2 ? (size_t)d0 * L.LD1 : 0;
+    L.G2 = o; o += grads == 2 ? (size_t)d1 * L.LD2 : 0;
+    L.G3 = o; o += grads == 2 ? (size_t)d2 * L.LD3 : 0;
+  }
   L.GB = o; o += grads != 0 ? (size_t)L.OWN + L.ND : 0;
   L.total = o;
   return L;
@@ -446,18 +477,63 @@ __device__ __forceinline__ void cluster_wait() {
 //
 // The f32 build's products (the bf16 build's: "tensor-core tiles" below).
 // Both products of a step are small matrix products out[col][row] =
-// sum_k A[k][row] * W(k, col) whose operands lie in shared memory.  What
-// bounds them is the 128 bytes a clock that an SM can move from shared
-// memory into registers, so a thread keeps a register tile: a QUAD of 4
-// columns (col = q + u * NQ, u < 4, a stride of NQ apart so that neighbouring
-// lanes read neighbouring words) times RG rows, 13 loads for 36 FMAs at 9
-// rows.  To give all 8 warps work although a block has few columns, KSPLIT
-// lanes of a warp share one quad and take every KSPLIT-th k; a shuffle
-// butterfly adds their sums in a fixed order and leaves lane part u with the
-// total of column u.  Lane = quad within the warp + QUADS * part.
+// sum_k A[k][row] * W(k, col) whose operands lie in shared memory.  They
+// wait on the shared-memory loads the SM serves, not on the FMA pipe: a k
+// step costs the more clocks the more warps load at once, and a build whose
+// items held 2 columns by half of the rows (5 loads for 18 FMAs, 16 warps)
+// ran slower than 4 by half (7 for 36, 8 warps) (PERF.md, Findings).  So a
+// lane keeps a register tile, an ITEM of 4 columns (a QUAD), and reads its
+// operands as float4s:
+//  * forward: 4 neighbouring own columns (one float4 of the weight slice's
+//    row k) by one half of the rows, 4 loads for 36 FMAs at 18 rows, the
+//    next k step's operands loading while this one's FMAs run;
+//  * backward: 4 latent columns NQ apart (4 rows of the weight slice, one
+//    load each) by all R rows (float4s), 9 loads for 72 FMAs;
+//  * gradients (below): 4 neighbouring own columns by all R rows.
+// KSPLIT lanes of a warp share an item and take every KSPLIT-th k, each
+// into its own part sum from 0 in ascending k; a shuffle butterfly adds the
+// four part sums as (P0 + P2) + (P1 + P3) and leaves lane part u with the
+// total of column u.  Lane = item within the warp + QUADS * part.  Which
+// columns and rows a lane holds does not change a sum: every element is
+// summed in this order whatever the tiles, so retiling keeps the bits.
+//
+// A warp takes QUADS items of one sum length K at a time (a ROUND, so no
+// lane waits for a longer sum: Deal), and the block's warps deal the rounds
+// in snake order, longest sums first (snake_tile).
 
-constexpr int KSPLIT = 4;           // lanes that share a quad
-constexpr int QUADS = 32 / KSPLIT;  // quads a warp takes at once
+constexpr int KSPLIT = 4;           // lanes that share an item
+constexpr int QUADS = 32 / KSPLIT;  // items a warp takes at once
+
+// v = the R positions of the feature at `feature` (pitch row_pitch(R)):
+// float4s, then a float2
+template <int R>
+__device__ __forceinline__ void load_positions(float (&v)[R], const float* feature) {
+  constexpr int F4 = row_pitch(R) % 4 == 0 ? R / 4 : 0;
+#pragma unroll
+  for (int i = 0; i < F4; ++i) {
+    const float4 x = reinterpret_cast<const float4*>(feature)[i];
+    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int p = 4 * F4; p < R; p += 2) {   // R is even
+    const float2 x = reinterpret_cast<const float2*>(feature)[p / 2];
+    v[p] = x.x; v[p + 1] = x.y;
+  }
+}
+
+// the R positions of the feature at `feature` = v (it may lie in a peer's
+// shared memory)
+template <int R>
+__device__ __forceinline__ void store_positions(float* feature, const float (&v)[R]) {
+  constexpr int F4 = row_pitch(R) % 4 == 0 ? R / 4 : 0;
+#pragma unroll
+  for (int i = 0; i < F4; ++i)
+    reinterpret_cast<float4*>(feature)[i] =
+        make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+#pragma unroll
+  for (int p = 4 * F4; p < R; p += 2)
+    reinterpret_cast<float2*>(feature)[p / 2] = make_float2(v[p], v[p + 1]);
+}
 
 // v = the rows of half g of the feature at `feature`
 template <int RG>
@@ -472,8 +548,7 @@ __device__ __forceinline__ void load_rows(float (&v)[RG], const float* feature, 
   for (int r = RW::MAIN; r < RG; ++r) v[r] = feature[RW::pos(g, r)];
 }
 
-// the rows of half g of the feature at `feature` = v (it may lie in a
-// peer's shared memory)
+// the rows of half g of the feature at `feature` = v
 template <int RG>
 __device__ __forceinline__ void store_rows(float* feature, int g, const float (&v)[RG]) {
   using RW = Rows<RG>;
@@ -485,59 +560,101 @@ __device__ __forceinline__ void store_rows(float* feature, int g, const float (&
   for (int r = RW::MAIN; r < RG; ++r) feature[RW::pos(g, r)] = v[r];
 }
 
-// v[p] = what lies at position p of the feature, all R rows
-template <int RG>
-__device__ __forceinline__ void load_feature(float (&v)[2 * RG], const float* feature) {
-  using RW = Rows<RG>;
-#pragma unroll
-  for (int i = 0; i < 2 * RW::MAIN / 4; ++i) {
-    const float4 x = reinterpret_cast<const float4*>(feature)[i];
-    v[4 * i] = x.x; v[4 * i + 1] = x.y; v[4 * i + 2] = x.z; v[4 * i + 3] = x.w;
-  }
-#pragma unroll
-  for (int p = 2 * RW::MAIN; p < 2 * RG; ++p) v[p] = feature[p];
-}
-
-// acc[u][r] += sum over k = part, part + KSPLIT, ... < K of
-//              A[k][row r of half g] * W[k * ldk + off[u]]
-template <int RG>
-__device__ __forceinline__ void quad_dot(float (&acc)[4][RG], const float* A, int g,
-                                         const float* W, int ldk, const int (&off)[4],
+// acc[u][i] += sum over k = part, part + KSPLIT, ... < K of a_k[i] * w_k[u],
+// in ascending k, where load_a(k, a_k) and load_w(k, w_k) bring row k's
+// operands.  With PREFETCH the next k step's operands load while this one's
+// FMAs run (the forward); without, the loop is unrolled 4 times and the
+// compiler places the loads (the backward, whose 72 sums leave no room for
+// a second set of operands: it ran faster so)
+template <int N, bool PREFETCH, typename LoadA, typename LoadW>
+__device__ __forceinline__ void quad_dot(float (&acc)[4][N], LoadA load_a, LoadW load_w,
                                          int part, int K) {
-#pragma unroll 4
-  for (int k = part; k < K; k += KSPLIT) {
-    float av[RG], w[4];
-    load_rows<RG>(av, A + k * Rows<RG>::PITCH, g);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = W[k * ldk + off[u]];
+  auto fma_step = [&](const float (&av)[N], const float (&w)[4]) {
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int r = 0; r < RG; ++r) acc[u][r] = fmaf(av[r], w[u], acc[u][r]);
+      for (int i = 0; i < N; ++i) acc[u][i] = fmaf(av[i], w[u], acc[u][i]);
+  };
+  if constexpr (PREFETCH) {
+    float a0[N], w0[4], a1[N], w1[4];
+    int k = part;
+    if (k < K) { load_a(k, a0); load_w(k, w0); }
+    for (; k + KSPLIT < K; k += 2 * KSPLIT) {
+      load_a(k + KSPLIT, a1);
+      load_w(k + KSPLIT, w1);
+      fma_step(a0, w0);
+      if (k + 2 * KSPLIT < K) {
+        load_a(k + 2 * KSPLIT, a0);
+        load_w(k + 2 * KSPLIT, w0);
+      }
+      fma_step(a1, w1);
+    }
+    if (k < K) fma_step(a0, w0);
+  } else {
+#pragma unroll 4
+    for (int k = part; k < K; k += KSPLIT) {
+      float av[N], w[4];
+      load_a(k, av);
+      load_w(k, w);
+      fma_step(av, w);
+    }
   }
 }
 
-// Adds the KSPLIT lanes' sums of one quad.  Afterwards out[] of the lane
-// with part u holds the total of column u of its quad.  Every lane of the
-// warp must call it.
-template <int RG>
-__device__ __forceinline__ void quad_reduce(float (&out)[RG], const float (&acc)[4][RG],
+// Adds the KSPLIT lanes' part sums of one item.  Afterwards out[] of the
+// lane with part u holds the total of column u: (P0 + P2) + (P1 + P3).
+// Every lane of the warp must call it.
+template <int N>
+__device__ __forceinline__ void quad_reduce(float (&out)[N], const float (&acc)[4][N],
                                             int lane) {
   static_assert(KSPLIT == 4, "lane bits 16 and 8 are the part and pick the column");
   const bool hi = (lane & 16) != 0, mid = (lane & 8) != 0;
-  float half[2][RG];
+  float half[2][N];
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int r = 0; r < RG; ++r)
-      half[u][r] = (hi ? acc[u + 2][r] : acc[u][r]) +
-                   __shfl_xor_sync(0xffffffffu, hi ? acc[u][r] : acc[u + 2][r], 16);
+    for (int p = 0; p < N; ++p)
+      half[u][p] = (hi ? acc[u + 2][p] : acc[u][p]) +
+                   __shfl_xor_sync(0xffffffffu, hi ? acc[u][p] : acc[u + 2][p], 16);
 #pragma unroll
-  for (int r = 0; r < RG; ++r) {
-    out[r] = (mid ? half[1][r] : half[0][r]) +
-             __shfl_xor_sync(0xffffffffu, mid ? half[0][r] : half[1][r], 8);
+  for (int p = 0; p < N; ++p) {
+    out[p] = (mid ? half[1][p] : half[0][p]) +
+             __shfl_xor_sync(0xffffffffu, mid ? half[0][p] : half[1][p], 8);
   }
 }
+
+// How a product's items are dealt: they come in three classes (in the
+// forward the quads of the own S, err2 and err1 columns, K = d2, d1, d0; in
+// the backward those of the x2, x1 and x0 columns, K = the own output, x2
+// and x1 columns), laid out in that order on slots, QUADS slots a round.  A
+// class whose K differs from the one before starts a new round, so the
+// items of a round share K; classes of equal K share rounds.
+struct Deal {
+  int base[3], n[3], rounds;
+  __device__ __forceinline__ Deal(int n0, int K0, int n1, int K1, int n2, int K2) {
+    const int counts[3] = {n0, n1, n2}, Ks[3] = {K0, K1, K2};
+    int slot = 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c > 0 && Ks[c] != Ks[c - 1]) slot = (slot + QUADS - 1) / QUADS * QUADS;
+      base[c] = slot;
+      n[c] = counts[c];
+      slot += counts[c];
+    }
+    rounds = (slot + QUADS - 1) / QUADS;
+  }
+  // the class of the item at `slot` and its index there, or -1 (no item)
+  __device__ __forceinline__ int cls(int slot, int& idx) const {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      if (slot >= base[c] && slot < base[c] + n[c]) {
+        idx = slot - base[c];
+        return c;
+      }
+    idx = 0;
+    return -1;
+  }
+};
 
 // ------------------------------------------------ tensor-core tiles
 //
@@ -552,12 +669,14 @@ __device__ __forceinline__ void quad_reduce(float (&out)[RG], const float (&acc)
 
 using bf16_t = __nv_bfloat16;
 
-// The tile a warp takes at its turn-th turn when a block's warps deal `count` tiles in
-// snake order (warp w: w, 2 NWARP - 1 - w, 2 NWARP + w, ...), or -1 when
-// done: the tiles are listed longest first, so a warp with a second tile
-// takes a short one, and the two shortest go to the same warp.
+// The tile a warp takes at its turn-th turn when a block's NW warps deal `count` tiles in
+// snake order (warp w: w, 2 NW - 1 - w, 2 NW + w, ...), or -1 when done:
+// the tiles are listed longest first, so a warp with a second tile takes a
+// short one, and the two shortest go to the same warp.  (The f32 build deals
+// its rounds of items the same way, over its own NW = NT_F32 / 32 warps.)
+template <int NW = NWARP>
 __device__ __forceinline__ int snake_tile(int warp, int turn, int count) {
-  const int tile = turn * NWARP + (turn & 1 ? NWARP - 1 - warp : warp);
+  const int tile = turn * NW + (turn & 1 ? NW - 1 - warp : warp);
   return tile < count ? tile : -1;
 }
 
@@ -731,13 +850,17 @@ constexpr int NOISE_EARLY = 2; // of which drawn at the end of the step before
 // BF16: the products take bf16 operands (see "bf16 products" in the header).
 // NOISE: the packed or the unpacked noise indexing ("Noise indexing").
 template <int RG, bool OPT, int ACT, bool BF16, int NOISE>
-__global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
+__global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const ChainArgs a) {
+  constexpr int NTB = BF16 ? NT : NT_F32;   // threads of this build's block
+  constexpr int NWB = NTB / 32;
   using RW = Rows<RG>;
   constexpr int R = 2 * RG;    // rows a cluster; a job takes half of them
   constexpr int RP = RW::PITCH;
   constexpr int NB = rows_n8(R) / 8;   // BF16: n8 tiles of the rows
+  constexpr bool WC = kWarpClocks && !BF16;   // per-warp clocks (profiling build)
+  constexpr int CLOCK_ROW = N_PHASE + (WC ? WARP_CLOCKS * NWB : 0);
   extern __shared__ __align__(16) float smem[];
-  __shared__ double red[2][NWARP];
+  __shared__ double red[2][NWB];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -787,7 +910,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   // dst[row][padded column] = src[own column][row] for the own columns and
   // valid rows; dst is an aligned [B, XW] array
   auto store_own = [&](float* dst, const float* src) {
-    for (int e = tid; e < L.OWN * R; e += NT) {
+    for (int e = tid; e < L.OWN * R; e += NTB) {
       const int r = e / L.OWN, j = e - r * L.OWN;
       const int row = row0 + r;
       if (row >= a.B) continue;
@@ -801,7 +924,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   // dst[row][loD + j] = src[j][row] for the own output columns and valid
   // rows; dst has rows of `ld` floats
   auto store_out = [&](float* dst, int ld, const float* src) {
-    for (int e = tid; e < nD * R; e += NT) {
+    for (int e = tid; e < nD * R; e += NTB) {
       const int r = e / nD, j = e - r * nD;
       const int row = row0 + r;
       if (row < a.B) dst[(size_t)row * ld + loD + j] = src[j * RP + RW::pos(r)];
@@ -831,11 +954,11 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   // ---- prologue: state, weights and biases into shared memory
   if constexpr (BF16) {
     // the bf16 arrays, which come first, start at zero: their pads stay so
-    for (size_t e = tid; e < L.X / 4; e += NT)
+    for (size_t e = tid; e < L.X / 4; e += NTB)
       reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
-  for (int e = tid; e < R * n; e += NT) {
+  for (int e = tid; e < R * n; e += NTB) {
     const int r = e / n, c = e - r * n;
     const int row = row0 + r;
     float x = 0.f;
@@ -867,7 +990,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     }
   }
   auto load_slice = [&](float* dst, int ld, const float* w, int K, int N, int lo, int nk) {
-    for (int e = tid; e < K * nk; e += NT) {
+    for (int e = tid; e < K * nk; e += NTB) {
       const int k = e / nk, c = e - k * nk;
       dst[k * ld + c] = w[(size_t)k * N + lo + c];
     }
@@ -875,7 +998,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   if constexpr (BF16) {   // the wrapper rounded the weights: exact
     auto load_slice16 = [&](bf16_t* dst, int ld, const float* w, int K, int N, int lo,
                             int nk) {
-      for (int e = tid; e < K * nk; e += NT) {
+      for (int e = tid; e < K * nk; e += NTB) {
         const int k = e / nk, c = e - k * nk;
         dst[k * ld + c] = __float2bfloat16_rn(w[(size_t)k * N + lo + c]);
       }
@@ -888,7 +1011,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     load_slice(W2, L.LD2, a.w2, d1, d2, lo2, n2);
     load_slice(W3, L.LD3, a.w3, d2, D, loD, nD);
   }
-  for (int c = tid; c < n; c += NT) {
+  for (int c = tid; c < n; c += NTB) {
     const int layer = c < c1 ? 0 : c < c2 ? 1 : 2;
     const int col = c < c1 ? c : c < c2 ? c - c1 : c - c2;
     int owner = 0;   // the rank whose slice holds col
@@ -897,7 +1020,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
             ((layer == 0 ? 0 : layer == 1 ? L.J1 : L.J2) + col - a.lo[layer][owner]);
   }
   if (out_pc) {   // the own columns of x3 and, warm, their moments
-    for (int e = tid; e < R * nD; e += NT) {
+    for (int e = tid; e < R * nD; e += NTB) {
       const int r = e / nD, j = e - r * nD;
       const int row = row0 + r;
       const bool valid = row < a.B;
@@ -910,14 +1033,14 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       }
     }
   }
-  for (int c = tid; c < n0; c += NT) BI[c] = a.b0[lo0 + c];
-  for (int c = tid; c < n1; c += NT) BI[L.J1 + c] = a.b1[lo1 + c];
-  for (int c = tid; c < n2; c += NT) BI[L.J2 + c] = a.b2[lo2 + c];
-  for (int c = tid; c < nD; c += NT) BI[L.OWN + c] = a.b3[loD + c];
+  for (int c = tid; c < n0; c += NTB) BI[c] = a.b0[lo0 + c];
+  for (int c = tid; c < n1; c += NTB) BI[L.J1 + c] = a.b1[lo1 + c];
+  for (int c = tid; c < n2; c += NTB) BI[L.J2 + c] = a.b2[lo2 + c];
+  for (int c = tid; c < nD; c += NTB) BI[L.OWN + c] = a.b3[loD + c];
   if (with_pg) {
-    for (int e = tid; e < L.OWN + L.ND; e += NT) GB[e] = 0.f;
+    for (int e = tid; e < L.OWN + L.ND; e += NTB) GB[e] = 0.f;
     auto zero_slice = [&](float* g, int ldg, int K, int nk) {
-      for (int e = tid; e < K * nk; e += NT) {
+      for (int e = tid; e < K * nk; e += NTB) {
         const int k = e / nk, c = e - k * nk;
         g[(size_t)k * ldg + c] = 0.f;
       }
@@ -938,6 +1061,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       last = now;
     }
   };
+  long long wclk[WARP_CLOCKS] = {0, 0, 0}, w_step = 0;   // WC only
 
   const bool has_s = a.loss != 0 || out_pc;
   const int total = a.warm_T + a.T;
@@ -955,25 +1079,24 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     }
   };
 
-  // forward quads, the long sums first: S (K = d2), err2 (K = d1), err1
-  // (K = d0); an item is a quad and one half of the rows
   const int nS = has_s ? nD : 0;
-  const int fq0 = (nS + 3) / 4, fq1 = fq0 + (n2 + 3) / 4, fq2 = fq1 + (n1 + 3) / 4;
-  const int fwd_jobs = (2 * fq2 * KSPLIT + 31) & ~31;
-  // backward quads: the x2 columns (sum over the own output columns), then
-  // x1 (over the own x2 columns), then x0 (over the own x1 columns)
-  const int bq0 = has_s ? (d2 + 3) / 4 : 0, bq1 = bq0 + (d1 + 3) / 4;
-  const int bq2 = bq1 + (d0 + 3) / 4;
-  const int bwd_jobs = (2 * bq2 * KSPLIT + 31) & ~31;
-  // gradient jobs: a quad of columns and PG_ROWS rows of gW3, gW2, gW1
+  // The f32 products ("products" above): the forward's quads of 4
+  // neighbouring own columns of S (K = d2), err2 (K = d1) and err1 (K = d0),
+  // the long sums first; the backward's quads of the x2 columns (a sum over
+  // the own output columns), x1 (over the own x2 columns) and x0 (over the
+  // own x1 columns), a quad's 4 columns NQ apart
+  const int fq0 = (nS + 3) / 4, fq1 = (n2 + 3) / 4, fq2 = (n1 + 3) / 4;
+  const int bq0 = has_s ? (d2 + 3) / 4 : 0, bq1 = (d1 + 3) / 4, bq2 = (d0 + 3) / 4;
+  // gradient jobs: a quad of 4 neighbouring own columns and PG_ROWS rows of
+  // gW3, gW2, gW1
   const int h1 = fq0 * ((d2 + PG_ROWS - 1) / PG_ROWS);
-  const int h2 = h1 + (fq1 - fq0) * ((d1 + PG_ROWS - 1) / PG_ROWS);
-  const int h3 = h2 + (fq2 - fq1) * ((d0 + PG_ROWS - 1) / PG_ROWS);
+  const int h2 = h1 + fq1 * ((d1 + PG_ROWS - 1) / PG_ROWS);
+  const int h3 = h2 + fq2 * ((d0 + PG_ROWS - 1) / PG_ROWS);
 
   // the own element (column j of X, position r within it) of update slot p,
   // or j = -1
   auto own_element = [&](int p, int& j, int& r, int& layer, int& col) {
-    const int e = tid + p * NT;
+    const int e = tid + p * NTB;
     j = -1;
     if (e >= L.OWN * R) return;
     const int jj = e / R;
@@ -1002,7 +1125,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
                              (uint32_t)(row % a.tile_B) * (uint32_t)a.XW + pc, dp);
     }
   };
-  const int slots = (L.OWN * R + NT - 1) / NT;
+  const int slots = (L.OWN * R + NTB - 1) / NTB;
   // The noise of a step touches registers only, so it is drawn while the
   // cluster's barriers complete: slots [0, NOISE_EARLY) behind the barrier
   // that ends the step before, the rest behind the one in the step.
@@ -1018,6 +1141,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   }
 
   for (int s = 0; s < total; ++s) {
+    if constexpr (WC) w_step = clock64();
     const bool warm = s < a.warm_T;
     const int t = s - a.warm_T;
     // the step's index in the phase that captures and emits slots: the
@@ -1123,75 +1247,90 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
             }
           }
       }
-    } else  // f32: FMAs on the CUDA cores
-    for (int base = tid - lane; base < fwd_jobs; base += NT) {
-      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
-      const bool live = item < 2 * fq2;
-      const int g = live && item >= fq2 ? 1 : 0, rg = g * RG;
-      const int qq = live ? item - g * fq2 : fq2;
-      const float* A = H; const float* W = W1;
-      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, jbase = 0;
-      if (qq < fq0) { A = H + c2 * RP; W = W3; K = d2; ld = L.LD3; ncols = nS; NQ = fq0; q = qq; jbase = -1; }
-      else if (qq < fq1) { A = H + c1 * RP; W = W2; K = d1; ld = L.LD2; ncols = n2; NQ = fq1 - fq0; q = qq - fq0; jbase = L.J2; }
-      else if (qq < fq2) { K = d0; ld = L.LD1; ncols = n1; NQ = fq2 - fq1; q = qq - fq1; jbase = L.J1; }
-      const int col = q + part * NQ;            // this lane's column after the reduce
-      const bool mine = live && col < ncols;
-      float yv[RG];   // the target, or x3 at an output-PC site
-      if (out_pc && mine && jbase < 0) {
-        load_rows<RG>(yv, X3 + col * RP, g);
-      } else {
+    } else {  // f32: FMAs on the CUDA cores, rounds of items in snake order
+      const Deal fwd(2 * fq0, d2, 2 * fq1, d1, 2 * fq2, d0);   // a quad's two halves of the rows
+      long long w_first = 0;
+      if constexpr (WC) w_first = clock64();
+      for (int turn = 0, rnd; (rnd = snake_tile<NWB>(tid >> 5, turn, fwd.rounds)) >= 0; ++turn) {
+        const int part = lane / QUADS;
+        int i;
+        const int c = fwd.cls(rnd * QUADS + (lane & (QUADS - 1)), i);
+        const float* A = H; const float* W = W1;
+        int K = 0, ld = L.LD1, ncols = 0, jbase = L.J1;
+        if (c == 0) { A = H + c2 * RP; W = W3; K = d2; ld = L.LD3; ncols = nS; jbase = -1; }
+        else if (c == 1) { A = H + c1 * RP; W = W2; K = d1; ld = L.LD2; ncols = n2; jbase = L.J2; }
+        else if (c == 2) { K = d0; ncols = n1; }
+        const int q = i >> 1, g = i & 1, rg = g * RG;   // a quad of columns, a half of the rows
+        const int col = 4 * q + part;   // this lane's column after the reduce
+        const bool mine = col < ncols;  // (no item: ncols 0)
+        // the quad's 4 weights of row k, side by side in the slice (its pad
+        // columns are never stored)
+        const float* wq = W + 4 * q;
+        auto load_w = [&](int k, float (&w)[4]) {
+          const float4 x = reinterpret_cast<const float4*>(wq + k * ld)[0];
+          w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+        };
+        float yv[RG];   // the target, or x3 at an output-PC site
+        if (out_pc && mine && jbase < 0) {
+          load_rows<RG>(yv, X3 + col * RP, g);
+        } else {
 #pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          const int row = row0 + rg + r;
-          yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
-        }
-      }
-      int off[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1);
-      float acc[4][RG];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG>(acc, A, g, W, ld, off, part, K);
-      float out[RG];
-      quad_reduce<RG>(out, acc, lane);
-      if (!mine) continue;
-      if (jbase < 0) {
-        const float bj = BI[L.OWN + col];
-        const bool clamped = !OPT || loD + col >= a.mask_lo;
-#pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          const float lg = out[r] + bj;
-          out[r] = !clamped ? 0.f
-                   : a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
-                                 : (lg - yv[r]) * a.inv_var;
-          if (sums_now && clamped && row0 + rg + r < a.B) {
-            const double l = lg, yd = yv[r];
-            if (out_pc)   // the site's energy; the 0.5 comes with the layers'
-              en_acc += (double)a.inv_var * (l - yd) * (l - yd);
-            else
-              loss_acc += a.loss == 1
-                  ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
-                  : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
+          for (int r = 0; r < RG; ++r) {
+            const int row = row0 + rg + r;
+            yv[r] = mine && jbase < 0 && row < a.B ? __ldg(a.y + (size_t)row * D + loD + col) : 0.f;
           }
         }
-        store_rows<RG>(S + col * RP, g, out);
-      } else {
-        const int j = jbase + col;
-        const float bj = BI[j];
-        float xv[RG];
-        load_rows<RG>(xv, X + j * RP, g);
+        float acc[4][RG];
 #pragma unroll
-        for (int r = 0; r < RG; ++r) {
-          out[r] = xv[r] - (out[r] + bj);
-          if (sums_now && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
+        quad_dot<RG, true>(acc, [&](int k, float (&av)[RG]) {
+          load_rows<RG>(av, A + k * RP, g);
+        }, load_w, part, K);
+        float out[RG];
+        quad_reduce<RG>(out, acc, lane);
+        if (!mine) continue;
+        if (jbase < 0) {
+          const float bj = BI[L.OWN + col];
+          const bool clamped = !OPT || loD + col >= a.mask_lo;
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            const float lg = out[r] + bj;
+            out[r] = !clamped ? 0.f
+                     : a.loss == 1 ? (0.5f + 0.5f * tanhf(0.5f * lg)) - yv[r]
+                                   : (lg - yv[r]) * a.inv_var;
+            if (sums_now && clamped && row0 + rg + r < a.B) {
+              const double l = lg, yd = yv[r];
+              if (out_pc)   // the site's energy; the 0.5 comes with the layers'
+                en_acc += (double)a.inv_var * (l - yd) * (l - yd);
+              else
+                loss_acc += a.loss == 1
+                    ? fmax(l, 0.0) - l * yd + log1p(exp(-fabs(l)))
+                    : 0.5 * (double)a.inv_var * (l - yd) * (l - yd);
+            }
+          }
+          store_rows<RG>(S + col * RP, g, out);
+        } else {
+          const int j = jbase + col;
+          const float bj = BI[j];
+          float xv[RG];
+          load_rows<RG>(xv, X + j * RP, g);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            out[r] = xv[r] - (out[r] + bj);
+            if (sums_now && row0 + rg + r < a.B) en_acc += (double)out[r] * out[r];
+          }
+          store_rows<RG>(E + j * RP, g, out);
         }
-        store_rows<RG>(E + j * RP, g, out);
+      }
+      if constexpr (WC) {
+        const long long now = clock64();
+        wclk[0] += w_first - w_step;
+        wclk[1] += now - w_first;
       }
     }
-    for (int e = tid; e < n0 * R; e += NT) {   // err0 = x0 - b0
+    for (int e = tid; e < n0 * R; e += NTB) {   // err0 = x0 - b0
       const int j = e / R, r = e - j * R;
       const float er = X[j * RP + r] - BI[j];
       E[j * RP + r] = er;
@@ -1205,7 +1344,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     if (OPT && sums_now && tid == 0) {
       // red is written again only on a later step, behind two cluster barriers
       double l = 0.0, en = 0.0;
-      for (int w = 0; w < NWARP; ++w) {
+      for (int w = 0; w < NWB; ++w) {
         l += red[0][w];
         en += red[1][w];
       }
@@ -1280,7 +1419,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
           }
         }
       } else  // f32: FMAs on the CUDA cores
-      for (int job = tid; job < h3; job += NT) {
+      for (int job = tid; job < h3; job += NTB) {
         const float* A; const float* Vc; float* gw;
         int K, nk, NQ, ldg, jb; float sign;
         size_t gs;   // where the resident slice starts in shared memory
@@ -1289,35 +1428,40 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
           jb = job; sign = 1.f;
         } else if (job < h2) {
           A = H + c1 * RP; Vc = E + L.J2 * RP; gw = G2; gs = L.G2; K = d1; nk = n2;
-          NQ = fq1 - fq0; ldg = ldg2; jb = job - h1; sign = -1.f;
+          NQ = fq1; ldg = ldg2; jb = job - h1; sign = -1.f;
         } else {
-          A = H; Vc = E + L.J1 * RP; gw = G1; gs = L.G1; K = d0; nk = n1; NQ = fq2 - fq1;
+          A = H; Vc = E + L.J1 * RP; gw = G1; gs = L.G1; K = d0; nk = n1; NQ = fq2;
           ldg = ldg1; jb = job - h2; sign = -1.f;
         }
         const int chunk = jb / NQ, q = jb - chunk * NQ;
         float v[4][R];   // by position; rows beyond the batch and columns beyond the slice 0
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const int col = q + u * NQ;
-          load_feature<RG>(v[u], Vc + min(col, nk - 1) * RP);
+          const int col = 4 * q + u;
+          load_positions<R>(v[u], Vc + min(col, nk - 1) * RP);
 #pragma unroll
           for (int r = 0; r < R; ++r)
             v[u][r] = col < nk && RW::row_at(r) < nvalid ? sign * v[u][r] : 0.f;
         }
-        // gw[k][col] += dot; the resident slice is addressed as shared memory
+        // gw[k][4q + u] += dot[u]: the resident slice (pitch 8 * odd) as one
+        // float4 of shared memory; in device memory column by column
         auto add = [&](int k, const float (&dot)[4]) {
+          const size_t at = (size_t)k * ldg + 4 * q;
+          if (a.grads_resident) {
+            float4* g4 = reinterpret_cast<float4*>(smem + gs + at);
+            float4 x = *g4;
+            x.x += dot[0]; x.y += dot[1]; x.z += dot[2]; x.w += dot[3];
+            *g4 = x;
+          } else {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (q + u * NQ >= nk) continue;
-            const size_t at = (size_t)k * ldg + q + u * NQ;
-            if (a.grads_resident) smem[gs + at] += dot[u];
-            else gw[at] += dot[u];
+            for (int u = 0; u < 4; ++u)
+              if (4 * q + u < nk) gw[at + u] += dot[u];
           }
         };
         const int k1 = min(K, (chunk + 1) * PG_ROWS);
         for (int k = chunk * PG_ROWS; k < k1; ++k) {
           float h[R];
-          load_feature<RG>(h, A + k * RP);
+          load_positions<R>(h, A + k * RP);
           float dot[4] = {0.f, 0.f, 0.f, 0.f};   // four sums side by side, each in a fixed order
 #pragma unroll
           for (int r = 0; r < R; ++r)
@@ -1327,7 +1471,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
         }
       }
       // bias gradients: -err of the own latent columns, +S of the own outputs
-      for (int j = tid; j < L.OWN + nS; j += NT) {
+      for (int j = tid; j < L.OWN + nS; j += NTB) {
         const float* src = j < L.OWN ? E + j * RP : S + (j - L.OWN) * RP;
         const float sign = j < L.OWN ? -1.f : 1.f;
         float sum = 0.f;
@@ -1381,33 +1525,43 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
           }
         }
       }
-    } else  // f32: FMAs on the CUDA cores
-    for (int base = tid - lane; base < bwd_jobs; base += NT) {
-      const int item = (base >> 5) * QUADS + (lane & (QUADS - 1)), part = lane / QUADS;
-      const bool live = item < 2 * bq2;
-      const int g = live && item >= bq2 ? 1 : 0;
-      const int qq = live ? item - g * bq2 : bq2;
-      const float* A = E; const float* W = W1;
-      int K = 0, ld = 0, ncols = 1, NQ = 1, q = 0, cbase = 0;
-      if (qq < bq0) { A = S; W = W3; K = nD; ld = L.LD3; ncols = d2; NQ = bq0; q = qq; cbase = c2; }
-      else if (qq < bq1) { A = E + L.J2 * RP; W = W2; K = n2; ld = L.LD2; ncols = d1; NQ = bq1 - bq0; q = qq - bq0; cbase = c1; }
-      else if (qq < bq2) { A = E + L.J1 * RP; K = n1; ld = L.LD1; ncols = d0; NQ = bq2 - bq1; q = qq - bq1; }
-      int off[4];
+    } else {  // f32: FMAs on the CUDA cores, rounds of items in snake order
+      const Deal bwd(bq0, nD, bq1, n2, bq2, n1);
+      long long w_first = 0;
+      if constexpr (WC) w_first = clock64();
+      for (int turn = 0, rnd; (rnd = snake_tile<NWB>(tid >> 5, turn, bwd.rounds)) >= 0; ++turn) {
+        const int part = lane / QUADS;
+        int q;   // the item's quad
+        const int c = bwd.cls(rnd * QUADS + (lane & (QUADS - 1)), q);
+        const float* A = E + L.J1 * RP; const float* W = W1;
+        int K = 0, ld = L.LD1, ncols = 1, NQ = 1, cbase = 0;
+        if (c == 0) { A = S; W = W3; K = nD; ld = L.LD3; ncols = d2; NQ = bq0; cbase = c2; }
+        else if (c == 1) { A = E + L.J2 * RP; W = W2; K = n2; ld = L.LD2; ncols = d1; NQ = bq1; cbase = c1; }
+        else if (c == 2) { K = n1; ncols = d0; NQ = bq2; }
+        int off[4];   // the quad's 4 rows of the weight slice
 #pragma unroll
-      for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1) * ld;
-      float acc[4][RG];
+        for (int u = 0; u < 4; ++u) off[u] = min(q + u * NQ, ncols - 1) * ld;
+        float acc[4][R];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int r = 0; r < RG; ++r) acc[u][r] = 0.f;
-      quad_dot<RG>(acc, A, g, W, 1, off, part, K);
-      float out[RG];
-      quad_reduce<RG>(out, acc, lane);
-      const int i = q + part * NQ;   // this lane's column after the reduce
-      if (!live || i >= ncols) continue;
-      const int home = OT[cbase + i];   // owner << 16 | its own-column index
-      store_rows<RG>(cluster.map_shared_rank(P, home >> 16) +
-                         ((size_t)rank * L.OWN + (home & 0xffff)) * RP, g, out);
+          for (int p = 0; p < R; ++p) acc[u][p] = 0.f;
+        quad_dot<R, false>(acc, [&](int k, float (&av)[R]) {
+          load_positions<R>(av, A + k * RP);
+        }, [&](int k, float (&w)[4]) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) w[u] = W[off[u] + k];
+        }, part, K);
+        float out[R];
+        quad_reduce<R>(out, acc, lane);
+        const int i = q + part * NQ;   // this lane's column after the reduce
+        if (c < 0 || i >= ncols) continue;
+        const int home = OT[cbase + i];   // owner << 16 | its own-column index
+        float* dst = cluster.map_shared_rank(P, home >> 16) +
+                     ((size_t)rank * L.OWN + (home & 0xffff)) * RP;
+        store_positions<R>(dst, out);
+      }
+      if constexpr (WC) wclk[2] += clock64() - w_first;
     }
     lap(2);
     cluster_arrive();
@@ -1420,7 +1574,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       // the own columns of x3 take their step, with the gradient
       // inv_var3 (x3 - logits) = -S of this step (nothing else reads X3, M3,
       // V3 or this block's S until the next step)
-      for (int e = tid; e < nD * R; e += NT) {
+      for (int e = tid; e < nD * R; e += NTB) {
         const int j = e / R, r = e - j * R;
         const float g3 = -S[j * RP + r];
         float x = X3[j * RP + r];
@@ -1515,7 +1669,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   }
 
   // ---- epilogue: own latent columns, gradient slice, scalars
-  for (int e = tid; e < L.OWN * R; e += NT) {
+  for (int e = tid; e < L.OWN * R; e += NTB) {
     const int r = e / L.OWN, j = e - r * L.OWN;
     const int row = row0 + r;
     if (row >= a.B) continue;
@@ -1527,7 +1681,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
   if (with_pg) {
     if (a.grads_resident) {
       auto store_slice = [&](float* dst, int N, int lo, const float* g, int ld, int K, int nk) {
-        for (int e = tid; e < K * nk; e += NT) {
+        for (int e = tid; e < K * nk; e += NTB) {
           const int k = e / nk, c = e - k * nk;
           dst[(size_t)k * N + lo + c] = g[k * ld + c];
         }
@@ -1536,10 +1690,10 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
       store_slice(pg.gw2, d2, lo2, G2, L.LD2, d1, n2);
       store_slice(pg.gw3, D, loD, G3, L.LD3, d2, nD);
     }
-    for (int c = tid; c < n0; c += NT) pg.gb0[lo0 + c] = GB[c];
-    for (int c = tid; c < n1; c += NT) pg.gb1[lo1 + c] = GB[L.J1 + c];
-    for (int c = tid; c < n2; c += NT) pg.gb2[lo2 + c] = GB[L.J2 + c];
-    for (int c = tid; c < nD; c += NT) pg.gb3[loD + c] = GB[L.OWN + c];
+    for (int c = tid; c < n0; c += NTB) pg.gb0[lo0 + c] = GB[c];
+    for (int c = tid; c < n1; c += NTB) pg.gb1[lo1 + c] = GB[L.J1 + c];
+    for (int c = tid; c < n2; c += NTB) pg.gb2[lo2 + c] = GB[L.J2 + c];
+    for (int c = tid; c < nD; c += NTB) pg.gb3[loD + c] = GB[L.OWN + c];
   }
 
   if (!OPT && a.want_scalars) {   // the last step's sums, as the loop left them
@@ -1547,7 +1701,7 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
     __syncthreads();
     if (tid == 0) {
       double l = 0.0, en = 0.0;
-      for (int w = 0; w < NWARP; ++w) {
+      for (int w = 0; w < NWB; ++w) {
         l += red[0][w];
         en += red[1][w];
       }
@@ -1568,7 +1722,15 @@ __global__ void __launch_bounds__(NT, 1) mcpc_chain_kernel(const ChainArgs a) {
 
   if (a.clocks != nullptr && tid == 0) {
 #pragma unroll
-    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * N_PHASE + i] = spent[i];
+    for (int i = 0; i < N_PHASE; ++i) a.clocks[(size_t)blockIdx.x * CLOCK_ROW + i] = spent[i];
+  }
+  if constexpr (WC) {
+    if (a.clocks != nullptr && lane == 0) {
+#pragma unroll
+      for (int i = 0; i < WARP_CLOCKS; ++i)
+        a.clocks[(size_t)blockIdx.x * CLOCK_ROW + N_PHASE + (tid >> 5) * WARP_CLOCKS + i] =
+            wclk[i];
+    }
   }
 }
 
@@ -1578,7 +1740,7 @@ inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
                            int clusters, size_t smem, cudaStream_t stream) {
   cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3((unsigned)(clusters * CS));
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(kBF16 ? NT : NT_F32);   // this build's block
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -1607,8 +1769,8 @@ cudaError_t launch_kernel(const ChainArgs& a, size_t smem, cudaStream_t stream) 
 
 // clusters of the relu kernel without options the device can run at once,
 // or -cudaError_t (the packed library's other instantiations take the same
-// shared memory and no more registers than the 255 a thread that one block
-// an SM allows)
+// shared memory and no more registers than one block an SM allows: 255 a
+// thread at NT threads, 128 at NT_F32)
 template <int RG, int NOISE>
 int max_clusters(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(

@@ -967,6 +967,8 @@ CLUSTER_ROWS = (18, 10, 4, 2)
 # weights' way from shared memory into registers, which every row shares.  On
 # an H100 a step of one wave took 11,331 SM clocks at 2 rows and 23,067 at 18
 # (``scripts/chain_clocks.py --rows``): 733 clocks a row on top of 9,864.
+# With the f32 products retiled (PERF.md §6) 8,786 and 19,090: 644 a row on
+# top of 7,498, 11.6 rows; 12 gives every batch up to 4096 the plan 13 gives.
 _ROW_OVERHEAD = 13
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -1040,19 +1042,23 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
     # a feature's rows are kept at a pitch of whole float4s once a half of
     # them holds a float4
     pitch = -(-rows // 4) * 4 if rows >= 8 else rows
-    floats = (
-        (2 + (2 if warm else 0)) * own * pitch  # own X, errors, Adam moments
-        + nD * pitch                       # own S
-        + CLUSTER_SIZE * own * pitch       # the ranks' partial backward products
+    by_row = pitch * (
+        (2 + (2 if warm else 0)) * own     # own X, errors, Adam moments
+        + nD                               # own S
+        + CLUSTER_SIZE * own               # the ranks' partial backward products
         # an output-PC site's own columns and, warm, their Adam moments
-        + ((3 if warm else 1) * nD * pitch if output_pc else 0)
-        + own + nD                         # own biases
+        + ((3 if warm else 1) * nD if output_pc else 0)
+    )
+    floats = (
+        own + nD                           # own biases
         + d0 + d1 + d2                     # every latent column's owner
         + (weights if grads == 2 else 0)   # gradient slices, f32 in both builds
         + (own + nD if grads else 0)
     )
     if not bf16:
-        return 4 * (floats + (d0 + d1 + d2) * pitch + weights)  # act(X), weight slices
+        # act(X) with the arrays above; the weight slices start at a whole float4
+        by_row += (d0 + d1 + d2) * pitch
+        return 4 * (-(-by_row // 4) * 4 + weights + floats)
 
     def up16(d):
         return -(-d // 16) * 16
@@ -1066,7 +1072,7 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
         # weight slices: rows padded to 16, strides up16(width) + 8
         + up16(d0) * (up16(n1) + 8) + up16(d1) * (up16(n2) + 8) + up16(d2) * (up16(nD) + 8)
     )
-    return 4 * floats + 2 * halves
+    return 4 * (by_row + floats) + 2 * halves
 
 
 def chain_plan(dims, B: int, *, warm: bool, with_pgrads: bool, budget: int,
@@ -1123,15 +1129,17 @@ def _prefix(packed: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
+def _library(packed: bool = True, bf16: bool = False,
+             warp_clocks: bool = False) -> ctypes.CDLL:
     """The packed or unpacked kernel's library (with ``bf16``, the one whose
-    kernels take bf16 operands), built at first use, with its C signatures.
+    kernels take bf16 operands; with ``warp_clocks``, the profiling build
+    that also times each warp), built at first use, with its C signatures.
     The packed libraries also hold the pass that sums the partial
     gradients."""
     from . import _build
 
     name = _prefix(packed)
-    lib = _build.load(name, bf16)
+    lib = _build.load(name, bf16, warp_clocks)
     launch = getattr(lib, name + "_launch")
     launch.restype = _I
     smem_bytes = getattr(lib, name + "_smem_bytes")
@@ -1146,7 +1154,11 @@ def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
         launch.argtypes = ([_P] * 30 + [ctypes.POINTER(_I)] + [_I] * 18 + [_F] * 11
                            + [_I, _I, _Z, _P])
         smem_bytes.argtypes = [_I] * 8
-        for count in (lib.mcpc_chain_cluster_size, lib.mcpc_chain_phase_count):
+        counts = [lib.mcpc_chain_cluster_size, lib.mcpc_chain_phase_count,
+                  lib.mcpc_chain_block_threads]
+        if warp_clocks:
+            counts.append(lib.mcpc_chain_warp_clock_count)
+        for count in counts:
             count.restype = _I
             count.argtypes = []
         for summing in (lib.mcpc_sum_partials_launch, lib.mcpc_sum_partials_f64_launch):
@@ -1160,6 +1172,12 @@ def _library(packed: bool = True, bf16: bool = False) -> ctypes.CDLL:
     error_string.restype = ctypes.c_char_p
     error_string.argtypes = [_I]
     return lib
+
+
+def block_threads(bf16: bool = False) -> int:
+    """Threads a block of the chain kernels of the f32 (or bf16) build, as
+    that build's library reports them."""
+    return _library(True, bf16).mcpc_chain_block_threads()
 
 
 def _error_message(err: int, packed: bool = True) -> str:
@@ -1325,9 +1343,11 @@ PHASES = ("forward", "gradients", "backward", "wait for partials", "update",
 
 
 def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = None,
-            plan: tp.Optional[ChainPlan] = None, warm_mu=None, warm_nu=None):
+            plan: tp.Optional[ChainPlan] = None, warm_mu=None, warm_nu=None,
+            warp_clocks: bool = False):
     """Launch the packed or unpacked kernel, f32 or bf16, on CUDA tensors,
-    with ``plan`` or the call's own :func:`device_plan`."""
+    with ``plan`` or the call's own :func:`device_plan` (``warp_clocks``:
+    from the profiling build)."""
     d0, d1, d2, D = c.dims
     device = latents[0].device
     tensors = list(latents) + [t for p in params for t in p.values()]
@@ -1364,7 +1384,7 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
         partials = torch.empty((plan.clusters, sum(_partial_sizes(c.dims))),
                                dtype=torch.float32, device=device)
     partials_ptr = None if partials is None else partials.data_ptr()
-    lib = _library(c.packed, c.bf16_matmul)
+    lib = _library(c.packed, c.bf16_matmul, warp_clocks)
     XW = aligned_layout((d0, d1, d2))[2]
     pD = _pad128(D)
     # the options' buffers: the kernel writes only real columns and rows, so
@@ -1447,26 +1467,42 @@ def _kernel(c: _Chain, params, latents, target, clocks: tp.Optional[Tensor] = No
     return _result(c, new, pgrads, traj, traj3, scalars, moments)
 
 
+# what the profiling build adds up for each warp (``WARP_CLOCKS``)
+WARP_PARTS = ("to first forward job", "forward jobs", "backward jobs")
+
+
 def chain_phase_clocks(params, latents, target, seed, *,
-                       rows: tp.Optional[int] = None, **options) -> Tensor:
+                       rows: tp.Optional[int] = None, warps: bool = False, **options):
     """Where the packed kernel's time goes: run :func:`mcpc_chain` on CUDA
     tensors and return ``[blocks, len(PHASES)]`` int64 SM clocks, what
     thread 0 of each block spent in each part of the steps (waits at the
     barriers included), summed over the chain.  ``rows`` (one of
     ``CLUSTER_ROWS``) forces the rows a cluster instead of the plan's own
-    choice; ``bf16_matmul=True`` times the bf16 build.  A profiling aid: the
-    chain's results are dropped."""
+    choice; ``bf16_matmul=True`` times the bf16 build.  ``warps=True`` runs
+    the f32 kernel's profiling build (``-DMCPC_WARP_CLOCKS``) and returns
+    ``(phases, per_warp)``, ``per_warp`` ``[blocks, warps, len(WARP_PARTS)]``:
+    each warp's clocks from the step's start to its first forward job, over
+    its forward jobs and over its backward jobs, summed over the chain.  A
+    profiling aid: the chain's results are dropped."""
     c = _chain_args(params, latents, target, seed, **options)
     device = latents[0].device
     if device.type != "cuda" or not c.packed:
         raise ValueError("chain_phase_clocks times the packed kernel on CUDA tensors")
-    if _library().mcpc_chain_phase_count() != len(PHASES):
+    if warps and c.bf16_matmul:
+        raise ValueError("the per-warp clocks time the f32 build")
+    lib = _library(warp_clocks=warps)
+    if lib.mcpc_chain_phase_count() != len(PHASES):
         raise RuntimeError("PHASES does not name the kernel's phases")
+    extra = lib.mcpc_chain_warp_clock_count() if warps else 0
     plan = device_plan(c, latents[0].shape[0], device,
                        CLUSTER_ROWS if rows is None else (rows,))
-    clocks = torch.zeros((plan.blocks, len(PHASES)), dtype=torch.int64, device=device)
-    _kernel(c, params, latents, target, clocks, plan)
-    return clocks
+    clocks = torch.zeros((plan.blocks, len(PHASES) + extra), dtype=torch.int64,
+                         device=device)
+    _kernel(c, params, latents, target, clocks, plan, warp_clocks=warps)
+    if not warps:
+        return clocks
+    per_warp = clocks[:, len(PHASES):].reshape(plan.blocks, -1, len(WARP_PARTS))
+    return clocks[:, :len(PHASES)], per_warp
 
 
 def mcpc_chain(params, latents, target, seed, **options):

@@ -1,6 +1,7 @@
 """Where a step of the packed chain kernel spends its SM clocks, on one GPU.
 
     python3 scripts/chain_clocks.py [--steps 2000] [--batch 256] [--rows N] [--bf16]
+                                    [--warps]
 
 For both widths (20-128-128-784 and 10-256-256-784) and three chains (a
 Langevin chain, an Adam warm phase alone, a Langevin chain that takes the
@@ -11,7 +12,13 @@ phase, barrier waits included, averaged over the blocks.  ``--rows`` forces
 the rows a cluster (one of the wrapper's ``CLUSTER_ROWS``) instead of the
 plan's own choice: this is how the plan's rule for the rows was measured.
 ``--bf16`` times the bf16 build (``bf16_matmul=True``: the tensor-core
-products) instead of the f32 one.
+products) instead of the f32 one.  ``--warps`` runs the f32 kernel's
+profiling build (``-DMCPC_WARP_CLOCKS``, built into a directory of its own
+under ``build/``) and prints, below each chain, every warp's clocks a step
+averaged over the blocks: from the step's start to its first forward job,
+from its first forward job to the end of its last, and the same for its
+backward jobs; then the slowest warp's and the mean warp's forward and
+backward jobs beside the phases that hold them.
 Needs a CUDA device and nvcc; there is no CPU mode.
 """
 
@@ -49,6 +56,22 @@ def event_ms(fn, reps: int = 3):
     return statistics.median(times), out
 
 
+def print_warps(per_warp, per_step, T: int) -> None:
+    """Each warp's clocks a step (``chain.WARP_PARTS``), averaged over the
+    blocks, then the slowest and the mean warp beside the phases."""
+    w = (per_warp.double().mean(dim=0) / T).tolist()   # [warps][parts]
+    for i, parts in enumerate(w):
+        print(f"  warp {i:2d}: " + ", ".join(
+            f"{name} {c:.0f}" for name, c in zip(chain.WARP_PARTS, parts)))
+    fwd = [p[1] for p in w]
+    bwd = [p[2] for p in w]
+    phase = dict(zip(chain.PHASES, per_step))
+    print(f"  forward: phase {phase['forward']:.0f}, slowest warp's jobs {max(fwd):.0f} "
+          f"(warp {fwd.index(max(fwd))}), mean {sum(fwd) / len(fwd):.0f}; "
+          f"backward: phase {phase['backward']:.0f}, slowest {max(bwd):.0f} "
+          f"(warp {bwd.index(max(bwd))}), mean {sum(bwd) / len(bwd):.0f}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=2000)
@@ -56,7 +79,10 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=None)
     parser.add_argument("--seed", type=int, default=3)
     parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--warps", action="store_true")
     args = parser.parse_args()
+    if args.warps and args.bf16:
+        parser.error("--warps times the f32 build")
     if not torch.cuda.is_available():
         print("chain_clocks: no CUDA device", file=sys.stderr)
         return 2
@@ -65,6 +91,11 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip())
+    from montecarlopredictivecoding_tpu_torch.ops import _build
+
+    # the libraries this run needs, one nvcc each, all at once
+    _build.build_all([("mcpc_chain", args.bf16)]
+                     + ([("mcpc_chain", False, True)] if args.warps else []))
     row_counts = chain.CLUSTER_ROWS if args.rows is None else (args.rows,)
     T = args.steps
     chains = {
@@ -89,13 +120,17 @@ def main() -> int:
                 print(f"{width} {name}: {e}")
                 continue
             ms, clocks = event_ms(lambda: chain.chain_phase_clocks(
-                params, latents, target, 1, rows=args.rows, **kw))
+                params, latents, target, 1, rows=args.rows, warps=args.warps, **kw))
+            if args.warps:
+                clocks, per_warp = clocks
             per_step = (clocks.double().mean(dim=0) / T).tolist()
             print(f"{width} {dims} B={args.batch} {name}{' bf16' if args.bf16 else ''}: "
                   f"{plan.describe(chain.max_active_clusters(dev, plan, bf16=args.bf16))}; "
                   f"{1e3 * ms / T:.3f} us/step; SM clocks a step: "
                   + ", ".join(f"{p} {c:.0f}" for p, c in zip(chain.PHASES, per_step))
                   + f"; sum {sum(per_step):.0f}", flush=True)
+            if args.warps:
+                print_warps(per_warp, per_step, T)
     return 0
 
 

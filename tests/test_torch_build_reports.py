@@ -1,9 +1,10 @@
 """The build's report readers (``ops/_build.py``): the names of the chain
 kernel's instantiations, ptxas's registers and spills from a library's build
-log, and the count of an instruction in a library's SASS.  ``chip_smoke.py``
-prints the first two in phase 0 and checks the third (tensor-core products,
-HMMA) in phase 6; here they read fixed texts on the CPU, the SASS through a
-stand-in for the toolkit's ``cuobjdump``."""
+log, the faults phase 0 of ``chip_smoke.py`` refuses in them (a spill, or
+more registers than the launch bound), and the count of an instruction in a
+library's SASS, which phase 6 checks (tensor-core products, HMMA); here they
+read fixed texts on the CPU, the SASS through a stand-in for the toolkit's
+``cuobjdump``."""
 
 import os
 import stat
@@ -67,6 +68,31 @@ def test_ptxas_resources_reads_registers_and_spills(tmp_path):
         "mcpc_chain_kernel<rows 18, plain, relu, bf16, packed>": (227, 12, 16),
         "mcpc_chain_kernel<rows 2, OPT, tanh, f32, unpacked>": (216, 0, 0),
     }
+
+
+@pytest.mark.parametrize("threads,cap", [(256, 255), (384, 168), (512, 128)])
+def test_launch_bound_registers(threads, cap):
+    assert _build.launch_bound_registers(threads) == cap
+
+
+def test_resource_faults_refuse_a_spill_and_registers_over_the_bound(tmp_path):
+    library = tmp_path / "lib.so"
+    (tmp_path / "lib.so.log").write_text(LOG)
+    resources = _build.ptxas_resources(library)
+    # the bf16 kernel of the log spills: phase 0 fails on it
+    assert _build.resource_faults(resources, 256) == [
+        "mcpc_chain_kernel<rows 18, plain, relu, bf16, packed>: spills (12 B stored, "
+        "16 B loaded)"]
+    # at 512 threads a block both kernels hold more than 128 registers; the
+    # summing pass is not a chain kernel and is not held
+    faults = _build.resource_faults(resources, 512)
+    assert len(faults) == 3
+    assert sum("over the 128 of 512 threads" in f for f in faults) == 2
+    # without the spill, the report passes at 256 threads
+    clean = tmp_path / "clean.so"
+    (tmp_path / "clean.so.log").write_text(LOG.replace(
+        "12 bytes spill stores, 16 bytes spill loads", "0 bytes spill stores, 0 bytes spill loads"))
+    assert _build.resource_faults(_build.ptxas_resources(clean), 256) == []
 
 
 @pytest.mark.parametrize("opcode,want", [("HMMA", (2, 0)), ("FFMA", (0, 1)),

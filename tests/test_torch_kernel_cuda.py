@@ -746,6 +746,60 @@ def test_chain_in_four_waves_matches_plain_version(cuda_device, packed):
     _assert_same_outputs(got, want)
 
 
+F32_KINDS = {
+    "relu": dict(loss="bernoulli", return_scalars=True),
+    "tanh": dict(loss="bernoulli", activation="tanh", return_scalars=True),
+    "output_pc": dict(activation="tanh", output_var=0.5, loss="none", capture_stride=3,
+                      return_scalars=True),
+    "unpacked": dict(loss="bernoulli", packed=False),
+}
+
+
+WIDE = (10, 256, 256, 784)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(F32_KINDS))
+@pytest.mark.parametrize("rows,dims", [(18, FID), (10, FID), (10, WIDE), (4, FID), (4, WIDE),
+                                       (2, FID), (2, WIDE)])
+def test_f32_chains_repeat_bit_for_bit_at_every_built_row_count(cuda_device, rows, dims,
+                                                                kind):
+    """The f32 build's products (4 columns by half or all of the rows a
+    lane, dealt in rounds over the warps) at every built row count, both
+    widths, relu, tanh, the output-PC site (tanh) and the unpacked kernel,
+    each with gradients: two runs give the same bits, and the chain holds to
+    the plain version by this file's tolerances.  B = 37 leaves pad rows in
+    the last cluster.  The 256-wide blocks never hold 18 rows (the plan
+    gives them 10 at most), and a warm phase runs where the block holds its
+    Adam moments too."""
+    kw = dict(F32_KINDS[kind], lr=0.03, T=12, mixing=4, with_pgrads=True)
+    if kind != "unpacked" and chain_mod.chain_smem_bytes(
+            dims, rows, True, 1, kind == "output_pc") <= chain_mod.smem_budget(cuda_device):
+        kw["warm_T"] = 4
+    if kind == "output_pc":
+        params, latents = _output_pc_case(dims, 37, cuda_device)
+        target = None
+    else:
+        params, latents, target = _case(dims, 37, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    plan = chain_mod.device_plan(c, 37, cuda_device, (rows,))
+    assert plan.rows == rows
+    runs = [chain_mod._kernel(c, params, latents, target, plan=plan) for _ in range(2)]
+    torch.cuda.synchronize()
+    first, second = runs
+    for u, v in zip(first[0], second[0]):
+        assert torch.equal(u, v)
+    for g, h in zip(first[1], second[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+    for a, b in zip(first[2:], second[2:]):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in ("loss", "energy"))
+        elif a is not None:
+            assert torch.equal(a, b)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    _assert_same_outputs(first, want)
+
+
 # ------------------------------- the unpacked chain on the cluster plan
 #
 # packed=False runs the cluster kernel with the unpacked noise indexing

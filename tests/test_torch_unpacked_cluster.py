@@ -151,11 +151,12 @@ def _make_layout_floats(dims, R, grads):
     o += own * rp          # E
     o += ND * rp           # S
     o += cs * own * rp     # P
+    o = (o + 3) // 4 * 4   # the slices start at a whole float4
     o += d0 * ld1 + d1 * ld2 + d2 * ld3   # W1, W2, W3
-    o += own + ND          # BI
-    o += n                 # OT
     if grads == 2:
         o += d0 * ld1 + d1 * ld2 + d2 * ld3   # G1, G2, G3
+    o += own + ND          # BI
+    o += n                 # OT
     if grads:
         o += own + ND      # GB
     return o
