@@ -141,10 +141,10 @@ def _rank_main(rank: int, n: int, device: str, init_file: str) -> None:
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, device="cpu") -> None:
+def dryrun_multichip(n_devices: int, device="cuda") -> None:
     """Run the dry run over ``n_devices`` ranks.  In a process group of that
     size it runs on this rank; with no group it spawns ``n_devices`` gloo
-    ranks, on the CPU or, with ``device="cuda"``, all on ``cuda:0``, and
+    ranks, all on ``cuda:0`` or, with ``device="cpu"``, on the CPU, and
     raises if one fails."""
     if dist.is_initialized():
         if dist.get_world_size() != n_devices:

@@ -11,8 +11,10 @@ them while the two unpacked cases of phase 1 took their numbers from the
 same generator, and from ``N`` fresh seeds.  For each draw it prints the
 kernel's and the plain f32 version's largest trajectory difference from the
 plain version run in float64 (with its step and row), the number of rows
-beyond 1e-3, and whether phase 1's rule holds (the kernel at most 1e-4
-further from float64 than the plain f32 version).  With ``--parent`` it
+beyond 1e-3, whether the old rule holds (the kernel's largest difference at
+most 1e-4 further from float64 than the plain f32 version's), and the
+verdict of ``chip_smoke.py``'s row rule (``row_hold``, with the plain
+version's witnesses) on every part of the result.  With ``--parent`` it
 also runs the kernel of another checkout (unpacked there with ``git
 archive``) on the same inputs, in a process of its own, and says whether the
 two kernels give the same bits.  Needs a CUDA device and nvcc.
@@ -107,7 +109,9 @@ def main() -> None:
         step, row = divmod(i, e.shape[1])
         return f"{float(e.max()):.3e} at step {step} row {row}"
 
-    held = 0
+    sys.path.insert(0, here)
+    smoke = importlib.import_module("chip_smoke")
+    held = held_rows = 0
     sets = draws(port, dev, args.draws)
     for name, (p, l, t) in sets.items():
         got = chain.mcpc_chain(p, l, t, SEED, **CHAIN)
@@ -119,16 +123,21 @@ def main() -> None:
         ek, ef = ((x - d).abs().amax(dim=2) for x in (k, f))   # [steps, B]
         rule = float(ek.max()) <= float(ef.max()) + 1e-4
         held += rule
+        text, failed, _ = smoke.row_hold(torch, chain, name, got, ref, ref64,
+                                         smoke.Witnesses(torch, chain, p, l, t, SEED, CHAIN),
+                                         CHAIN)
+        held_rows += not failed
         line = (f"{name}: trajectory from float64: kernel {worst(ek)}, plain f32 "
                 f"{worst(ef)}; rows beyond 1e-3: kernel {int((ek.amax(0) > 1e-3).sum())}, "
-                f"plain f32 {int((ef.amax(0) > 1e-3).sum())}; phase 1's rule holds: {rule}")
+                f"plain f32 {int((ef.amax(0) > 1e-3).sum())}; the old rule holds: {rule}; "
+                f"the row rule {'FAILS' if failed else 'holds'}: {text}")
         if parent is not None:
             lat, traj = parent[name]
             same = torch.equal(traj, got[2].cpu()) and all(
                 torch.equal(a, b.cpu()) for a, b in zip(lat, got[0]))
             line += f"; the parent's kernel gives the same bits: {same}"
         print(line)
-    print(f"the rule holds on {held} of {len(sets)} draws")
+    print(f"the old rule holds on {held} of {len(sets)} draws, the row rule on {held_rows}")
 
 
 if __name__ == "__main__":

@@ -15,10 +15,17 @@ port's unsharded engine, ``overall`` rtol 1e-5, parameters and latents atol
 1e-5 (the JAX test's 2e-4 and 2e-5 tightened; measured 9e-8, 3e-8 and
 1e-6); mesh training against single-device training by the JAX test's
 ``_quantile_close`` (tol 5e-4, under 1% of the elements beyond it, at most
-0.02: Adam's first steps follow rounding where a gradient is near 0).
+0.02: Adam's first steps follow rounding where a gradient is near 0); at the
+fid preset's full width, by ``chip_smoke.py`` phase 9's rule, which holds
+that rule on the entries whose gradient is at least ``P3_CLEAR`` (1e-3) of
+its tensor's largest in every batch and sets the others aside.
 """
 
+import importlib
+import inspect
 import os
+import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -81,6 +88,14 @@ def dp_ranks(tmp_path_factory):
     _save(tmp, params, latents, target)
     ranks = torch_dp_ranks.run_ranks(torch_dp_ranks.dp_rank, 2, tmp)
     return (model, params, latents, target), sorted(ranks, key=lambda r: r["data_rank"])
+
+
+@pytest.fixture(scope="module")
+def wide_ranks(tmp_path_factory):
+    """Two gloo ranks: ``train_mcpc(mesh=2)`` at 20-128-128-784, B=256, on
+    a short schedule (``torch_dp_ranks.WIDE``)."""
+    return torch_dp_ranks.run_ranks(torch_dp_ranks.wide_dp_rank, 2,
+                                    str(tmp_path_factory.mktemp("wide")))
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +193,51 @@ def test_train_mcpc_mesh_matches_single_device(dp_ranks, tmp_path, monkeypatch):
             assert torch.equal(q0[k], q1[k])  # every rank steps alike
             _quantile_close(p[k].numpy(), q0[k].numpy())
         assert not torch.equal(q0["b"], p0["b"])  # training moved them
+
+
+def _smoke():
+    """``chip_smoke.py`` from the repository's root, for its rules."""
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_train_mcpc_mesh_full_width_by_phase_9_rule(wide_ranks, tmp_path, monkeypatch):
+    """``train_mcpc(mesh=2)`` against ``train_mcpc()`` at the fid preset's
+    full width (20-128-128-784, B=256), 2 batches of a short schedule,
+    noise off, held by ``chip_smoke.py`` phase 9's rule: the entries whose
+    gradient is under ``P3_CLEAR`` of its tensor's largest in some batch
+    are set aside (Adam's first steps are lr * sign(g) of a sum that the two
+    runs take in other orders), the rest held by ``DP_QUANTILE``."""
+    smoke = _smoke()
+    config = train_mnist.mcpc_training_config()
+    monkeypatch.setattr(train_mnist, "mcpc_training_config",
+                        lambda: {**config, **torch_dp_ranks.WIDE})
+    from montecarlopredictivecoding_tpu_torch.data import mnist
+
+    monkeypatch.setattr(mnist, "load_mnist_arrays", torch_dp_ranks.wide_mnist)
+    grads, param_step = [], train_mnist.param_step
+
+    def recording(params, opt_state, pgrads, batch_size, **kw):
+        grads.append([{k: v.clone() for k, v in g.items()} for g in pgrads])
+        return param_step(params, opt_state, pgrads, batch_size, **kw)
+
+    monkeypatch.setattr(train_mnist, "param_step", recording)
+    single = train_mnist.train_mcpc(1, str(tmp_path / "single"),
+                                    batches_per_epoch=torch_dp_ranks.WIDE_BATCHES, log=False,
+                                    fused=True, langevin_var=None, device="cpu")
+    assert len(grads) == torch_dp_ranks.WIDE_BATCHES
+    assert [tuple(p["w"].shape) for p in single.params][1:] == [(20, 128), (128, 128),
+                                                                 (128, 784)]
+    ranks = [r["params"] for r in wide_ranks]
+    for p, q in zip(*ranks):
+        for k in ("w", "b"):
+            assert torch.equal(p[k], q[k])  # every rank steps alike
+    clear = smoke.clear_entries(torch, grads)
+    far_all, far_clear, n_clear, n_all = smoke.dp_rule(single.params, ranks[0], clear)
+    assert 0 < n_clear < n_all
+    assert not any(far_clear), (far_clear, far_all)
 
 
 def test_train_mcpc_mesh_skips_batches_the_mesh_does_not_divide(dp_ranks):
@@ -294,6 +354,13 @@ def test_dryrun_entry_runs():
     params, opt_state = fn(*args)
     assert all(bool(torch.isfinite(v).all()) for p in params for v in p.values())
     assert not torch.equal(params[3]["b"], args[0][3]["b"])
+
+
+def test_dryrun_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU, as the tests here do."""
+    for fn in (dryrun.dryrun_multichip, dryrun.entry):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_dryrun_multichip_spawns_its_ranks(capfd):

@@ -131,6 +131,43 @@ def tiny_training(train_mnist):
     mnist.load_mnist_arrays = small_mnist
 
 
+# the fid preset at its full width (20-128-128-784, B=256) on a short
+# schedule, WIDE_BATCHES batches without noise: chip_smoke.py phase 9's
+# data-parallel rule in a test
+WIDE = {"T_pc": 20, "mixing": 5, "sampling": 10}
+WIDE_BATCHES = 2
+
+
+def wide_mnist(root="MNIST_data", allow_synthetic=True):
+    """``load_mnist_arrays``'s stand-in: the synthetic set, WIDE_BATCHES
+    batches of 256 to train on."""
+    from montecarlopredictivecoding_tpu_torch.data import mnist
+
+    return mnist._synthetic_mnist(256 * WIDE_BATCHES, N_TEST)
+
+
+def wide_training(train_mnist):
+    """Patch ``train_mnist`` (and the MNIST loader) to the short full-width
+    setting."""
+    from montecarlopredictivecoding_tpu_torch.data import mnist
+
+    config = train_mnist.mcpc_training_config()
+    train_mnist.mcpc_training_config = lambda: {**config, **WIDE}
+    mnist.load_mnist_arrays = wide_mnist
+
+
+def wide_dp_rank(rank: int, world: int, tmp_dir: str) -> dict:
+    """``train_mcpc(mesh=world)`` in the short full-width setting, noise
+    off: the trained parameters."""
+    from montecarlopredictivecoding_tpu_torch.experiments import train_mnist
+
+    wide_training(train_mnist)
+    gen = train_mnist.train_mcpc(1, os.path.join(tmp_dir, "wide"), batches_per_epoch=WIDE_BATCHES,
+                                 log=False, fused=True, langevin_var=None, mesh=world,
+                                 device="cpu")
+    return {"params": [{k: v.clone() for k, v in p.items()} for p in gen.params]}
+
+
 def dp_rank(rank: int, world: int, tmp_dir: str) -> dict:
     """The data-parallel chain on this rank's shard for each case,
     ``place_dp``'s refusal, then ``train_mcpc(mesh=world)``: 2 batches
