@@ -11,7 +11,11 @@ Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          them; it fails if a chain instantiation spills or holds more
          registers than its build's launch bound allows
          (``_build.resource_faults``).  The synthetic MNIST set that stands in for
-         the IDX files is made once and shared by every phase.
+         the IDX files is made once and shared by every phase.  While nvcc
+         runs, the plain versions on phase 2's inputs, which no kernel
+         feeds, run on the card (``early_plain_runs``: chains (a), (b) cut,
+         (c) in f32 and float64, tanh (a) and bf16 (a) and (c) at 1000
+         steps), each timed once.
 Phase 1  holds each kernel against its plain PyTorch version on the card, on
          the same CUDA inputs (run in f32 and in float64), at the shapes the
          main paths give it: the chain with and without parameter gradients
@@ -74,7 +78,23 @@ Phase 3  drives the training path at full width: ``get_model`` ->
          Bernoulli loss fell.  It prints ms per batch (CUDA events, median),
          images/s, the bound and the split by switching parts off.  (The
          split inside the kernel, by its own clocks, is
-         ``scripts/chain_clocks.py``.)
+         ``scripts/chain_clocks.py``.)  Then the mse preset through its entry
+         point, ``train_mcpc(preset="mse")`` (10-256-256-784 relu, B=256,
+         the same schedule) for MSE_BATCHES batches: its plan (the gradient
+         slice must be in device memory, read-modify-written through L2), one
+         chain launch and one summing pass a batch (counts zeroed just before
+         and read just after), the checkpoint reloaded bit for bit, a fixed
+         test batch's loss lower; the first batch's chain launched again with
+         its scalars (the training's bits) and held at its full length by the
+         row rule against the plain version in f32 and float64 (latents,
+         gradients, scalars; the old rule printed beside it), its parameters
+         after the Adam step by the rule above against the step the
+         float64 chain's gradients give (an entry whose sign plain f32 or a
+         witness turns set aside; the step from its own gradients printed
+         beside it); the four faults of ARG_FAULTS
+         passed through that chain's arguments in the kernel's place, each of
+         which must fail the hold; ms a batch beside the chain's share and
+         the bound.
 
 Phase 4  drives the figure-2 masked-digit posterior (panels c, d) at full
          width through ``PCTrainer``: ``experiments/figure_2.py``'s
@@ -98,7 +118,8 @@ Phase 4  drives the figure-2 masked-digit posterior (panels c, d) at full
 Phase 5  drives this slice's paths at full width (synthetic MNIST; the
          checkpoints in ``models/``), with the counts zeroed just before and
          read just after: PC training (``train_mnist.train_pc``, preset ml,
-         25-128-128-784 tanh, B=128, 10 batches), the masked-reconstruction
+         25-128-128-784 tanh, B=128, 10 batches, and preset mse,
+         30-256-256-784 tanh, MSE_BATCHES batches), the masked-reconstruction
          MSE (``eval.metrics.get_mse_rec``) of ``pc_mse_1`` (30-256-256-784
          tanh) and ``mcpc_mse_1`` (10-256-256-784 relu) on 2 test batches of
          1024, the marginal likelihood (``get_marginal_likelihood``, 5000
@@ -111,7 +132,8 @@ Phase 5  drives this slice's paths at full width (synthetic MNIST; the
          panel b (B=1, 250 + 1000 + 30000 steps, captured outputs); nothing
          is drawn.  Every ``PCTrainer`` call but panel a's must take the
          kernel.  It prints each call's time (CUDA events) beside its bound.
-         The first PC training batch, each model's first MSE batch, the
+         The first PC training batch of each preset, each model's first MSE
+         batch, the
          joint sampler's and panel b's chains run again on their recorded
          inputs (the same bits) and are held by the row rule against the
          plain version in f32 and float64 (``hold_replay``): an Adam chain
@@ -281,7 +303,27 @@ CHAIN_C = dict(T=1000, lr=0.01, noise_var=2.0, loss="bernoulli", packed=False)
 # chain (c) at chain (a)'s length, timed beside it: the same cluster plan and
 # step, the unpacked noise index
 CHAIN_C_LONG = dict(CHAIN_C, T=CHAIN_A["T"])
+# the other chains on phase 2's inputs whose plain versions the kernels are
+# held to: chain (b) cut to a tenth of its steps (its plain version is only
+# timed), tanh (a) cut to 1000 steps (phase 5), bf16 (a) cut to 1000 steps
+# and bf16 (c) (phase 6)
+CHAIN_B_CUT = dict(CHAIN_B, warm_T=CHAIN_B["warm_T"] // 10, T=CHAIN_B["T"] // 10)
+TANH_A_CUT = dict(CHAIN_A, activation="tanh", T=1000, return_scalars=True)
+BF16_A = dict(CHAIN_A, T=1000, bf16_matmul=True)
+BF16_C = dict(CHAIN_C, bf16_matmul=True)
 TRAIN_BATCHES = 40
+# the mse preset of both trainers (phases 3 and 5): batches through each entry
+# point; and the faults passed through the MCPC batch's chain arguments in the
+# kernel's place, each of which its hold must fail
+MSE_BATCHES = 10
+ARG_FAULTS = (
+    ("lr and warm_lr * (1 + 1e-3)", lambda kw, seed: (dict(
+        kw, lr=kw["lr"] * (1 + 1e-3), warm_lr=kw["warm_lr"] * (1 + 1e-3)), seed)),
+    ("mixing - 1 (one step more in the gradients)",
+     lambda kw, seed: (dict(kw, mixing=kw["mixing"] - 1), seed)),
+    ("the seed + 1", lambda kw, seed: (kw, seed + 1)),
+    ("noise_var * 1.01", lambda kw, seed: (dict(kw, noise_var=kw["noise_var"] * 1.01), seed)),
+)
 # the options' check: 200 Adam steps and 500 Langevin steps at B=37
 OPT_B = 37
 OPT_CHAIN = dict(warm_T=200, warm_lr=0.1, T=500, lr=0.03, noise_var=2.0)
@@ -473,6 +515,26 @@ def cuda_ms(torch, fn, reps: int = 3, warm_up: bool = True):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def early_plain_runs(torch, chain, params, latents, data) -> dict:
+    """The plain versions on phase 2's inputs that phases 2, 5 and 6 hold
+    the kernels to, none of which depends on a kernel: run while nvcc
+    builds the kernels, each timed once without a warm-up (the host's cores
+    shared with nvcc).  {name: (ms or None, result)}."""
+    def timed(**kw):
+        return cuda_ms(torch, lambda: chain.mcpc_chain_reference(params, latents, data, SEED,
+                                                                 **kw), reps=1, warm_up=False)
+
+    def float64(**kw):
+        return None, chain.mcpc_chain_reference(*to_double(params, latents, data), SEED, **kw)
+
+    return {"a": timed(return_scalars=True, **CHAIN_A),
+            "b": timed(return_scalars=True, **CHAIN_B_CUT),
+            "c": timed(**CHAIN_C), "c64": float64(**CHAIN_C),
+            "tanh": timed(**TANH_A_CUT), "tanh64": float64(**TANH_A_CUT),
+            "a16": timed(**BF16_A), "a16 in f32": timed(**dict(BF16_A, bf16_matmul=False)),
+            "c16": timed(**BF16_C)}
 
 
 def conv_net_flops(torch, model, x) -> int:
@@ -794,37 +856,45 @@ def dp_rule(params_a, params_b, clear) -> tuple:
 # every unit: on the long Adam chains (MSE-rec, the joint sampler's warm
 # start, figure 2's probe MAP and PC posterior) other correct orders sat up
 # to 6.7 times their unit's own furthest witness with 16 copies (217 times
-# with 8) and up to 1.10 times the furthest any witness reached on the
-# part, and the witnesses part on every row of the warm start.  There the
-# RMS tells rounding from faults: no correct order's part sat above 1.12
-# times the worst witness's (1.01 on rows), lr x (1 + 1e-3) reached 1.91
-# times or more on every chain, Adam's bias correction off 226
-# (``scripts/rule_calibration.py``, one H100, PERF.md §6): hence
-# RMS_FACTOR between them.  Where correct orders part
-# on hundreds of units, more part now and then than 16 witnesses flag: one
-# unit in about 800 flagged ones, for the kernel and for the ulp-off
-# orders (hence UNFLAGGED_SHARE, four times that).  So a fault confined to
-# one row of such a part (a row's update skipped) passes, as it does in any
-# row where correct orders part; where fewer than 128 units are flagged it
-# fails.
+# with 8) and up to 1.17 times the furthest any witness reached on the
+# part (a one-row fault from 0.12 times), and the witnesses part on every
+# row of the warm start.  There the RMS tells rounding from faults: no
+# correct order's part sat above 1.12 times the worst witness's (1.01 on
+# rows), lr x (1 + 1e-3) reached 1.83 times or more on every chain, Adam's
+# bias correction off 226 (``scripts/rule_calibration.py``, one H100,
+# PERF.md §6): hence RMS_FACTOR between them.  A fault confined to one row
+# passes wherever correct orders part in that row, and in a part with 128
+# or more flagged units; where fewer are flagged it fails (ii).  The old
+# largest-element rule is printed beside every verdict; a clause holding
+# the kernel to it wherever every correct order keeps it was measured and
+# left out: on the card's eight long chains it failed only correct orders
+# (fresh witnesses, with 16 copies), and with 32 or 64 it decided nothing.
 # The witnesses are the plain version with other rounding at every step
 # (``jittered_rounding``): every product summed over k in reverse, and the
 # latents moved by up to UPDATE_ULPS ulp as each step starts, as a fused
 # multiply-add rounds the update once where the plain version rounds twice.
 # For the rows and the captured scalars they are STACKED_COPIES copies of
 # the batch in one call (each copy its own rows' noise and its own moves);
-# for gradients and uncaptured scalars, sums over the batch, SEPARATE_RUNS
-# calls.  They run only where (i) fails, so a chain that passes (i) costs
-# nothing more.  With the products' order alone 22 units the kernel parts
-# in stayed uncovered over 19 chains (8 draws of chain (c), 6 of phase 1's
-# captured chain, figure 2's), as at lr 0.01 a product's last bit moves a
-# latent about a hundredth of its own ulp (``scripts/witness_calibration.py``);
-# with the latents' moves, 8 copies left up to 3 of the kernel's units on
-# the probe MAP chains unflagged, 16 none or one (``rule_calibration.py``
-# and the smoke).
+# for gradients and uncaptured scalars, sums over the batch, SUM_COPIES
+# copies in one more call whose sums are taken copy by copy (``sums_apart``:
+# one call costs about what one separate run does).  They run only where
+# (i) fails, so a chain that passes (i) costs nothing more.
+# Both counts hold for every hold alike and were set from correct orders
+# alone: on the eight long chains of ``rule_calibration.py`` (figure 2's
+# and MSE-rec's, the joint sampler's warm start, each trainer's first mse
+# batch), 16 fresh witnesses (another seed) and the other correct orders
+# were held as the kernel is.  With 16/8 copies 12 of their parts failed,
+# with 32/16 6 and with 64/32 4 (probe MAP batch 1's scalars twice, the
+# mse MCPC batch's latents and gradients once each): no count tried frees
+# every correct order, and the fewest fail at the most copies the smoke's
+# time allows.  What a fresh correct order leaves unflagged is a row where
+# one order in 30 or more parts: it fails a part that flags fewer than 128
+# units (PERF.md §6, ROADMAP §3).  The faults failed and passed alike at
+# every count, and the kernel, which failed the mse batch at 16/8 and 32/16
+# as several fresh witnesses did, passed every chain at 64/32.
 RMS_FACTOR, UNFLAGGED_SHARE = 1.25, 1 / 128
 UPDATE_ULPS = 1
-STACKED_COPIES, SEPARATE_RUNS = 16, 8
+STACKED_COPIES, SUM_COPIES = 64, 32
 ROW_PARTS = ("latents", "traj", "traj3", "moments")
 # each part's allowance and its old largest-element error
 PART_RULES = (("latents", P1_ATOL, max_abs), ("traj", P1_ATOL, max_abs),
@@ -911,18 +981,77 @@ def jittered_rounding(torch, chain, rows: int, seed: int, params=(), ulps: int =
         chain.activation_fn = activation_fn
 
 
+@contextlib.contextmanager
+def sums_apart(torch, chain, n: int, B: int):
+    """The plain version on ``n`` stacked copies of a batch of ``B`` rows
+    with its sums over the batch taken copy by copy: the parameter
+    gradients come out as a list of one tuple a copy, each scalar with a
+    trailing axis of one sum a copy.  Each such sum of ``_reference`` goes
+    through a function patched here: the Hebbian products ``h.T @ e``
+    (each copy's rows summed in reverse, as the witnesses' products),
+    ``t.sum(dim=0)`` and ``torch.sum(t)`` of a ``[n B, d]`` tensor; the
+    flat gradient vector holds a block a copy in each of its pieces."""
+    rows = n * B
+    matmul, tensor_sum, torch_sum = torch.Tensor.__matmul__, torch.Tensor.sum, torch.sum
+    sizes, from_flat = chain._partial_sizes, chain._pgrads_from_flat
+
+    def ours(t):
+        return isinstance(t, torch.Tensor) and t.dim() == 2 and t.shape[0] == rows
+
+    def hebbian(a, b):
+        # a = h.T: a transposed view whose columns are the stacked rows
+        if not (ours(b) and a.dim() == 2 and a.shape[1] == rows and a.stride(0) == 1):
+            return matmul(a, b)
+        each = a.reshape(a.shape[0], n, B).permute(1, 0, 2)
+        return torch.bmm(each.flip(-1), b.reshape(n, B, -1).flip(-2))
+
+    def row_sum(t, *args, **kwargs):
+        if ours(t) and (args, kwargs) in (((0,), {}), ((), {"dim": 0})):
+            return tensor_sum(t.reshape(n, B, -1), dim=1).reshape(-1)
+        return tensor_sum(t, *args, **kwargs)
+
+    def sum_all(t, *args, **kwargs):
+        if ours(t) and not args and not kwargs:
+            return tensor_sum(t.reshape(n, B, -1), dim=(1, 2))
+        return torch_sum(t, *args, **kwargs)
+
+    def scaled(dims):
+        return tuple(n * k for k in sizes(dims))
+
+    def per_copy(flat, params, dims):
+        pieces = [p.view(n, -1) for p in flat.split(scaled(dims))]
+        chain._partial_sizes = sizes
+        try:
+            return [from_flat(torch.cat([p[k] for p in pieces]), params, dims)
+                    for k in range(n)]
+        finally:
+            chain._partial_sizes = scaled
+
+    torch.Tensor.__matmul__, torch.Tensor.sum, torch.sum = hebbian, row_sum, sum_all
+    chain._partial_sizes, chain._pgrads_from_flat = scaled, per_copy
+    try:
+        yield
+    finally:
+        torch.Tensor.__matmul__, torch.Tensor.sum, torch.sum = matmul, tensor_sum, torch_sum
+        chain._partial_sizes, chain._pgrads_from_flat = sizes, from_flat
+
+
 class Witnesses:
     """The witnesses of one hold, run when a part first asks for them: the
     plain version on the hold's inputs with other rounding (the row rule's
-    block says which runs): ``copies`` stacked copies, the latents moved by
-    up to ``ulps`` ulps a step."""
+    block says which runs): ``copies`` stacked copies for the rows and the
+    captured scalars, ``sum_copies`` for the sums over the batch, the
+    latents moved by up to ``ulps`` ulps a step, the moves drawn from
+    ``jitter_seed`` (and the next seed for the sums)."""
 
     def __init__(self, torch, chain, params, latents, target, seed, kw,
-                 copies: int = STACKED_COPIES, ulps: int = UPDATE_ULPS):
+                 copies: int = STACKED_COPIES, sum_copies: int = SUM_COPIES,
+                 ulps: int = UPDATE_ULPS, jitter_seed: int = SEED + 40):
         self.torch, self.chain = torch, chain
         self.args, self.kw = (params, latents, target, seed), kw
-        self.copies, self.ulps = copies, ulps
-        self._stacked = self._separate = None
+        self.copies, self.sum_copies, self.ulps = copies, sum_copies, ulps
+        self.jitter_seed = jitter_seed
+        self._stacked = self._summed = None
         self.seconds = 0.0
 
     def _timed(self, fn):
@@ -941,21 +1070,36 @@ class Witnesses:
             self._stacked = self._timed(self._run_stacked)
         return self._stacked
 
-    def _run_stacked(self) -> list:
-        torch, chain, kw = self.torch, self.chain, self.kw
+    def _stacks(self, part) -> bool:
+        return part in ROW_PARTS or (part == "scalars" and bool(self.kw.get("capture_stride")))
+
+    def _stacked_call(self, n: int, jitter_seed: int, kw, apart: bool = False):
+        """The parts of one call of the plain version on ``n`` stacked copies
+        of the batch, each copy its own rows' noise and its own moves
+        (``apart``: each copy's sums its own)."""
+        torch, chain = self.torch, self.chain
         params, latents, target, seed = self.args
-        B, n = latents[0].shape[0], self.copies
+        B = latents[0].shape[0]
         c = chain._chain_args(params, latents, target, seed, **kw)
         lat = tuple(x.repeat(n, 1) for x in latents)
         kw_n = dict(kw, **{k: tuple(m.repeat(n, 1) for m in kw[k])
                            for k in ("warm_mu", "warm_nu") if kw.get(k) is not None})
         if kw.get("packed", True):
             kw_n["batch_tile"] = n * B
+        tgt = None if target is None else target.repeat(n, 1)
+        c_n = chain._chain_args(params, lat, tgt, seed, **kw_n)
         with stacked_noise(chain, c, B, n), \
-                jittered_rounding(torch, chain, n * B, SEED + 40, params, self.ulps):
-            out = chain.mcpc_chain_reference(params, lat, None if target is None
-                                             else target.repeat(n, 1), seed, **kw_n)
-        parts = option_parts(out, kw)
+                jittered_rounding(torch, chain, n * B, jitter_seed, params, self.ulps), \
+                (sums_apart(torch, chain, n, B) if apart else contextlib.nullcontext()):
+            out = chain._reference(c_n, params, lat, tgt, kw_n.get("warm_mu"),
+                                   kw_n.get("warm_nu"))
+        return option_parts(out, kw), c
+
+    def _run_stacked(self) -> list:
+        torch, chain, kw, n = self.torch, self.chain, self.kw, self.copies
+        params, latents, target, _ = self.args
+        B = latents[0].shape[0]
+        parts, c = self._stacked_call(n, self.jitter_seed, kw)
         copies = []
         for k in range(n):
             rows = slice(k * B, (k + 1) * B)
@@ -975,27 +1119,32 @@ class Witnesses:
             copies.append(one)
         return copies
 
-    def separate(self) -> list:
-        """The separate calls' parts."""
-        if self._separate is None:
-            self._separate = self._timed(self._run_separate)
-        return self._separate
+    def summed(self) -> list:
+        """The parts summed over the batch (gradients, uncaptured scalars)
+        of ``sum_copies`` copies, each copy's sums its own."""
+        if self._summed is None:
+            self._summed = self._timed(self._run_summed)
+        return self._summed
 
-    def _run_separate(self) -> list:
-        params, latents, target, seed = self.args
-        runs = []
-        for k in range(SEPARATE_RUNS):
-            with jittered_rounding(self.torch, self.chain, latents[0].shape[0], SEED + 41 + k,
-                                   params, self.ulps):
-                out = self.chain.mcpc_chain_reference(params, latents, target, seed, **self.kw)
-            runs.append(option_parts(out, self.kw))
+    def _run_summed(self) -> list:
+        n = self.sum_copies
+        kw = {k: v for k, v in self.kw.items() if k != "capture_stride"}
+        parts, _ = self._stacked_call(n, self.jitter_seed + 1, kw, apart=True)
+        runs = [{} for _ in range(n)]
+        for k, one in enumerate(runs):
+            if parts["pgrads"] is not None:
+                one["pgrads"] = parts["pgrads"][k]
+            if parts.get("scalars") is not None:
+                # a loss of "none" is one zero for every copy
+                one["scalars"] = {name: v[..., k] if v.dim() == 2 else v
+                                  for name, v in parts["scalars"].items()}
         return runs
 
     def of(self, part) -> list:
         """``part`` of every witness run this part is held by."""
-        if part in ROW_PARTS or (part == "scalars" and self.kw.get("capture_stride")):
+        if self._stacks(part):
             return [w[part] for w in self.stacked()]
-        return [w[part] for w in self.separate()]
+        return [w[part] for w in self.summed()]
 
 
 def _flat_rel(torch, tensors, bases, by_entry: bool):
@@ -1074,10 +1223,12 @@ def unit_rule(torch, part, got, ref, base, allow, witnesses) -> dict:
     rms_worst = max([_rms(torch, e_ref)] + [_rms(torch, e) for _, e in dist])
     set_aside = ~strict & sensitive
     n_sens, unexcused = int(sensitive.sum()), int((~strict & ~sensitive).sum())
-    out.update(ok=bool(torch.isfinite(d_got).all()) and unexcused <= n_sens * UNFLAGGED_SHARE
-               and rms_got <= RMS_FACTOR * rms_worst + allow,
-               sensitive=n_sens, set_aside=int(set_aside.sum()), unexcused=unexcused,
-               rms=rms_got, rms_worst=rms_worst, spread=float(parted.max()))
+    out.update(ok=(unexcused <= n_sens * UNFLAGGED_SHARE
+                   and bool(torch.isfinite(d_got).all())
+                   and rms_got <= RMS_FACTOR * rms_worst + allow),
+               witnesses=len(runs), sensitive=n_sens, set_aside=int(set_aside.sum()),
+               unexcused=unexcused, rms=rms_got, rms_worst=rms_worst,
+               spread=float(parted.max()))
     return out
 
 
@@ -1090,7 +1241,8 @@ def rule_text(part, allow, old, new) -> str:
             f"{'holds' if new['ok'] else 'FAILS'}: {new['units']} units, "
             f"{new['beyond']} beyond the plain f32 version's distance + allowance")
     if new["witnessed"]:
-        text += (f", the witnesses part on {new['sensitive']} (spread {new['spread']:.3e}), "
+        text += (f", {new['witnesses']} witnesses part on {new['sensitive']} (spread "
+                 f"{new['spread']:.3e}), "
                  f"set aside {new['set_aside']}, unflagged {new['unexcused']} (at most "
                  f"{int(new['sensitive'] * UNFLAGGED_SHARE)}); RMS from the "
                  f"reference: kernel {new['rms']:.3e}, worst correct order "
@@ -1185,6 +1337,35 @@ def hold_replay(torch, chain, phase, label, rec, dims, tag, off=False) -> list:
           f"{', x3 moved off its prediction' if off else ''}: {text}; the plain version "
           f"{plain_ms:.3f} ms {tag}")
     return failed_here + failed
+
+def param_rule(torch, param_opt, apply_updates, p0_64, p1, grads64, scale,
+               orders=()) -> tuple:
+    """Phase 3's rule on the parameters after one Adam step: ``p1`` against
+    the step taken in float64 from ``p0_64`` with the float64 plain version's
+    gradient sums ``grads64`` divided by ``scale``, on the entries whose
+    gradient is at least P3_CLEAR of its tensor's largest (Adam's first step
+    is lr * sign(g)).  Of those, an entry whose sign one of ``orders`` (the
+    gradients of correct orders) turns is set aside.  Returns (the largest
+    difference on the rest, the clear entries, all entries, the set-aside
+    ones)."""
+    updates64, _ = param_opt.update(tuple({k: v / scale for k, v in gr.items()}
+                                          for gr in grads64), param_opt.init(p0_64), p0_64)
+    want = apply_updates(p0_64, updates64)
+    worst, n_clear, total, n_aside = 0.0, 0, 0, 0
+    for i, (new, exact, gr) in enumerate(zip(p1, want, grads64)):
+        for k in ("w", "b"):
+            clear = gr[k].abs() >= P3_CLEAR * gr[k].abs().max()
+            n_clear += int(clear.sum())
+            total += clear.numel()
+            turned = torch.zeros_like(clear)
+            for o in orders:
+                turned |= clear & (torch.sign(o[i][k].double()) != torch.sign(gr[k]))
+            n_aside += int(turned.sum())
+            held = clear & ~turned
+            if bool(held.any()):
+                worst = max(worst, float((new[k].double() - exact[k])[held].abs().max()))
+    return worst, n_clear, total, n_aside
+
 
 def eval_config(port, dims, activation, lr) -> dict:
     """Table 1's MSE and ML configurations (experiments/table_1.py of the
@@ -1756,10 +1937,30 @@ def main() -> int:
     # phase 9's ranks start now, and the synthetic MNIST set (numpy on the
     # host) is made, while nvcc runs
     ranks9, tmp9 = start_phase9_ranks(here)
+
+    def phase2_inputs():
+        """Phase 2's model, test batch and latents, and the plain versions
+        on them (``early_plain_runs``)."""
+        gen_model = get_model(MODEL_CONFIG, SEED, device=dev)
+        _, _, test = get_mnist_data(MODEL_CONFIG, device=dev)
+        data, _ = next(iter(test))
+        pseudo = torch.zeros(BATCH, MODEL_CONFIG["input_size"], device=dev)
+        latents = gen_model.model.init_latents(gen_model.params, pseudo,
+                                               torch.Generator().manual_seed(SEED + 1))
+        runs = early_plain_runs(torch, chain, gen_model.params, latents, data)
+        torch.cuda.synchronize()
+        return gen_model, test, data, pseudo, latents, runs
+
     with ThreadPoolExecutor(max_workers=1) as pool:
         made = pool.submit(mnist._synthetic_mnist, 60000, 10000)
+        early = pool.submit(phase2_inputs)
         lib_paths = _build.build_all(libraries)
+        t_built = time.perf_counter() - t0
         made.result()
+        *inputs2, pre = early.result()
+    print(f"phase 0: the plain versions on phase 2's inputs ran while nvcc built the kernels; "
+          f"the kernels were built at {t_built:.1f} s, the plain versions done at "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"phase 0: built {', '.join(os.path.relpath(p, here) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
     for (source, bf16), lib_path in zip(libraries, lib_paths):
@@ -1828,7 +2029,6 @@ def main() -> int:
         ("fid bernoulli pgrads B=250 (pad rows)", FID, 250, dict(pg)),
         ("fid bernoulli pgrads B=8", FID, 8, dict(pg)),
         ("fid bernoulli pgrads B=1 (one cluster, one pad row)", FID, 1, dict(pg)),
-        ("mse bernoulli warm50+T60 mixing20 pgrads", MSE, BATCH, dict(pg)),
         ("fid bernoulli warm50 T=0 warm_pgrads", FID, BATCH,
          dict(warm, T=0, with_pgrads=True, warm_pgrads=True)),
         ("fid gaussian warm50+T60 mixing20 pgrads", FID, BATCH,
@@ -2066,15 +2266,10 @@ def main() -> int:
 
     print(f"phase 1 ends at {time.perf_counter() - t_start:.1f} s")
     # ---------------------------------------------------------- phase 2
-    gen_model = get_model(MODEL_CONFIG, SEED, device=dev)
+    gen_model, test, data, pseudo, latents = inputs2
     params = gen_model.params
-    _, _, test = get_mnist_data(MODEL_CONFIG, device=dev)
-    data, _ = next(iter(test))
     check(tuple(data.shape) == (BATCH, 784), f"data batch is {tuple(data.shape)}")
     check(bool(((data == 0) | (data == 1)).all()), "data batch is not binarized")
-    pseudo = torch.zeros(BATCH, MODEL_CONFIG["input_size"], device=dev)
-    latents = gen_model.model.init_latents(params, pseudo,
-                                           torch.Generator().manual_seed(SEED + 1))
     energy0 = float(sum(gen_model.model.apply(params, latents, pseudo).energies))
 
     def run_a():
@@ -2123,15 +2318,10 @@ def main() -> int:
           f"{a2_ms:.3f} ms around it: (c)/(a) {c_long_ms / statistics.mean((a_ms, a2_ms)):.4f}; "
           f"[{plan_text(FID, BATCH, CHAIN_C)}] {tag}")
 
-    # the plain versions take 12-15 s a chain: timed once, without a warm-up
-    pa_ms, ref_a = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-        params, latents, data, SEED, return_scalars=True, **CHAIN_A), reps=1, warm_up=False)
-    # (b)'s plain version cut to a tenth of its steps (warm 200 + T 1000)
-    b_cut = dict(CHAIN_B, warm_T=CHAIN_B["warm_T"] // 10, T=CHAIN_B["T"] // 10)
-    pb_ms, _ = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-        params, latents, data, SEED, return_scalars=True, **b_cut), reps=1, warm_up=False)
-    pc_ms, ref_c = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-        params, latents, data, SEED, **CHAIN_C), reps=1, warm_up=False)
+    # the plain versions (ran while nvcc built the kernels), (b)'s cut to a
+    # tenth of its steps (warm 200 + T 1000)
+    (pa_ms, ref_a), (pb_ms, _), (pc_ms, ref_c) = (pre.pop(k) for k in ("a", "b", "c"))
+    b_cut = CHAIN_B_CUT
     # held by the row rule: chain (c) against float64 beside plain f32;
     # chain (a), whose float64 run of 10,000 steps would not fit the smoke's
     # time (F64_MAX_STEPS), against the plain f32 version and its witnesses.
@@ -2147,7 +2337,7 @@ def main() -> int:
           f"{'holds' if dx <= P2_ATOL and rel <= P2_RTOL else 'FAILS'}; by the row rule against "
           f"the plain f32 version: {text_a}")
     check(not failed_a, "phase 2: " + "; ".join(failed_a))
-    ref64_c = chain.mcpc_chain_reference(*to_double(params, latents, data), SEED, **CHAIN_C)
+    ref64_c = pre.pop("c64")[1]
     dx_c = max_abs(out_c[0], ref_c[0])
     text_c, failed_c, _ = row_hold(torch, chain, "chain (c)", out_c, ref_c, ref64_c,
                                    Witnesses(torch, chain, params, latents, data, SEED, CHAIN_C),
@@ -2175,7 +2365,7 @@ def main() -> int:
         print(f"phase 2: chain ({name}) B={BATCH} steps={steps}: kernel "
               f"{ms:.3f} ms/chain, {1e3 * ms / steps:.3f} us/step, "
               f"{steps / (ms / 1e3):.1f} steps/s; plain {pms:.3f} ms for {plain_steps} "
-              f"steps; bound {bound:.3f} ms (operations, at the f32 peak of the CUDA cores) "
+              f"steps (timed while nvcc ran); bound {bound:.3f} ms (operations, at the f32 peak of the CUDA cores) "
               f"{tag}")
     print(f"phase 2: a split-TF32 route's bound (three TF32 products an f32 one, at the "
           f"TF32 tensor-core peak): chain (a) {bound_tc_a:.3f} ms, share {bound_tc_a / a_ms:.4f}; "
@@ -2269,18 +2459,8 @@ def main() -> int:
           f"(allowance {P1_GRAD_REL})")
     check(g64 <= p_g64 + P1_GRAD_REL,
           f"phase 3: gradients {g64} from float64, plain f32 {p_g64}")
-    scale = sampling * BATCH
-    updates64, _ = param_opt.update(tuple({k: v / scale for k, v in gr.items()}
-                                          for gr in ref64[1]), param_opt.init(p0_64), p0_64)
-    want = apply_updates(p0_64, updates64)
-    worst, n_clear, total = 0.0, 0, 0
-    for new, exact, gr in zip(p1, want, ref64[1]):
-        for k in ("w", "b"):
-            clear = gr[k].abs() >= P3_CLEAR * gr[k].abs().max()
-            n_clear += int(clear.sum())
-            total += clear.numel()
-            if bool(clear.any()):
-                worst = max(worst, float((new[k].double() - exact[k])[clear].abs().max()))
+    worst, n_clear, total, _ = param_rule(torch, param_opt, apply_updates, p0_64, p1, ref64[1],
+                                          sampling * BATCH)
     print(f"phase 3: first batch, updated parameters vs the float64 plain version on the "
           f"{n_clear} of {total} entries whose gradient is at least {P3_CLEAR} of its "
           f"tensor's largest: max|d|={worst:.3e} (atol {P3_PARAM_ATOL})")
@@ -2308,6 +2488,138 @@ def main() -> int:
           f"{chain_pg_ms - chain_nopg_ms:.3f} ms, "
           f"{1e3 * (chain_pg_ms - chain_nopg_ms) / sampling:.3f} us each; the Adam step and "
           f"the rest of one_batch {train_ms - chain_pg_ms:.3f} ms {tag}")
+
+    # the mse preset through its entry point: train_mcpc(preset="mse") at
+    # 10-256-256-784, where the gradient slice does not fit beside the weights
+    # and each sampling step read-modify-writes its partial through L2
+    mse_config = train_mnist.apply_preset(train_mnist.mcpc_training_config(), "mse", "mcpc")
+    mse_opts = train_mnist.chain_options(mse_config)
+    mse_plan = chain_plan(MSE, BATCH, mse_opts)
+    print(f"phase 3: mse preset, the training chain's plan [{plan_text(MSE, BATCH, mse_opts)}]")
+    check(not mse_plan.grads_resident,
+          "phase 3: the mse preset's gradient slice is resident, not in device memory")
+    mse_model = get_model(mse_config, SEED, device=dev)
+    pseudo_mse = torch.zeros(BATCH, MSE[0], device=dev)
+    lat_mse = mse_model.model.init_latents(mse_model.params, pseudo_mse,
+                                           torch.Generator().manual_seed(SEED + 7))
+    infer_mse = dict(mse_opts, with_pgrads=False, return_scalars=True)
+
+    def mse_test_loss(p):
+        return float(chain.mcpc_chain(p, lat_mse, data, SEED, **infer_mse)[2]["loss"])
+
+    loss_before = mse_test_loss(mse_model.params)
+    ckpt = os.path.join(here, "build", "chip_smoke", "mcpc_mse_smoke.msgpack")
+    # the chain is called by the name train_mnist imported; each batch is
+    # timed around one_batch, the first one's parameters kept
+    mse_rec = ChainRecorder(torch, train_mnist.mcpc_chain)
+    real_one_batch, batch_events, stepped = train_mnist.one_batch, [], []
+
+    def one_batch_timed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_one_batch(*args, **kwargs)
+        end.record()
+        batch_events.append((start, end))
+        if not stepped:
+            stepped.append(out[0])
+        return out
+
+    train_mnist.mcpc_chain, train_mnist.one_batch = mse_rec, one_batch_timed
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        trained_mse = train_mnist.train_mcpc(1, ckpt, seed=SEED, batches_per_epoch=MSE_BATCHES,
+                                             log=False, preset="mse", device=dev)
+        torch.cuda.synchronize()
+        mse_counts = read_counts()
+    finally:
+        train_mnist.mcpc_chain, train_mnist.one_batch = mse_rec.fn, real_one_batch
+    print(f"phase 3: mse preset, main path launches over {MSE_BATCHES} batches of "
+          f"train_mcpc(preset='mse'): mcpc_chain {mse_counts[0]}, sum_block_partials "
+          f"{mse_counts[2]}")
+    check(mse_counts[0] == MSE_BATCHES and mse_counts[2] == MSE_BATCHES,
+          f"phase 3: {mse_counts[0]} chain launches and {mse_counts[2]} summing passes for "
+          f"{MSE_BATCHES} mse batches")
+    reloaded = load_checkpoint(ckpt, mse_model.params, device=dev)
+    for p, q in zip(reloaded, trained_mse.params):
+        for k in ("w", "b"):
+            check(bool(torch.isfinite(q[k]).all()), "mse: trained parameters are not finite")
+            check(torch.equal(p[k], q[k]) and p[k].dtype == q[k].dtype,
+                  "mse: the reloaded checkpoint differs from the trained parameters")
+    loss_after = mse_test_loss(reloaded)
+    print(f"phase 3: mse preset, checkpoint {os.path.relpath(ckpt, here)} reloads bit for bit; "
+          f"Bernoulli loss of the fixed test batch {loss_before:.1f} -> {loss_after:.1f} "
+          f"after {MSE_BATCHES} batches")
+    check(loss_after < loss_before, "mse: training did not lower the test batch's loss")
+
+    # the first batch at its full length against the plain version in f32
+    # and float64 by the row rule (the old rule printed beside it), then its
+    # parameters after the Adam step by phase 3's rule.  The launch is
+    # repeated with the last step's scalars, which must leave the latents and
+    # gradients of the training's launch bit for bit
+    rec = mse_rec.calls[0]
+    p0, lat0, batch0, seed0 = rec["inputs"]
+    kw = dict(rec["kw"], return_scalars=True)
+    again = chain.mcpc_chain(p0, lat0, batch0, seed0, **kw)
+    same = bits_equal(torch, {k: option_parts(again, kw)[k] for k in ("latents", "pgrads")},
+                      rec["parts"])
+    check(same, "mse: the first batch's chain launched again gives other bits")
+    mse_plain_ms, ref = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
+        p0, lat0, batch0, seed0, **kw), reps=1, warm_up=False)
+    p0_64, lat0_64, batch0_64 = to_double(p0, lat0, batch0)
+    ref64 = chain.mcpc_chain_reference(p0_64, lat0_64, batch0_64, seed0, **kw)
+    wit = Witnesses(torch, chain, p0, lat0, batch0, seed0, kw)
+    text, failed, _ = row_hold(torch, chain, "mse, first batch", again, ref, ref64, wit, kw, MSE)
+    print(f"phase 3: mse preset, first batch ({kw['warm_T']} Adam + {kw['T']} Langevin steps, "
+          f"gradients over the last {kw['T'] - kw['mixing']}), the launch repeated with its "
+          f"scalars gives the training's bits: {same}; held at its full length: {text}; the "
+          f"plain version "
+          f"{mse_plain_ms:.3f} ms {tag}")
+    check(not failed, "phase 3: " + "; ".join(failed))
+    # the parameters after the Adam step by phase 3's rule, against the step
+    # taken in float64 from the float64 chain's gradients.  Adam's first step
+    # is lr * sign(g), and here the correct orders' gradients sit up to 1e-2
+    # of a tensor's largest entry from float64 (the row rule above holds
+    # them), so a clear entry can take either sign: one whose sign plain f32
+    # or a witness turns is set aside (the correct orders name it, never the
+    # kernel).  The step from the kernel's own gradients is printed beside it
+    scale = mse_config["sampling"] * BATCH
+    mse_opt = train_mnist.param_optimizer(mse_config)
+    worst, n_clear, total, n_aside = param_rule(torch, mse_opt, apply_updates, p0_64,
+                                                stepped[0], ref64[1], scale,
+                                                [ref[1]] + wit.of("pgrads"))
+    own = tuple({k: v.double() for k, v in g.items()} for g in again[1])
+    worst_own = param_rule(torch, mse_opt, apply_updates, p0_64, stepped[0], own, scale)[0]
+    print(f"phase 3: mse preset, first batch, updated parameters against the float64 chain's "
+          f"step on the {n_clear} of {total} entries whose gradient is at least {P3_CLEAR} of "
+          f"its tensor's largest, less the {n_aside} whose sign plain f32 or one of the "
+          f"{len(wit.of('pgrads'))} witnesses turns: max|d|={worst:.3e} (atol "
+          f"{P3_PARAM_ATOL}); against the float64 step from the kernel's own gradients: "
+          f"max|d|={worst_own:.3e}")
+    check(n_clear > total // 2 and worst <= P3_PARAM_ATOL,
+          f"phase 3: mse, updated parameters differ by {worst} on {n_clear - n_aside} entries")
+    # faults through the chain's arguments, in the kernel's place: each must
+    # fail the hold
+    for name, change in ARG_FAULTS:
+        kw_f, seed_f = change(kw, seed0)
+        bad = chain.mcpc_chain(p0, lat0, batch0, seed_f, **kw_f)
+        text, failed, old_failed = row_hold(torch, chain, f"mse, fault {name}", bad, ref,
+                                            ref64, wit, kw, MSE)
+        print(f"phase 3: mse preset, first batch with the fault {name}: old rule "
+              f"{'FAILS' if old_failed else 'holds'}, row rule "
+              f"{'FAILS' if failed else 'holds'}: {text}")
+        check(bool(failed), f"phase 3: mse, the fault {name} passes the row rule")
+    mse_batch_ms = [s_.elapsed_time(e_) for s_, e_ in batch_events]
+    mse_chain_ms = [r["events"][0].elapsed_time(r["events"][1]) for r in mse_rec.calls]
+    mse_ms, mse_chain = statistics.median(mse_batch_ms[1:]), statistics.median(mse_chain_ms[1:])
+    bound_mse = chain_bound_ms(MSE, BATCH, train_steps, sampling)
+    print(f"phase 3: mse preset, training batch B={BATCH} 10-256-256-784: {mse_ms:.3f} ms/batch "
+          f"(median of {len(mse_batch_ms) - 1}, first {mse_batch_ms[0]:.3f}), "
+          f"{BATCH / (mse_ms / 1e3):.1f} images/s; mcpc_chain {mse_chain:.3f} ms of it "
+          f"({mse_chain / mse_ms:.3f}); bound {bound_mse:.3f} ms (operations, "
+          f"{(step_flops(MSE, BATCH) * train_steps + step_flops(MSE, BATCH) // 2 * sampling) / 1e9:.2f}"
+          f" GFLOP); witnesses {wit.seconds:.2f} s {tag}")
+    del again, ref, ref64, wit
 
     print(f"phase 3 ends at {time.perf_counter() - t_start:.1f} s")
     # ---------------------------------------------------------- phase 4
@@ -2503,6 +2815,9 @@ def main() -> int:
             1, os.path.join(here, "build", "chip_smoke", "pc_ml_smoke.msgpack"),
             seed=SEED, batches_per_epoch=PC_TRAIN_BATCHES, log=False, preset="ml",
             device=dev))
+        trained_mse = part("PC training, mse", lambda: train_mnist.train_pc(
+            1, os.path.join(here, "build", "chip_smoke", "pc_mse_smoke.msgpack"),
+            seed=SEED, batches_per_epoch=MSE_BATCHES, log=False, preset="mse", device=dev))
         mse = {}
         for name, cfg, _ in mse_models:
             gen_e = common.load_generative_checkpoint(ctx, name, cfg)
@@ -2551,7 +2866,8 @@ def main() -> int:
     fallbacks5 = sum(t.engine_calls for t in trainers5)
     print(f"phase 5: main path launches: mcpc_chain {counts5[0]}, sum_block_partials "
           f"{counts5[2]}; PCTrainer calls {len(calls)}, engine fallbacks {fallbacks5}")
-    expect = {"PC training": PC_TRAIN_BATCHES, "MSE-rec pc_mse_1": EVAL_BATCHES,
+    expect = {"PC training": PC_TRAIN_BATCHES, "PC training, mse": MSE_BATCHES,
+              "MSE-rec pc_mse_1": EVAL_BATCHES,
               "MSE-rec mcpc_mse_1": EVAL_BATCHES, "ML pc_ml_1": 0, "ML mcpc_ml_1": 0,
               "joint sampler": 2, "figure 3b": 2}
     for name, n in expect.items():
@@ -2567,7 +2883,8 @@ def main() -> int:
     check(counts5[2] == sums5 and sums5 >= PC_TRAIN_BATCHES,
           f"{counts5[2]} summing passes for {sums5} calls with gradients or scalar slots")
 
-    bounds5 = {"PC training": (PC_ML, 128, 250, 1), "MSE-rec pc_mse_1": (PC_MSE, 1024, 250, 0),
+    bounds5 = {"PC training": (PC_ML, 128, 250, 1), "PC training, mse": (PC_MSE, 128, 250, 1),
+               "MSE-rec pc_mse_1": (PC_MSE, 1024, 250, 0),
                "MSE-rec mcpc_mse_1": (MSE, 1024, 250, 0), "joint sampler": (FID, BATCH, 0, 0),
                "figure 3b": (FID, 1, 0, 0)}
     for name, (a, b) in parts5.items():
@@ -2582,16 +2899,27 @@ def main() -> int:
                   f"operations); mcpc_chain {chain_call_ms:.3f} ms "
                   f"[{plan_text(dims, c['B'], rec['kw'])}] {tag}")
         print(f"phase 5: {name}: {times5[name]:.3f} ms in all (host work included) {tag}")
+        if name.startswith("PC training"):
+            # a batch's time: the median of the calls after the first
+            call_ms = [c["ms"] for c in calls[a + 1 : b]]
+            chain_ms = [r["events"][0].elapsed_time(r["events"][1])
+                        for r in recorder.calls[a + 1 : b]]
+            print(f"phase 5: {name}: {statistics.median(call_ms):.3f} ms/batch (median of "
+                  f"{len(call_ms)} after the first), mcpc_chain "
+                  f"{statistics.median(chain_ms):.3f} ms of it "
+                  f"({statistics.median(chain_ms) / statistics.median(call_ms):.3f}); bound "
+                  f"{chain_bound_ms(*bounds5[name]):.3f} ms {tag}")
 
     # what each path computed
-    for p_ in trained.params:
-        check(all(bool(torch.isfinite(v).all()) for v in p_.values()),
-              "PC training left a parameter not finite")
-    rec0 = recorder.calls[parts5["PC training"][0]]
-    check(not torch.equal(trained.params[3]["b"], rec0["inputs"][0][3]["b"]),
-          "PC training left b3 unchanged")
-    check(torch.equal(trained.params[0]["w"], rec0["inputs"][0][0]["w"]),
-          "PC training moved W0 although its gradient is zero")
+    for name, gen_t in (("PC training", trained), ("PC training, mse", trained_mse)):
+        for p_ in gen_t.params:
+            check(all(bool(torch.isfinite(v).all()) for v in p_.values()),
+                  f"{name} left a parameter not finite")
+        rec0 = recorder.calls[parts5[name][0]]
+        check(not torch.equal(gen_t.params[3]["b"], rec0["inputs"][0][3]["b"]),
+              f"{name} left b3 unchanged")
+        check(torch.equal(gen_t.params[0]["w"], rec0["inputs"][0][0]["w"]),
+              f"{name} moved W0 although its gradient is zero")
     for name, value in mse.items():
         check(0.0 < value < 1.0, f"MSE-rec of {name} is {value}")
     for name, value in ml.items():
@@ -2620,6 +2948,7 @@ def main() -> int:
     # chosen launches again on their recorded inputs (the same bits), then
     # held against the plain version by the row rule (hold_replay)
     held5 = [("PC training, batch 1", parts5["PC training"][0], PC_ML),
+             ("PC training, mse, batch 1", parts5["PC training, mse"][0], PC_MSE),
              ("MSE-rec pc_mse_1, batch 1", parts5["MSE-rec pc_mse_1"][0], PC_MSE),
              ("MSE-rec mcpc_mse_1, batch 1", parts5["MSE-rec mcpc_mse_1"][0], MSE),
              ("joint sampler, PC warm start", parts5["joint sampler"][0], FID),
@@ -2640,10 +2969,8 @@ def main() -> int:
     tanh_a = dict(CHAIN_A, activation="tanh")
     tanh_ms, out_tanh = cuda_ms(torch, lambda: chain.mcpc_chain(
         params, latents, data, SEED, return_scalars=True, **tanh_a))
-    kw_t = dict(tanh_a, T=1000, return_scalars=True)
-    tanh_plain_ms, ref_t = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-        params, latents, data, SEED, **kw_t), reps=1, warm_up=False)
-    ref64_t = chain.mcpc_chain_reference(*to_double(params, latents, data), SEED, **kw_t)
+    kw_t = TANH_A_CUT
+    (tanh_plain_ms, ref_t), ref64_t = pre.pop("tanh"), pre.pop("tanh64")[1]
     short_t = chain.mcpc_chain(params, latents, data, SEED, **kw_t)
     dx_t = max_abs(short_t[0], ref_t[0])
     text_t, failed_t, _ = row_hold(torch, chain, "tanh chain (a), 1000 steps", short_t, ref_t,
@@ -2653,7 +2980,7 @@ def main() -> int:
     print(f"phase 5: chain (a) with tanh, B={BATCH} T={CHAIN_A['T']}: kernel {tanh_ms:.3f} ms, "
           f"{1e3 * tanh_ms / CHAIN_A['T']:.3f} us/step; relu {a_ms:.3f} ms in phase 2 "
           f"({1e3 * a_ms / CHAIN_A['T']:.3f} us/step); bound {bound_a:.3f} ms (operations); "
-          f"plain version at T=1000 {tanh_plain_ms:.3f} ms, max|dx| kernel-plain there "
+          f"plain version at T=1000 {tanh_plain_ms:.3f} ms (timed while nvcc ran), max|dx| kernel-plain there "
           f"{dx_t:.3e} (atol {P2_ATOL}): old rule {'holds' if dx_t <= P2_ATOL else 'FAILS'}; "
           f"by the row rule against float64: {text_t} {tag}")
     check(not failed_t, "phase 5: " + "; ".join(failed_t))
@@ -2919,8 +3246,7 @@ def main() -> int:
                   f"[{plan_text(FID, B, dict(CHAIN_A, bf16_matmul=bf16))}] {tag}")
     # chains (a) and (c) in bf16 cut to T=1000, held by rule (ii) and timed
     # beside the plain version and their bounds
-    bf16_a = dict(CHAIN_A, T=1000, **bf)
-    bf16_c = dict(CHAIN_C, **bf)
+    bf16_a, bf16_c = BF16_A, BF16_C
     a16_ms, out_a16 = cuda_ms(torch, lambda: chain.mcpc_chain(params, latents, data, SEED,
                                                               **bf16_a))
     c16_ms, out_c16 = cuda_ms(torch, lambda: chain.mcpc_chain(params, latents, data, SEED,
@@ -2935,18 +3261,17 @@ def main() -> int:
     chains16 = {}
     for name, kw16, out16, ms16 in (("a", bf16_a, out_a16, a16_ms),
                                     ("c, unpacked", bf16_c, out_c16, c16_ms)):
-        plain_ms16, ref16 = cuda_ms(torch, lambda: chain.mcpc_chain_reference(
-            params, latents, data, SEED, **kw16), reps=1, warm_up=False)
-        # chain (c)'s plain f32 version ran in phase 2 on the same inputs
-        f32_16 = ref_c if kw16 is bf16_c else chain.mcpc_chain_reference(
-            params, latents, data, SEED, **dict(kw16, bf16_matmul=False))
+        # the plain versions ran while nvcc built the kernels; chain (c)'s
+        # plain f32 version is phase 2's
+        plain_ms16, ref16 = pre.pop("c16" if kw16 is bf16_c else "a16")
+        f32_16 = ref_c if kw16 is bf16_c else pre.pop("a16 in f32")[1]
         err16, eff16 = max_abs(out16[0], ref16[0]), max_abs(f32_16[0], ref16[0])
         rms16, rms_eff16 = rms_abs(out16[0], ref16[0]), rms_abs(f32_16[0], ref16[0])
         bound16 = chain_bound_ms(FID, BATCH, kw16["T"], peak=PEAK_BF16_FLOPS)
         bound16_f32 = chain_bound_ms(FID, BATCH, kw16["T"])
         chains16[name] = (ms16, plain_ms16, err16, bound16, bound16_f32)
         print(f"phase 6: chain ({name}) bf16, B={BATCH} T={kw16['T']}: kernel {ms16:.3f} ms, "
-              f"{1e3 * ms16 / kw16['T']:.3f} us/step; plain bf16 {plain_ms16:.3f} ms; rms|dx| "
+              f"{1e3 * ms16 / kw16['T']:.3f} us/step; plain bf16 {plain_ms16:.3f} ms (timed while nvcc ran); rms|dx| "
               f"kernel-plain {rms16:.3e}, bf16 effect {rms_eff16:.3e} (share {BF16_SHARE}); "
               f"max|dx| kernel-plain {err16:.3e}, bf16 effect {eff16:.3e}; mean "
               f"row energy kernel {mean_row_energy(torch, params, out16[0], 'relu'):.4f}, plain "
@@ -3487,8 +3812,8 @@ def main() -> int:
     # --------------------------------------------------------- phase 10
     probe_entry = run_phase10(torch, tag)
     print(f"phase 10 ends at {time.perf_counter() - t_start:.1f} s")
-    launches = [sum(run) for run in zip(serve_counts, train_counts, fig_counts, counts5,
-                                        counts6, counts_tp, counts7, counts8, counts9)]
+    launches = [sum(run) for run in zip(serve_counts, train_counts, mse_counts, fig_counts,
+                                        counts5, counts6, counts_tp, counts7, counts8, counts9)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(json.dumps({"kernels": [

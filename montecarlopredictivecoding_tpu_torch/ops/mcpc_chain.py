@@ -661,21 +661,38 @@ def _noise_index3(c: _Chain, B: int, device) -> Tensor:
     return (rows % c.tile)[:, None] * _pad128(D) + cols[None, :]
 
 
+@functools.lru_cache(maxsize=16)
+def _unpacked_grid(dims3, B: int, device) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """The three latents' ``[B, half]`` grids side by side: (element index
+    [B, H], each column's draw offset ``2l`` [H], the columns of ``cat([r·cos,
+    r·sin])`` that make ``[B, d0+d1+d2]``), ``H`` the sum of the halves."""
+    halves = [(d + 1) // 2 for d in dims3]
+    H = sum(halves)
+    rows = torch.arange(B, dtype=torch.int64, device=device)
+    idx = torch.cat([rows[:, None] * h + torch.arange(h, dtype=torch.int64, device=device)
+                     for h in halves], dim=1)
+    offset = torch.cat([torch.full((h,), 2 * l, dtype=torch.int64, device=device)
+                        for l, h in enumerate(halves)])
+    cols, first = [], 0
+    for d, h in zip(dims3, halves):
+        cols += (list(range(first, first + h)) + list(range(H + first, H + first + h)))[:d]
+        first += h
+    return idx, offset, torch.tensor(cols, dtype=torch.int64, device=device)
+
+
 def _unpacked_normals(c: _Chain, B: int, t: int, device) -> Tensor:
     """Step ``t``'s normals ``[B, d0+d1+d2]`` of the unpacked baseline: per
     latent the JAX package's ``_normals`` over a ``[B, half]`` grid
     (``half = (d+1)//2``, ``r·cos`` in the first ``half`` columns, ``r·sin``
-    in the rest), draws ``6t+{0,1}``, ``6t+{2,3}``, ``6t+{4,5}``."""
-    rows = torch.arange(B, dtype=torch.int64, device=device)
-    parts = []
-    for l, d in enumerate(c.dims[:3]):
-        half = (d + 1) // 2
-        idx = rows[:, None] * half + torch.arange(
-            half, dtype=torch.int64, device=device)[None, :]
-        zc, zs = box_muller(counter_bits_at(idx, c.seed, 6 * t + 2 * l),
-                            counter_bits_at(idx, c.seed, 6 * t + 2 * l + 1))
-        parts.append(torch.cat([zc, zs], dim=1)[:, :d])
-    return torch.cat(parts, dim=1)
+    in the rest), draws ``6t+{0,1}``, ``6t+{2,3}``, ``6t+{4,5}``.  The three
+    grids are drawn side by side, both draws of a pair in one call: every
+    element takes the same integer and float operations as alone."""
+    idx, offset, cols = _unpacked_grid(tuple(c.dims[:3]), B, torch.device(device))
+    draws = (6 * t + offset)[None, None, :] + torch.arange(
+        2, dtype=torch.int64, device=idx.device)[:, None, None]
+    bits = counter_bits_at(idx[None], c.seed, draws)
+    zc, zs = box_muller(bits[0], bits[1])
+    return torch.cat([zc, zs], dim=1).index_select(1, cols)
 
 
 def unpacked_noise_site(dims, row: int, layer: int, col: int) -> tp.Tuple[int, int, bool]:
@@ -896,19 +913,18 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
         idx, seeds = _noise_index(c, B, X.device)
         if c.output_pc:
             idx3 = _noise_index3(c, B, X.device)
+        # both draws of a step pair in one call (the same operations on
+        # every element as one draw a call)
+        pair = torch.arange(2, dtype=torch.int64, device=X.device)[:, None, None]
     z_cos = z_sin = z3_cos = z3_sin = None
     for t in range(c.T):
         if noisy and c.packed and t % 2 == 0:
             p = t // 2
-            z_cos, z_sin = box_muller(
-                counter_bits_at(idx, seeds, dp * p),
-                counter_bits_at(idx, seeds, dp * p + 1),
-            )
+            bits = counter_bits_at(idx[None], seeds[None], dp * p + pair)
+            z_cos, z_sin = box_muller(bits[0], bits[1])
             if c.output_pc:
-                z3_cos, z3_sin = box_muller(
-                    counter_bits_at(idx3, seeds, dp * p + 2),
-                    counter_bits_at(idx3, seeds, dp * p + 3),
-                )
+                bits = counter_bits_at(idx3[None], seeds[None], dp * p + 2 + pair)
+                z3_cos, z3_sin = box_muller(bits[0], bits[1])
         last = t == c.T - 1
         want = observe(X, X3, t, last)
         G, G3, sc = grads(X, X3, want, c.with_pgrads and t >= c.mixing)

@@ -1,42 +1,48 @@
-"""How ``chip_smoke.py``'s row rule tells correct f32 orders from faults on
-the long Adam chains, where most rows part, on one GPU.
+"""How many witnesses ``chip_smoke.py``'s row rule needs, and how it tells
+correct f32 orders from faults on the long Adam chains, where most rows
+part, on one GPU.
 
-    python3 scripts/rule_calibration.py [--copies 8 32] [--chains NAME ...]
+    python3 scripts/rule_calibration.py [--copies 16 32 64] [--fresh 16] [--chains NAME ...]
 
 Chains, each at its full length on the smoke's own inputs: phase 5's
 MSE-rec of ``pc_mse_1`` and of ``mcpc_mse_1`` (250 Adam steps at lr 0.7 on
 the first test batch, B=1024), the joint sampler's warm start (250 Adam
 steps at lr 0.7, x3 moved off its prediction, B=256), figure 2's two
 probe MAP chains (2000 Adam steps at lr 0.1, B=1024) and its PC posterior
-(2000 such steps, every one captured, B=16).  On each, runs of
-the plain version stand in for the kernel (``scripts/rule_cases.py``):
+(2000 such steps, every one captured, B=16); and the first batch of each
+trainer's mse preset through its entry point: ``train_mcpc(preset="mse")``
+(10-256-256-784 relu, B=256: 250 Adam steps at lr 0.7, then 150 Langevin
+steps with the gradients of the last 100) and ``train_pc(preset="mse")``
+(30-256-256-784 tanh, B=128: 250 Adam steps at lr 0.1 with the last step's
+gradients).  On each, runs stand in for the kernel
+(``scripts/rule_cases.py``):
 
 - correct orders: the kernel itself; the products summed in two halves of
   k, or taken in float64 and rounded once; the latents started one ulp
   away (three draws of the directions); on figure 2's chains the
-  split-TF32 products of ``tf32_split_matmul``, whose tensor-core kernel
-  failed the smoke's old rule on the probe MAP chain;
+  split-TF32 products of ``tf32_split_matmul``; and ``--fresh`` fresh
+  witnesses (the witnesses' rounding, drawn from another seed);
 - faults: lr (and warm lr) × (1 + 1e-3); Adam's bias correction off; one
   row's update skipped for one step halfway through, in the row where the
   witnesses part least and in the one where they part most.
 
-For each chain, run and part it prints one JSON line: the units, how many
-sit beyond the plain f32 version's distance from float64 plus the
-allowance (``beyond``), and for the first 8, the smoke's
-(``STACKED_COPIES``) and ``--copies`` stacked witness copies: how many
-units they flag (``sensitive``), which ``beyond`` units they do not flag
-(``unflagged``, ``unflagged_rows``) and how much further those sit than the
-plain f32 version (``unflagged_excess``), how many flagged ones sit beyond
-their own unit's envelope (the furthest correct order there) plus the
-allowance and by how much at most (``over_own``, ``own_ratio``), the
-largest distance of a flagged unit over the furthest any correct order
-reaches on the part's flagged units (``reach_ratio``), and the part's RMS
-distance from float64 over the worst correct order's (``rms_ratio``); then
-the old largest-element rule's verdict and the smoke's row rule's
-(``rule``, with its unexcused units and RMS ratio where its witnesses ran).
-The last line gives, per chain, each run's largest RMS ratio under the
-row rule.  Needs a CUDA device and nvcc (``--device cpu`` runs the plain
-version in the kernel's place, to check the script).
+Every run is held by the smoke's own ``unit_rule`` under the witnesses of
+each ``--copies`` count ``N``, built as the smoke builds them
+(``Witnesses(copies=N, sum_copies=N // 2)``, its seeds).  For each chain,
+run and part it prints one JSON line: the old largest-element rule's
+verdict, and for each count the row rule's (``ok``), its unflagged units
+and their cap, the flagged ones, the RMS ratio over the worst correct
+order, whether the old rule held where every correct order keeps it
+(``clause``: kept, FAILS, or does not apply), and the part-level bound's
+ratio: the unit furthest from float64 over the furthest any correct
+order's unit lies, plus the allowance (``reach_part``).  The last line
+gives, per count, the correct orders other than the kernel that fail a
+part, the kernel's failing parts, the faults that pass, and the parts
+where such a clause alone would fail a run the rule passes; and
+``chosen``: the least count under which no correct order but the kernel
+fails any part of any chain (null if none).  Needs a CUDA
+device and nvcc (``--device cpu`` runs the plain version in the kernel's
+place, to check the script).
 """
 
 from __future__ import annotations
@@ -51,21 +57,10 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAINS = ("MSE-rec pc_mse_1", "MSE-rec mcpc_mse_1", "joint sampler, PC warm start",
-          "probe MAP, batch 1", "probe MAP, batch 2", "PC posterior")
-FIGURE_2 = CHAINS[3:]
-
-
-class FirstCopies:
-    """A ``Witnesses`` seen through its first ``k`` stacked copies."""
-
-    def __init__(self, smoke, witnesses, k):
-        self.smoke, self.w, self.k, self.seconds = smoke, witnesses, k, 0.0
-
-    def of(self, part):
-        runs = self.w.of(part)
-        stacked = part in self.smoke.ROW_PARTS or (
-            part == "scalars" and self.w.kw.get("capture_stride"))
-        return runs[: self.k] if stacked else runs
+          "probe MAP, batch 1", "probe MAP, batch 2", "PC posterior",
+          "MCPC training, mse, batch 1", "PC training, mse, batch 1")
+FIGURE_2 = CHAINS[3:6]
+TRAINING = CHAINS[6:]
 
 
 def recorded_chains(smoke, port, chain, dev, wanted):
@@ -73,7 +68,7 @@ def recorded_chains(smoke, port, chain, dev, wanted):
     the smoke records them."""
     from montecarlopredictivecoding_tpu_torch.data.mnist import get_mnist_data
     from montecarlopredictivecoding_tpu_torch.eval import metrics
-    from montecarlopredictivecoding_tpu_torch.experiments import common, figure_2
+    from montecarlopredictivecoding_tpu_torch.experiments import common, figure_2, train_mnist
     from montecarlopredictivecoding_tpu_torch.models import get_pc_trainer
 
     ctx = common.ExperimentContext(os.path.join(HERE, "models"),
@@ -109,6 +104,21 @@ def recorded_chains(smoke, port, chain, dev, wanted):
         for i, name in enumerate(FIGURE_2):
             if name in wanted:
                 out[name] = calls[i]
+    runs = os.path.join(HERE, "build", "rule_calibration")
+    if TRAINING[0] in wanted:
+        # one_batch calls the chain by the name train_mnist imported
+        recorder = smoke.ChainRecorder(torch, train_mnist.mcpc_chain)
+        train_mnist.mcpc_chain = recorder
+        try:
+            train_mnist.train_mcpc(1, os.path.join(runs, "mcpc_mse"), seed=smoke.SEED,
+                                   batches_per_epoch=1, log=False, preset="mse", device=dev)
+        finally:
+            train_mnist.mcpc_chain = recorder.fn
+        out[TRAINING[0]] = (*recorder.calls[0]["inputs"], recorder.calls[0]["kw"])
+    if TRAINING[1] in wanted:
+        out[TRAINING[1]] = record(lambda: train_mnist.train_pc(
+            1, os.path.join(runs, "pc_mse"), seed=smoke.SEED, batches_per_epoch=1, log=False,
+            preset="mse", device=dev))[0]
     return out
 
 
@@ -138,35 +148,28 @@ def runs_of(cases, chain, params, latents, target, seed, kw, rows, quiet, busy, 
     return out
 
 
-def anatomy(smoke, part, got, ref, base, allow, witnesses, ks):
-    """The numbers of one part's line (see the module's docstring)."""
-    d_got, e_got = smoke.unit_distances(torch, part, got, base)
-    d_ref, e_ref = smoke.unit_distances(torch, part, ref, base)
-    beyond = d_got > d_ref + allow
-    row = {"units": d_got.numel(), "beyond": int(beyond.sum())}
-    if part not in smoke.ROW_PARTS:
-        return row
-    runs = witnesses.of(part)
-    d_w = torch.stack([smoke.unit_distances(torch, part, w, base)[0] for w in runs])
-    parted = torch.stack([smoke.unit_distances(torch, part, w, ref)[0] for w in runs])
-    rms_w = [smoke._rms(torch, smoke.unit_distances(torch, part, w, base)[1]) for w in runs]
-    excess = d_got - d_ref
-    for k in ks:
-        sens = torch.maximum(parted[:k].amax(0), d_ref) > allow
-        env = torch.maximum(d_w[:k].amax(0), d_ref)
-        flagged, unflagged = beyond & sens, beyond & ~sens
-        ratio = d_got / (env + allow)
-        reach = float(env[sens].max()) if bool(sens.any()) else 0.0
-        row[f"copies_{k}"] = {
-            "sensitive": int(sens.sum()), "unflagged": int(unflagged.sum()),
-            "unflagged_rows": torch.nonzero(unflagged).flatten()[:4].tolist(),
-            "unflagged_excess": float(excess[unflagged].max()) if bool(unflagged.any()) else 0.0,
-            "over_own": int((flagged & (ratio > 1)).sum()),
-            "own_ratio": float(ratio[flagged].max()) if bool(flagged.any()) else 0.0,
-            "reach_ratio": float((d_got[flagged] / (reach + allow)).max())
-            if bool(flagged.any()) else 0.0,
-            "rms_ratio": smoke._rms(torch, e_got) / max([smoke._rms(torch, e_ref)] + rms_w[:k])}
-    return row
+def reach_part(smoke, part, got, ref, base, allow, witnesses) -> float:
+    """The part-level bound's ratio: the unit furthest from float64 over the
+    furthest unit of any correct order (the plain f32 version and the
+    witnesses) plus the allowance."""
+    far = [smoke.unit_distances(torch, part, ref, base)[0]] + [
+        torch.nan_to_num(smoke.unit_distances(torch, part, w, base)[0], nan=0.0)
+        for w in witnesses.of(part)]
+    reach = max(float(d.max()) for d in far)
+    return float(smoke.unit_distances(torch, part, got, base)[0].max()) / (reach + allow)
+
+
+def clause(smoke, part, got, ref, base, allow, witnesses) -> str:
+    """The old largest-element rule where every correct order keeps it:
+    "kept" where the run keeps it, "FAILS" where it breaks it and the
+    plain f32 version and every witness keep it, else "does not apply" (a
+    NaN of a witness is an element it does not compute)."""
+    limit = float(smoke.unit_distances(torch, part, ref, base)[1].max()) + allow
+    if float(smoke.unit_distances(torch, part, got, base)[1].max()) <= limit:
+        return "kept"
+    kept = all(float(torch.nan_to_num(smoke.unit_distances(torch, part, w, base)[1],
+                                      nan=0.0).max()) <= limit for w in witnesses.of(part))
+    return "FAILS" if kept else "does not apply"
 
 
 def main() -> None:
@@ -175,7 +178,8 @@ def main() -> None:
     smoke = importlib.import_module("chip_smoke")
     cases = importlib.import_module("rule_cases")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--copies", type=int, nargs="+", default=[8, 32])
+    ap.add_argument("--copies", type=int, nargs="+", default=[16, 32, 64])
+    ap.add_argument("--fresh", type=int, default=16)
     ap.add_argument("--chains", nargs="+", default=list(CHAINS), choices=CHAINS)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -183,43 +187,77 @@ def main() -> None:
     chain = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.mcpc_chain")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(args.device)
-    ks = sorted({smoke.STACKED_COPIES, *args.copies})
-    summary = {}
+    counts = sorted(set(args.copies))
+    found = {n: {"correct orders failing": [], "kernel failing": [], "faults passing": [],
+                 "clause would fail": []} for n in counts}
+    seconds = {}
     for name, (params, latents, target, seed, kw) in recorded_chains(
             smoke, port, chain, dev, args.chains).items():
         ref = chain.mcpc_chain_reference(params, latents, target, seed, **kw)
         ref64 = chain.mcpc_chain_reference(*smoke.to_double(params, latents, target), seed,
                                            **smoke.doubled(kw))
         rp, bp = smoke.option_parts(ref, kw), smoke.option_parts(ref64, kw)
-        wit = smoke.Witnesses(torch, chain, params, latents, target, seed, kw,
-                              copies=max(ks))
-        held = FirstCopies(smoke, wit, smoke.STACKED_COPIES)  # the smoke's witnesses
-        # the rows where the witnesses part least and most on the latents
+        wits = {n: smoke.Witnesses(torch, chain, params, latents, target, seed, kw, copies=n,
+                                   sum_copies=n // 2) for n in counts}
+        # the rows where the fewest witnesses part least and most on the latents
         spread = torch.stack([smoke.unit_distances(torch, "latents", w, rp["latents"])[0]
-                              for w in held.of("latents")]).amax(0)
+                              for w in wits[counts[0]].of("latents")]).amax(0)
         rows = latents[0].shape[0]
         quiet, busy = int(spread.argmin()), int(spread.argmax())
-        worst = {}
-        for run, (sound, out) in runs_of(cases, chain, params, latents, target, seed, kw, rows,
-                                         quiet, busy, name in FIGURE_2).items():
-            gp = smoke.option_parts(out, kw)
+        runs = {run: (sound, smoke.option_parts(out, kw)) for run, (sound, out) in runs_of(
+            cases, chain, params, latents, target, seed, kw, rows, quiet, busy,
+            name in FIGURE_2).items()}
+        fresh = smoke.Witnesses(torch, chain, params, latents, target, seed, kw,
+                                copies=args.fresh, sum_copies=args.fresh,
+                                jitter_seed=smoke.SEED + 240)
+        for j in range(args.fresh):
+            parts = {}
+            for part, _, _ in smoke.PART_RULES:
+                if rp.get(part) is None:
+                    continue
+                one = fresh.of(part)[j]
+                if part == "scalars":
+                    # a captured step a witness does not compute: the plain version's
+                    one = {k: torch.where(torch.isnan(v), rp[part][k].double(), v.double())
+                           for k, v in one.items()}
+                parts[part] = one
+            runs[f"fresh witness {j}"] = (True, parts)
+        for run, (sound, gp) in runs.items():
+            failed = {n: False for n in counts}
             for part, allow, err in smoke.PART_RULES:
                 if gp.get(part) is None:
                     continue
-                line = anatomy(smoke, part, gp[part], rp[part], bp[part], allow, wit, ks)
                 a, b, c = ([x] for x in (gp[part], rp[part], bp[part])) if part in (
                     "traj", "traj3") else (gp[part], rp[part], bp[part])
-                line["old_rule"] = "holds" if err(a, c) <= err(b, c) + allow else "FAILS"
-                verdict = smoke.unit_rule(torch, part, gp[part], rp[part], bp[part], allow, held)
-                line["rule"] = "holds" if verdict["ok"] else "FAILS"
-                if verdict["witnessed"]:
-                    line["rule_unexcused"] = verdict["unexcused"]
-                    line["rule_rms_ratio"] = verdict["rms"] / verdict["rms_worst"]
-                    worst[run] = max(worst.get(run, 0.0), line["rule_rms_ratio"])
+                line = {"old_rule": "holds" if err(a, c) <= err(b, c) + allow else "FAILS"}
+                for n in counts:
+                    v = smoke.unit_rule(torch, part, gp[part], rp[part], bp[part], allow, wits[n])
+                    one = {"ok": v["ok"], "beyond": v["beyond"]}
+                    if v["witnessed"]:
+                        one.update(
+                            unflagged=v["unexcused"], flagged=v["sensitive"],
+                            cap=int(v["sensitive"] * smoke.UNFLAGGED_SHARE),
+                            rms_ratio=v["rms"] / v["rms_worst"],
+                            clause=clause(smoke, part, gp[part], rp[part], bp[part], allow,
+                                          wits[n]),
+                            reach_part=reach_part(smoke, part, gp[part], rp[part], bp[part],
+                                                  allow, wits[n]))
+                        if v["ok"] and one["clause"] == "FAILS":
+                            found[n]["clause would fail"].append(f"{name}: {run}: {part}")
+                    line[n] = one
+                    failed[n] |= not v["ok"]
+                    where = f"{name}: {run}: {part}"
+                    if sound and not v["ok"]:
+                        found[n]["kernel failing" if run == "kernel" else
+                                 "correct orders failing"].append(where)
                 print(json.dumps({"chain": name, "run": run, "correct_order": sound,
                                   "part": part, **line}), flush=True)
-        summary[name] = {"rule_rms_ratio": worst, "witness seconds": wit.seconds}
-    print(json.dumps({"summary": summary,
+            for n in counts:
+                if not sound and not failed[n]:
+                    found[n]["faults passing"].append(f"{name}: {run}")
+        seconds[name] = {n: w.seconds for n, w in wits.items()}
+    chosen = next((n for n in counts if not found[n]["correct orders failing"]), None)
+    print(json.dumps({"by_count": found, "chosen": chosen, "witness seconds": seconds,
                       "card": smoke.card_line() if dev.type == "cuda" else "cpu"}))
 
 

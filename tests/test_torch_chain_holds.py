@@ -15,7 +15,10 @@ stands in for the kernel, at small widths:
 - a built case where a latent lands within an ulp of relu's kink after
   one step: there another correct order takes the other side of the kink,
   the old rule fails it and the row rule passes it;
-- the witnesses' stacked call gives each copy its own rows' noise.
+- the witnesses' stacked call gives each copy its own rows' noise, and
+  their summed call each copy's own sums;
+- the parameters' Adam step sets aside only the entries whose sign a
+  correct order turns.
 """
 
 import importlib
@@ -229,12 +232,97 @@ def test_stacked_witnesses_draw_each_copys_own_noise(kw, output_pc):
     else:
         target = (torch.rand(B, DIMS[3], generator=g) > 0.5).float()
     args = (torch, chain, params, latents, target, SEED, kw)
-    witnesses = smoke.Witnesses(*args, ulps=0)
-    unjittered, separate = witnesses.stacked(), witnesses.separate()
-    assert smoke.bits_equal(torch, unjittered[0]["latents"], separate[0]["latents"])
+    unjittered = smoke.Witnesses(*args, ulps=0).stacked()
+    with smoke.jittered_rounding(torch, chain, B, SEED, params, ulps=0):
+        alone = smoke.option_parts(plain(params, latents, target, **kw), kw)
+    assert smoke.bits_equal(torch, unjittered[0]["latents"], alone["latents"])
     ref = smoke.option_parts(plain(params, latents, target, **kw), kw)
     for copy in smoke.Witnesses(*args).stacked():
         for part in ("latents", "traj", "traj3", "moments"):
             if part in copy:
                 far = float(smoke.unit_distances(torch, part, copy[part], ref[part])[0].max())
                 assert far <= 1e-5, (part, far)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(warm_T=5, warm_lr=0.1, T=12, lr=0.03, noise_var=2.0, batch_tile=8, with_pgrads=True,
+         mixing=4, return_scalars=True),
+    dict(warm_T=8, warm_lr=0.1, T=0, lr=0.1, noise_var=None, with_pgrads=True,
+         warm_pgrads=True, return_scalars=True, scalar_stride=3),
+    dict(T=12, lr=0.03, noise_var=2.0, batch_tile=8, with_pgrads=True, mixing=4,
+         return_scalars=True, capture_stride=2),
+    dict(T=12, lr=0.03, noise_var=2.0, packed=False, with_pgrads=True, mixing=4),
+])
+def test_summed_witnesses_take_each_copys_sums_apart(kw):
+    """The witnesses of the batch sums (gradients, uncaptured scalars): one
+    stacked call whose sums ``sums_apart`` takes copy by copy.  Without
+    the jitter each copy's gradients and scalars are a separate run's with
+    its products summed in reverse, within rounding of the batched sums
+    (2e-6 of each gradient tensor's largest entry, 1e-6 relative for a
+    scalar)."""
+    params, latents, target = case(DIMS, B, SEED)
+    witnesses = smoke.Witnesses(torch, chain, params, latents, target, SEED, kw, ulps=0)
+    copies = witnesses.summed()
+    assert len(copies) == smoke.SUM_COPIES
+    alone_kw = {k: v for k, v in kw.items() if k != "capture_stride"}
+    with smoke.jittered_rounding(torch, chain, B, SEED, params, ulps=0):
+        alone = smoke.option_parts(plain(params, latents, target, **alone_kw), alone_kw)
+    for copy in copies:
+        assert smoke.grad_rel(copy["pgrads"], alone["pgrads"]) <= 2e-6
+        if kw.get("return_scalars") and "capture_stride" not in kw:
+            assert copy["scalars"]["loss"].shape == alone["scalars"]["loss"].shape
+            assert smoke.scalar_rel(copy["scalars"], alone["scalars"]) <= 1e-6
+
+
+# ------------------------------------------------------------- the old rule
+# The old largest-element rule, printed beside every verdict: each part's old
+# error function of PART_RULES is its largest element distance from the
+# reference.
+
+@pytest.mark.parametrize("part", [p for p, _, _ in smoke.PART_RULES if p != "traj3"])
+def test_the_old_rule_is_the_largest_element_distance(part, fault_case):
+    inputs, ref, ref64 = fault_case
+    got = run_faulty("lr * (1 + 1e-3)", *inputs)
+    gp, rp, bp = (smoke.option_parts(o, FAULT_KW) for o in (got, ref, ref64))
+    err = {p: e for p, _, e in smoke.PART_RULES}[part]
+    a, c = ([gp[part]], [bp[part]]) if part == "traj" else (gp[part], bp[part])
+    largest = float(smoke.unit_distances(torch, part, gp[part], bp[part])[1].max())
+    assert err(a, c) == pytest.approx(largest, rel=1e-12, abs=0.0)
+
+
+# ------------------------------------------------ the parameters' Adam step
+@pytest.mark.parametrize("turned_by, passes", [
+    ("a witness", True), ("plain f32", True), ("no correct order", False),
+    ("no correct order given", False)])
+def test_the_parameter_rule_sets_aside_only_entries_a_correct_order_turns(turned_by, passes):
+    """Adam's first step is lr * sign(g): a kernel whose gradient takes the
+    other sign on one clear entry (0.5% of its tensor's largest) sits 2 lr
+    from the float64 step there.  The entry is set aside only where a
+    correct order's gradient (plain f32 or a witness) turns its sign too;
+    elsewhere the rule fails it."""
+    from montecarlopredictivecoding_tpu_torch.core.optim import OptimizerSpec, apply_updates
+
+    lr, g = 0.01, torch.Generator().manual_seed(5)
+    p0 = tuple({"w": torch.randn(4, 3, generator=g, dtype=torch.float64),
+                "b": torch.randn(3, generator=g, dtype=torch.float64)} for _ in range(2))
+    g64 = tuple({k: torch.randn(v.shape, generator=g, dtype=torch.float64) for k, v in p.items()}
+                for p in p0)
+    g64[1]["w"][2, 1] = 0.005 * float(g64[1]["w"].abs().max())
+    kernel = tuple({k: v.clone() for k, v in p.items()} for p in g64)
+    kernel[1]["w"][2, 1] = -kernel[1]["w"][2, 1]
+    plain_f32 = tuple({k: v.clone() for k, v in p.items()} for p in g64)
+    witnesses = [tuple({k: v.clone() for k, v in p.items()} for p in g64) for _ in range(3)]
+    if turned_by == "a witness":
+        witnesses[1][1]["w"][2, 1] = -witnesses[1][1]["w"][2, 1]
+    elif turned_by == "plain f32":
+        plain_f32[1]["w"][2, 1] = -plain_f32[1]["w"][2, 1]
+    opt = OptimizerSpec("adam", lr=lr).make()
+    updates, _ = opt.update(kernel, opt.init(p0), p0)
+    stepped = apply_updates(p0, updates)
+    orders = [] if turned_by == "no correct order given" else [plain_f32] + witnesses
+    worst, n_clear, total, n_aside = smoke.param_rule(torch, opt, apply_updates, p0, stepped,
+                                                      g64, 1.0, orders)
+    assert total == 30 and n_clear == 30
+    assert n_aside == (1 if passes else 0)
+    assert (worst <= smoke.P3_PARAM_ATOL) == passes
+    assert passes or worst == pytest.approx(2 * lr, rel=1e-4)

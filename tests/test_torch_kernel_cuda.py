@@ -887,6 +887,91 @@ def test_unpacked_wide_preset_with_gradients(cuda_device, B, bf16):
         _assert_same_outputs(got, want)
 
 
+def _rms_of(a, b):
+    """Root mean square of the differences over every element of two tuples."""
+    sq = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+    return (sq / sum(y.numel() for y in b)) ** 0.5
+
+
+def _relative(ga, gb):
+    """Two gradients' tensors, each divided by its largest entry in ``gb``."""
+    pairs = [(a[k], b[k]) for a, b in zip(ga, gb) for k in ("w", "b")]
+    return ([a / b.abs().max().clamp_min(1e-30) for a, b in pairs],
+            [b / b.abs().max().clamp_min(1e-30) for _, b in pairs])
+
+
+def _double(params, latents, target):
+    return (tuple({k: v.double() for k, v in p.items()} for p in params),
+            tuple(x.double() for x in latents), target.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B", [37, 256])
+def test_packed_wide_preset_warm_start_with_gradients(cuda_device, B, bf16):
+    """The mse training chain's route (``train_mcpc(preset="mse")``): the
+    packed kernel at 10-256-256-784, 50 Adam steps at lr 0.1, then 60
+    Langevin steps with noise and the gradients of the last 40; the gradient
+    slice is not resident.  An Adam warm start leaves the chain
+    ill-conditioned in f32, so f32 is held to the plain version run in
+    float64: the latents at most 1e-4, each gradient tensor at most 2e-5 of
+    its largest entry further from it than the plain f32 version
+    (``chip_smoke.py``'s phase-1 allowances).  bf16 against the plain bf16
+    version by the smoke's two rules: (i) after one Langevin step from the
+    same inputs (at least 98% of the latents within 1e-5 and of the
+    gradient entries within 2e-6 of their tensor's largest, nothing further
+    than half the bf16 effect, the plain f32 version's distance from it),
+    and (ii) on the chain, in root mean square: latents and each gradient
+    tensor relative to its largest entry within half the effect.  The
+    chain's share within (i)'s tolerances and its largest difference are
+    printed beside it: after 110 steps the two bf16 chains part on most
+    elements, and the largest difference can sit beyond half the effect
+    where a sum lands at a bf16 rounding boundary, as the smoke's rule
+    says."""
+    params, latents, target = _case(MSE_DIMS, B, cuda_device)
+    kw = dict(warm_T=50, warm_lr=0.1, T=60, lr=0.03, noise_var=2.0, mixing=20,
+              with_pgrads=True, bf16_matmul=bf16)
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    assert not chain_mod.device_plan(c, B, cuda_device).grads_resident
+    count = "launches_bf16" if bf16 else "launches"
+    before = getattr(chain_mod.mcpc_chain, count)
+    got = chain_mod.mcpc_chain(params, latents, target, 9, **kw)
+    torch.cuda.synchronize()
+    assert getattr(chain_mod.mcpc_chain, count) == before + 1
+    assert not got[1][0]["w"].any()
+    if bf16:
+        want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+        f32 = chain_mod.mcpc_chain_reference(params, latents, target, 9,
+                                             **dict(kw, bf16_matmul=False))
+        pairs = [(x[k], y[k]) for x, y in zip(got[1], want[1]) for k in ("w", "b")]
+        seen = {"latents within 1e-5": _share_within(zip(got[0], want[0]), lambda b: 1e-5),
+                "gradient entries within 2e-6 of their largest": _share_within(
+                    pairs, lambda b: 2e-6 * b.abs().max()),
+                "latents RMS": _rms_of(got[0], want[0]),
+                "half the effect (RMS)": 0.5 * _rms_of(f32[0], want[0]),
+                "gradients RMS": _rms_of(*_relative(got[1], want[1])),
+                "half the gradients' effect (RMS)": 0.5 * _rms_of(*_relative(f32[1], want[1])),
+                "latents largest": _max_abs(got[0], want[0]),
+                "half the effect (largest)": 0.5 * _max_abs(f32[0], want[0]),
+                "gradients largest": _grad_rel(got[1], want[1]),
+                "half the gradients' effect (largest)": 0.5 * _grad_rel(f32[1], want[1])}
+        print(f"B={B} bf16: {seen}")
+        assert seen["latents RMS"] <= seen["half the effect (RMS)"], seen
+        assert seen["gradients RMS"] <= seen["half the gradients' effect (RMS)"], seen
+        one = dict(BF16_ONE_STEP)
+        assert not chain_mod.device_plan(chain_mod._chain_args(
+            params, latents, target, 9, bf16_matmul=True, **one), B, cuda_device).grads_resident
+        _assert_one_step(
+            chain_mod.mcpc_chain(params, latents, target, 9, bf16_matmul=True, **one),
+            chain_mod.mcpc_chain_reference(params, latents, target, 9, bf16_matmul=True, **one),
+            chain_mod.mcpc_chain_reference(params, latents, target, 9, **one))
+        return
+    ref = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    ref64 = chain_mod.mcpc_chain_reference(*_double(params, latents, target), 9, **kw)
+    assert _max_abs(got[0], ref64[0]) <= _max_abs(ref[0], ref64[0]) + 1e-4
+    assert _grad_rel(got[1], ref64[1]) <= _grad_rel(ref[1], ref64[1]) + 2e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("dims", [FID, MSE_DIMS])

@@ -100,11 +100,34 @@ def test_train_pc_batch_matches_jax(monkeypatch, tmp_path):
     gradient is at least 1e-3 of its tensor's largest (an entry whose
     gradient were rounding noise could flip sign and differ by 2 lr); every
     entry within 2 lr + 1e-7, and gW0 exactly zero (W0 unchanged)."""
+    _train_pc_batch_against_jax(monkeypatch, tmp_path, "ml", (25, 128, 128, 784), seed=3)
+
+
+def test_train_pc_mse_preset_batch_matches_jax(monkeypatch, tmp_path):
+    """One ``train_pc(preset="mse")`` batch at that preset's full width
+    (30-256-256-784 tanh), B=8, its schedule cut to 40 Adam MAP steps at lr
+    0.1 (both packages' ``pc_training_config`` patched alike), then Adam on
+    the parameters at lr 0.001, on the same parameters, latents and batch,
+    by the rule of the ``ml`` test above: latents atol 1e-5, parameters
+    atol 1e-7 where the gradient is clear (at least 1e-3 of its tensor's
+    largest) and 2 lr + 1e-7 elsewhere, more than 95% of the entries clear,
+    W0 unchanged, and the checkpoint reloads bit for bit."""
+    for module in (ttrain, jtrain):
+        short = dict(module.pc_training_config(), T_pc=40)
+        monkeypatch.setattr(module, "pc_training_config", lambda short=short: dict(short))
+    _train_pc_batch_against_jax(monkeypatch, tmp_path, "mse", (30, 256, 256, 784), seed=5)
+
+
+def _train_pc_batch_against_jax(monkeypatch, tmp_path, preset, dims, seed):
+    """One ``train_pc`` batch of ``preset`` (a tanh model of ``dims``) in
+    both packages on the same numpy parameters, latents and batch, held by
+    the rule of ``test_train_pc_batch_matches_jax``."""
     B = 8
-    config = ttrain.apply_preset(ttrain.pc_training_config(), "ml", "pc")
-    rng = np.random.default_rng(3)
-    jm = mcpc.make_mlp_model(25, 128, 128, 784, activation="tanh")
-    params_np = jax.device_get(jm.init(jax.random.PRNGKey(2)))
+    config = ttrain.apply_preset(ttrain.pc_training_config(), preset, "pc")
+    assert (*_widths(config), config["output_size"]) == dims
+    rng = np.random.default_rng(seed)
+    jm = mcpc.make_mlp_model(*dims, activation="tanh")
+    params_np = jax.device_get(jm.init(jax.random.PRNGKey(seed - 1)))
     latents = tuple(rng.uniform(-10, 10, (B, d)).astype(np.float32) for d in _widths(config))
     data = (rng.random((B, 784)) > 0.5).astype(np.float32)
     labels = np.zeros(B, np.int64)
@@ -138,8 +161,8 @@ def test_train_pc_batch_matches_jax(monkeypatch, tmp_path):
         return out
 
     monkeypatch.setattr(jops, "mcpc_chain_pallas", spy)
-    jgen = jtrain.train_pc(1, str(tmp_path / "j"), preset="ml", log=False)
-    tgen = ttrain.train_pc(1, str(tmp_path / "t"), preset="ml", log=False, device="cpu")
+    jgen = jtrain.train_pc(1, str(tmp_path / "j"), preset=preset, log=False)
+    tgen = ttrain.train_pc(1, str(tmp_path / "t"), preset=preset, log=False, device="cpu")
     assert shared.used_up() and len(grads) == 1
     for a, b in zip(tgen.latents, jgen.latents):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5)

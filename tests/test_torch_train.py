@@ -314,3 +314,93 @@ def test_main_trains_mcpc_on_the_cpu(small_synthetic, tmp_path, monkeypatch):
                      0, device="cpu").params
     loaded = load_checkpoint(str(out), like, device="cpu")
     assert tuple(loaded[1]["w"].shape) == (10, 256)
+
+
+MSE_DIMS = (10, 256, 256, 784)
+# the mse preset's schedule, shortened: 20 Adam MAP steps at lr 0.7, then
+# 3 + 5 Langevin steps at lr 0.1 with noise
+MSE_SHORT = dict(T_pc=20, mixing=3, sampling=5)
+
+
+def test_train_mcpc_mse_preset_matches_jax(tmp_path, monkeypatch):
+    """``train_mcpc(preset="mse")`` through its entry point at the preset's
+    full widths (10-256-256-784 relu), B=8, two batches of a short schedule
+    (``MSE_SHORT``), against the JAX package's training step built from its
+    parts (``mcpc_chain_pallas`` in interpret mode with the JAX
+    ``train_mcpc``'s chain keywords, division by ``sampling·B``,
+    ``optax.adam``) on the same numpy parameters, batches and latents; each
+    batch's chain seed is the one the port drew, handed to the JAX side.
+
+    Gradients of the first batch, where both sides start from the same
+    parameters: each tensor within 2e-6 of its largest entry; of the second,
+    whose parameters differ in their last bits, 1e-4.  Parameters after the
+    two Adam steps: every entry within 1e-4, the tolerance of the three-batch
+    test above (measured: 1.9e-5 on 2 of the 200,704 entries of W3, where
+    the two batches' gradients nearly cancel in Adam's first moment, and
+    below 1e-5 elsewhere; the steps are about lr = 0.01 each).  gW0 is
+    exactly zero on both sides, and the checkpoint holds the port's
+    parameters."""
+    Bm = 8
+    short = dict(ttrain.mcpc_training_config(), **MSE_SHORT)
+    monkeypatch.setattr(ttrain, "mcpc_training_config", lambda: dict(short))
+    config = ttrain.apply_preset(dict(short), "mse", "mcpc")
+    jconfig = jtrain.apply_preset(dict(jtrain.mcpc_training_config(), **MSE_SHORT), "mse", "mcpc")
+    assert (jconfig["input_size"], jconfig["hidden_size"], jconfig["hidden2_size"],
+            jconfig["output_size"]) == MSE_DIMS
+    params_np = jax.device_get(mcpc.make_mlp_model(*MSE_DIMS).init(jax.random.PRNGKey(4)))
+    rng = np.random.default_rng(4)
+    lats = [tuple(rng.uniform(-10, 10, (Bm, d)).astype(np.float32) for d in MSE_DIMS[:3])
+            for _ in range(2)]
+    batches = [(rng.random((Bm, MSE_DIMS[3])) > 0.5).astype(np.float32) for _ in range(2)]
+    real_get_model, real_one_batch = ttrain.get_model, ttrain.one_batch
+    handed, seeds, tgrads = list(lats), [], []
+
+    def get_model_shared(cfg, seed, device="cuda"):
+        gen = real_get_model(cfg, seed, device=device)
+        gen.params = params_from_numpy(params_np, device)
+        gen.model.init_latents = lambda params, inputs, generator: latents_from_numpy(
+            handed.pop(0), "cpu")
+        return gen
+
+    def one_batch_seen(params, opt_state, latents, seed, data, **kw):
+        seeds.append(seed)
+        tgrads.append(mcpc_chain(params, latents, data, seed,
+                                 **ttrain.chain_options(kw["config"]))[1])
+        return real_one_batch(params, opt_state, latents, seed, data, **kw)
+
+    monkeypatch.setattr(ttrain, "get_model", get_model_shared)
+    monkeypatch.setattr(ttrain, "one_batch", one_batch_seen)
+    monkeypatch.setattr(ttrain, "get_mnist_data", lambda cfg, seed=0, device="cpu": (
+        [(torch.from_numpy(d), None) for d in batches], None, None))
+    gen = ttrain.train_mcpc(1, str(tmp_path / "mse"), seed=2, log=False, preset="mse",
+                            device="cpu")
+    assert not handed and len(seeds) == 2
+
+    scale = jconfig["sampling"] * Bm
+    jkw = dict(T=jconfig["mixing"] + jconfig["sampling"],
+               lr=jconfig["optimizer_x_kwargs_mcpc"]["lr"], noise_var=2.0, loss="bernoulli",
+               mixing=jconfig["mixing"], with_pgrads=True, warm_T=jconfig["T_pc"],
+               warm_lr=jconfig["optimizer_x_kwargs_pc"]["lr"], interpret=True)
+    assert {k: v for k, v in jkw.items() if k != "interpret"} == ttrain.chain_options(config)
+    opt = optax.adam(jconfig["optimizer_p_kwargs_mcpc"]["lr"])
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
+    jstate = opt.init(jparams)
+    for batch, (lat, data, seed) in enumerate(zip(lats, batches, seeds)):
+        _, jg = mcpc_chain_pallas(jparams, tuple(jnp.asarray(x) for x in lat),
+                                  jnp.asarray(data), jnp.int32(seed), **jkw)
+        rel = 2e-6 if batch == 0 else 1e-4
+        for i in range(4):
+            for k in ("w", "b"):
+                want = np.asarray(jg[i][k])
+                np.testing.assert_allclose(tgrads[batch][i][k].numpy(), want, rtol=0,
+                                           atol=rel * max(float(np.abs(want).max()), 1e-30))
+        updates, jstate = opt.update(jax.tree_util.tree_map(lambda x: x / scale, jg), jstate,
+                                     jparams)
+        jparams = optax.apply_updates(jparams, updates)
+    for i in range(4):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(gen.params[i][k].numpy(), np.asarray(jparams[i][k]),
+                                       rtol=0, atol=1e-4)
+    assert np.array_equal(gen.params[0]["w"].numpy(), params_np[0]["w"])
+    loaded = load_checkpoint(str(tmp_path / "mse.msgpack"), gen.params, device="cpu")
+    assert all(torch.equal(p[k], q[k]) for p, q in zip(loaded, gen.params) for k in q)
