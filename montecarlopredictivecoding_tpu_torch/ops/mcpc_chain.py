@@ -748,6 +748,105 @@ def tf32_split_matmul(a: Tensor, b: Tensor) -> Tensor:
     return (al @ bh + ah @ bl + ah @ bh).float()
 
 
+@dataclasses.dataclass
+class StepTerms:
+    """What one step computes from its pre-update latents ``X`` [..., N]
+    (``N = d0 + d1 + d2``; any leading axes): ``H = act(X)``, the products'
+    operands ``h`` (H split by layer, rounded to bf16 under ``bf16_matmul``),
+    the errors, the logits (None without a sensory layer), the output-PC
+    site's error ``err3`` and gradient ``G3``, ``S`` (None with loss
+    ``"none"``), the backward products ``back``, ``dH = act'(X)`` and the
+    latents' gradient ``G``."""
+
+    H: Tensor
+    h: tp.Tuple[Tensor, Tensor, Tensor]
+    err0: Tensor
+    e1: Tensor
+    e2: Tensor
+    logits: tp.Optional[Tensor]
+    err3: tp.Optional[Tensor]
+    S: tp.Optional[Tensor]
+    back: Tensor
+    dH: Tensor
+    G: Tensor
+    G3: tp.Optional[Tensor]
+
+
+def step_terms(c: _Chain, weights, biases, X: Tensor, X3: tp.Optional[Tensor], y: Tensor,
+               clamped: tp.Optional[Tensor], act, op=lambda t: t) -> StepTerms:
+    """One step's forward and backward products of the plain version, on
+    latents ``X`` [..., N] (and x3 [..., D]): ``weights`` ``(w1, w2, w3)``
+    as the products take them, ``biases`` ``(b0, b1, b2, b3)``, ``y`` the
+    target, ``clamped`` the masked loss's column mask or None, ``act`` the
+    activation, ``op`` a product operand's rounding.  The constants
+    (``inv_var``, ``inv_var3``) are ``c``'s.  Shared by
+    :func:`mcpc_chain_reference` and the step rule (``step_rule.py``),
+    which runs it in float64 on many steps at once."""
+    d0, d1, d2, _ = c.dims
+    w1, w2, w3 = weights
+    b0, b1, b2, b3 = biases
+    H = act(X)
+    # the products' operands; act' and every sum take the unrounded values
+    h0, h1, h2 = op(H).split((d0, d1, d2), dim=-1)
+    err0 = X[..., :d0] - b0
+    e1 = X[..., d0 : d0 + d1] - (h0 @ w1 + b1)
+    e2 = X[..., d0 + d1 :] - (h1 @ w2 + b2)
+    G3 = err3 = logits = None
+    if c.output_pc:
+        logits = h2 @ w3 + b3
+        err3 = X3 - logits
+        S = -err3 * c.inv_var3
+        G3 = c.inv_var3 * err3
+        back2 = op(-S) @ w3.T
+    elif c.loss == "none":
+        S = None
+        back2 = torch.zeros_like(h2)
+    else:
+        logits = h2 @ w3 + b3
+        if c.loss == "bernoulli":
+            S = (0.5 + 0.5 * torch.tanh(0.5 * logits)) - y
+        else:
+            S = (logits - y) * c.inv_var
+        if clamped is not None:
+            S = S * clamped
+        back2 = op(-S) @ w3.T
+    back = torch.cat([op(e1) @ w1.T, op(e2) @ w2.T, back2], dim=-1)
+    dH = (X > 0).to(X.dtype) if c.activation == "relu" else 1.0 - H * H
+    G = torch.cat([err0, e1, e2], dim=-1) - dH * back
+    return StepTerms(H, (h0, h1, h2), err0, e1, e2, logits, err3, S, back, dH, G, G3)
+
+
+def adam_moments(m: Tensor, v: Tensor, G: Tensor, b1: float, b2: float, one_m_b1: float,
+                 one_m_b2: float) -> tp.Tuple[Tensor, Tensor]:
+    """The Adam moments after a warm step with gradient ``G``."""
+    return b1 * m + one_m_b1 * G, b2 * v + one_m_b2 * G * G
+
+
+def bias_corrections(c: _Chain) -> tp.Iterator[tp.Tuple[float, float]]:
+    """``(1 - b1^k, 1 - b2^k)`` of each warm step, the powers carried step
+    to step in float32 from ``c.bias0``, as the kernel carries them."""
+    b1p, b2p = np.float32(c.bias0[0]), np.float32(c.bias0[1])
+    for _ in range(c.warm_T):
+        yield float(np.float32(1.0) - b1p), float(np.float32(1.0) - b2p)
+        b1p = np.float32(b1p * np.float32(c.warm_b1))
+        b2p = np.float32(b2p * np.float32(c.warm_b2))
+
+
+def adam_step(x: Tensor, m: Tensor, v: Tensor, c1: float, c2: float, lr: float,
+              eps: float) -> Tensor:
+    """The warm step from the updated moments, in optax's operation order:
+    ``x - lr * (m / c1) / (sqrt(v / c2) + eps)``."""
+    return x - lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+
+
+def langevin_update(X: Tensor, G: Tensor, z: tp.Optional[Tensor], lr: float,
+                    noise_std: float) -> Tensor:
+    """A Langevin step: ``X - lr G``, then ``+ noise_std z`` where there is
+    noise."""
+    X = X - lr * G
+    return X if z is None else X + noise_std * z
+
+
 @torch.no_grad()
 def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
     d0, d1, d2, D = c.dims
@@ -775,34 +874,9 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
 
     def grads(X, X3, want_scalars: bool, sample: bool = False):
         """(G of the latents, G3 of x3 or None, scalars or None)."""
-        H = act(X)
-        # the products' operands; act' and every sum take the unrounded values
-        h0, h1, h2 = op(H).split((d0, d1, d2), dim=1)
-        err0 = X[:, :d0] - b0
-        e1 = X[:, d0 : d0 + d1] - (h0 @ w1 + b1)
-        e2 = X[:, d0 + d1 :] - (h1 @ w2 + b2)
-        G3 = err3 = None
-        if c.output_pc:
-            logits = h2 @ w3 + b3
-            err3 = X3 - logits
-            S = -err3 * c.inv_var3
-            G3 = c.inv_var3 * err3
-            back2 = op(-S) @ w3.T
-        elif c.loss == "none":
-            S = None
-            back2 = torch.zeros_like(h2)
-        else:
-            logits = h2 @ w3 + b3
-            if c.loss == "bernoulli":
-                S = (0.5 + 0.5 * torch.tanh(0.5 * logits)) - y
-            else:
-                S = (logits - y) * c.inv_var
-            if clamped is not None:
-                S = S * clamped
-            back2 = op(-S) @ w3.T
-        back = torch.cat([op(e1) @ w1.T, op(e2) @ w2.T, back2], dim=1)
-        dH = (X > 0).to(X.dtype) if c.activation == "relu" else 1.0 - H * H
-        G = torch.cat([err0, e1, e2], dim=1) - dH * back
+        s = step_terms(c, (w1, w2, w3), (b0, b1, b2, b3), X, X3, y, clamped, act, op)
+        (h0, h1, h2), err0, e1, e2 = s.h, s.err0, s.e1, s.e2
+        logits, err3, S, G, G3 = s.logits, s.err3, s.S, s.G, s.G3
         if sample:
             # Hebbian gradients from this (pre-update) state, over the batch
             gw1, gw2, gw3, gb0, gb1, gb2, gb3 = flat.split(_partial_sizes(c.dims))
@@ -879,28 +953,21 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
             m = torch.zeros_like(X)
             v = torch.zeros_like(X)
             m3, v3 = (torch.zeros_like(X3), torch.zeros_like(X3)) if sites == 4 else (None, None)
-        # bias-correction powers carried step to step in f32, as the kernel
-        b1p, b2p = np.float32(c.bias0[0]), np.float32(c.bias0[1])
 
         def adam(x, m, v, G, c1, c2):
-            m = c.warm_b1 * m + (1.0 - c.warm_b1) * G
-            v = c.warm_b2 * v + (1.0 - c.warm_b2) * G * G
-            # optax's operation order: (m / c1) / (sqrt(v / c2) + eps)
-            return x - c.warm_lr * (m / c1) / (torch.sqrt(v / c2) + c.warm_eps), m, v
+            m, v = adam_moments(m, v, G, c.warm_b1, c.warm_b2, 1.0 - c.warm_b1,
+                                1.0 - c.warm_b2)
+            return adam_step(x, m, v, c1, c2, c.warm_lr, c.warm_eps), m, v
 
-        for s in range(c.warm_T):
+        for s, (c1, c2) in enumerate(bias_corrections(c)):
             cs, last = (s if c.T == 0 else -1), s == total - 1
             want = observe(X, X3, cs, last)
             G, G3, sc = grads(X, X3, want, c.warm_pgrads and s == c.warm_T - 1)
             if want:
                 record(cs, last, sc)
-            c1 = float(np.float32(1.0) - b1p)
-            c2 = float(np.float32(1.0) - b2p)
             X, m, v = adam(X, m, v, G, c1, c2)
             if G3 is not None:
                 X3, m3, v3 = adam(X3, m3, v3, G3, c1, c2)
-            b1p = np.float32(b1p * np.float32(c.warm_b1))
-            b2p = np.float32(b2p * np.float32(c.warm_b2))
         if c.emit_opt_state:
             moments = tuple(_pack_aligned(t.split((d0, d1, d2), dim=1), (d0, d1, d2))
                             for t in (m, v))
@@ -930,15 +997,15 @@ def _reference(c: _Chain, params, latents, target, warm_mu=None, warm_nu=None):
         G, G3, sc = grads(X, X3, want, c.with_pgrads and t >= c.mixing)
         if want:
             record(t, last, sc)
-        X = X - c.lr * G
-        if G3 is not None:
-            X3 = X3 - c.lr * G3
+        z = z3 = None
         if noisy and c.packed:
-            X = X + c.noise_std * (z_cos if t % 2 == 0 else z_sin)
-            if G3 is not None:
-                X3 = X3 + c.noise_std * (z3_cos if t % 2 == 0 else z3_sin)
+            z = z_cos if t % 2 == 0 else z_sin
+            z3 = z3_cos if t % 2 == 0 else z3_sin
         elif noisy:
-            X = X + c.noise_std * _unpacked_normals(c, B, t, X.device)
+            z = _unpacked_normals(c, B, t, X.device)
+        X = langevin_update(X, G, z, c.lr, c.noise_std)
+        if G3 is not None:
+            X3 = langevin_update(X3, G3, z3, c.lr, c.noise_std)
 
     scalars = None
     if c.return_scalars:

@@ -9,8 +9,8 @@ summed in two halves of k added, or taken in float64 and rounded once
 the split-TF32 products of ``tf32_split_matmul`` (``split_products``).
 Faults: ``patched`` replaces a function of ``ops/mcpc_chain.py`` while the
 plain version runs, for example with ``stale_row`` (one row's update
-skipped for one step) or ``no_bias_correction`` (Adam's bias correction
-off).
+skipped for one step; ``stale_run`` where the step rule splits the chain)
+or ``no_bias_correction`` (Adam's bias correction off).
 """
 
 from __future__ import annotations
@@ -103,6 +103,18 @@ def stale_row(rows: int, row: int, step: int):
             return stale
         return activation
     return wrap
+
+
+def stale_run(run, chain, rows: int, row: int, step: int, warm_T: int):
+    """``run`` with ``stale_row`` patched in, ``step`` counted over the
+    whole chain of ``warm_T`` warm steps: a Langevin-only call (``warm_T``
+    0, as the step rule splits a chain with both phases) counts from the
+    warm phase's end."""
+    def wrapped(*args, **kw):
+        at = step - (warm_T if warm_T and not kw.get("warm_T") else 0)
+        with patched(chain, "activation_fn", stale_row(rows, row, at)):
+            return run(*args, **kw)
+    return wrapped
 
 
 def no_bias_correction(saved):
