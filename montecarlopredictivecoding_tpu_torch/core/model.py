@@ -153,6 +153,9 @@ class PCModel:
         """Sample fresh latents via each PC site's ``sample_x_fn`` during a
         forward pass: later predictions are computed from the freshly sampled
         latents.  The sites draw from ``generator`` in order."""
+        # imported here: utils imports this module
+        from ..utils.observability import span
+
         out: list = []
 
         def on_pc(pi: int, spec: PC, mu: Tensor) -> Tensor:
@@ -161,7 +164,7 @@ class PCModel:
             out.append(x)
             return x
 
-        with torch.no_grad():
+        with span("mcpc.init_latents"), torch.no_grad():
             self._walk(params, inputs, on_pc)
         return tuple(out)
 

@@ -26,6 +26,7 @@ from .model import PCModel
 from .modules import Activation, activation_fn, gaussian_energy
 from .optim import OptimizerSpec, ScaleByAdamState, apply_updates
 from .schedule import build_plan
+from ..utils.observability import slow_down_warning, span
 
 Tensor = torch.Tensor
 
@@ -334,8 +335,6 @@ class PCTrainer:
         if self._kernel_fallback_reason in self._warned_fallbacks:
             return
         self._warned_fallbacks.add(self._kernel_fallback_reason)
-        from ..utils.observability import slow_down_warning
-
         option, suggestion = self._kernel_fallback_reason
         slow_down_warning(
             "PCTrainer.train_on_batch",
@@ -714,122 +713,123 @@ class PCTrainer:
         seed (default: the model's).  ``chain_seed`` fixes the fused chain's
         noise seed instead of drawing it; the engine, whose noise comes from
         the generator, does not read it."""
-        inputs = torch.as_tensor(inputs)
-        loss_fn_kwargs = dict(loss_fn_kwargs or {})
-        # kwargs that select static slices / reductions are bound into the
-        # loss function ('perc' of the masked losses)
-        static_keys = tuple(
-            k for k in ("perc", "_reduction") if k in loss_fn_kwargs
-        )
-        if loss_fn is not None and static_keys:
-            static_part = tuple((k, loss_fn_kwargs.pop(k)) for k in static_keys)
-            loss_fn = _static_loss_partial(loss_fn, static_part)
-        if isinstance(callback_after_t, LangevinStep):
-            langevin_var = callback_after_t.var
-        elif callback_after_t is not None:
-            raise TypeError(
-                "callback_after_t must be a LangevinStep; arbitrary callbacks "
-                "are not run between steps — express the hook as config (see "
-                "LangevinStep) or post-process results."
+        with span("mcpc.train_on_batch"):
+            inputs = torch.as_tensor(inputs)
+            loss_fn_kwargs = dict(loss_fn_kwargs or {})
+            # kwargs that select static slices / reductions are bound into the
+            # loss function ('perc' of the masked losses)
+            static_keys = tuple(
+                k for k in ("perc", "_reduction") if k in loss_fn_kwargs
             )
-
-        gen = self.gen
-        generator = key if key is not None else gen.generator
-        # latent (re)sampling triggers
-        resample = is_sample_x_at_batch_start
-        if not resample:
-            if gen.latents is None:
-                warnings.warn(
-                    "latents have not been initialized yet; sampling them now.",
-                    RuntimeWarning,
+            if loss_fn is not None and static_keys:
+                static_part = tuple((k, loss_fn_kwargs.pop(k)) for k in static_keys)
+                loss_fn = _static_loss_partial(loss_fn, static_part)
+            if isinstance(callback_after_t, LangevinStep):
+                langevin_var = callback_after_t.var
+            elif callback_after_t is not None:
+                raise TypeError(
+                    "callback_after_t must be a LangevinStep; arbitrary callbacks "
+                    "are not run between steps — express the hook as config (see "
+                    "LangevinStep) or post-process results."
                 )
-                resample = True
-            elif gen.latents[0].shape[0] != inputs.shape[0]:
-                warnings.warn(
-                    "batch size changed; resampling latents.", RuntimeWarning,
-                )
-                resample = True
 
-        if resample:
-            gen.sample_latents(inputs, generator)
-            self.recreate_optimizer_x()
-        elif is_reset_optimizer_x_at_batch_start:
-            self.recreate_optimizer_x()
-        if is_reset_optimizer_p_at_batch_start:
-            self.recreate_optimizer_p()
+            gen = self.gen
+            generator = key if key is not None else gen.generator
+            # latent (re)sampling triggers
+            resample = is_sample_x_at_batch_start
+            if not resample:
+                if gen.latents is None:
+                    warnings.warn(
+                        "latents have not been initialized yet; sampling them now.",
+                        RuntimeWarning,
+                    )
+                    resample = True
+                elif gen.latents[0].shape[0] != inputs.shape[0]:
+                    warnings.warn(
+                        "batch size changed; resampling latents.", RuntimeWarning,
+                    )
+                    resample = True
 
-        cfg = EngineConfig(
-            plan=self.plan,
-            optimizer_x=self.opt_x_spec,
-            optimizer_p=self.opt_p_spec,
-            energy_coefficient=self.energy_coefficient,
-            x_lr_discount=self.x_lr_discount,
-            x_lr_amplifier=self.x_lr_amplifier,
-            langevin_var=langevin_var,
-            loss_fn=loss_fn,
-            loss_x_fn=self.loss_x_fn,
-            loss_inputs_fn=self.loss_inputs_fn,
-            early_stop_fn=self.early_stop_fn,
-            update_p_at_early_stop=self.update_p_at_early_stop,
-            optimize_inputs=is_optimize_inputs,
-            capture_every_t=is_return_results_every_t,
-            capture_outputs=is_return_outputs,
-            capture_representations=is_return_representations,
-            capture_xs=is_return_xs,
-            capture_overall_elementwise=is_return_batchelement_loss,
-            capture_stride=int(capture_stride),
-        )
-        dispatch = self._kernel_eligible(
-            cfg, loss_fn, is_optimize_inputs, langevin_var, inputs.shape[0]
-        )
-        if dispatch is not None and any(
-            k.startswith("energy__") for k in loss_fn_kwargs
-        ):
-            # extra energy inputs aren't representable in the chain
-            dispatch = self._no_kernel(
-                "energy__* extra energy inputs", "a plain energy_fn"
+            if resample:
+                gen.sample_latents(inputs, generator)
+                self.recreate_optimizer_x()
+            elif is_reset_optimizer_x_at_batch_start:
+                self.recreate_optimizer_x()
+            if is_reset_optimizer_p_at_batch_start:
+                self.recreate_optimizer_p()
+
+            cfg = EngineConfig(
+                plan=self.plan,
+                optimizer_x=self.opt_x_spec,
+                optimizer_p=self.opt_p_spec,
+                energy_coefficient=self.energy_coefficient,
+                x_lr_discount=self.x_lr_discount,
+                x_lr_amplifier=self.x_lr_amplifier,
+                langevin_var=langevin_var,
+                loss_fn=loss_fn,
+                loss_x_fn=self.loss_x_fn,
+                loss_inputs_fn=self.loss_inputs_fn,
+                early_stop_fn=self.early_stop_fn,
+                update_p_at_early_stop=self.update_p_at_early_stop,
+                optimize_inputs=is_optimize_inputs,
+                capture_every_t=is_return_results_every_t,
+                capture_outputs=is_return_outputs,
+                capture_representations=is_return_representations,
+                capture_xs=is_return_xs,
+                capture_overall_elementwise=is_return_batchelement_loss,
+                capture_stride=int(capture_stride),
             )
-        if dispatch is None:
-            self._warn_kernel_fallback(inputs.device)
-        else:
-            self.kernel_calls += 1
-            results = self._run_kernel(
-                dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, generator, chain_seed)
+            dispatch = self._kernel_eligible(
+                cfg, loss_fn, is_optimize_inputs, langevin_var, inputs.shape[0]
+            )
+            if dispatch is not None and any(
+                k.startswith("energy__") for k in loss_fn_kwargs
+            ):
+                # extra energy inputs aren't representable in the chain
+                dispatch = self._no_kernel(
+                    "energy__* extra energy inputs", "a plain energy_fn"
+                )
+            if dispatch is None:
+                self._warn_kernel_fallback(inputs.device)
+            else:
+                self.kernel_calls += 1
+                results = self._run_kernel(
+                    dispatch, cfg, inputs, loss_fn_kwargs, langevin_var, generator, chain_seed)
+                if not is_return_results_every_t:
+                    results = _last_only_results(results)
+                return results
+
+            self.engine_calls += 1
+            fn = self._get_fn(cfg)
+            opt_x = self.opt_x_spec.make()
+            xs_tree = {"latents": gen.latents}
+            if is_optimize_inputs:
+                xs_tree["inputs"] = inputs
+            if self._opt_x_state is None:
+                self._opt_x_state = opt_x.init(xs_tree)
+            if self._opt_p_state is None and self.opt_p_spec is not None:
+                self._opt_p_state = self.opt_p_spec.make().init(gen.params)
+
+            state = EngineState(
+                params=gen.params,
+                latents=gen.latents,
+                opt_x_state=self._opt_x_state,
+                opt_p_state=self._opt_p_state,
+                lr_scale=self._lr_scale,
+                generator=generator,
+            )
+            new_state, results = fn(state, inputs, loss_fn_kwargs)
+
+            gen.params = new_state.params
+            gen.latents = tuple(new_state.latents)
+            self._opt_x_state = new_state.opt_x_state
+            self._opt_p_state = new_state.opt_p_state
+            self._lr_scale = new_state.lr_scale
+            if cfg.dynamic_x_lr:
+                # the live scale now exists only in the engine's state; the host
+                # mirror is unknown until set_x_lr / recreate_optimizer_x
+                self._lr_scale_host = None
+
             if not is_return_results_every_t:
                 results = _last_only_results(results)
             return results
-
-        self.engine_calls += 1
-        fn = self._get_fn(cfg)
-        opt_x = self.opt_x_spec.make()
-        xs_tree = {"latents": gen.latents}
-        if is_optimize_inputs:
-            xs_tree["inputs"] = inputs
-        if self._opt_x_state is None:
-            self._opt_x_state = opt_x.init(xs_tree)
-        if self._opt_p_state is None and self.opt_p_spec is not None:
-            self._opt_p_state = self.opt_p_spec.make().init(gen.params)
-
-        state = EngineState(
-            params=gen.params,
-            latents=gen.latents,
-            opt_x_state=self._opt_x_state,
-            opt_p_state=self._opt_p_state,
-            lr_scale=self._lr_scale,
-            generator=generator,
-        )
-        new_state, results = fn(state, inputs, loss_fn_kwargs)
-
-        gen.params = new_state.params
-        gen.latents = tuple(new_state.latents)
-        self._opt_x_state = new_state.opt_x_state
-        self._opt_p_state = new_state.opt_p_state
-        self._lr_scale = new_state.lr_scale
-        if cfg.dynamic_x_lr:
-            # the live scale now exists only in the engine's state; the host
-            # mirror is unknown until set_x_lr / recreate_optimizer_x
-            self._lr_scale_host = None
-
-        if not is_return_results_every_t:
-            results = _last_only_results(results)
-        return results

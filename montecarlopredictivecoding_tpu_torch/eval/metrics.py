@@ -25,6 +25,7 @@ from ..core.losses import bernoulli_fn, bernoulli_fn_mask, fe_fn, fe_fn_mask
 from ..core.modules import PC, Linear
 from ..core.trainer import GenerativeModel
 from ..ops.mcpc_chain import full_f32_matmul
+from ..utils.observability import span
 from .sampling import sample_pc
 
 
@@ -78,11 +79,12 @@ def get_mse_rec(
             loss_fn_kwargs={"_target": data, "_var": config["input_var"]},
             is_return_results_every_t=False,
         )
-        img = decode_from_deepest_latent(gen)
-        if loss_fn is bernoulli_fn:
-            img = (img > 0).to(img.dtype)  # logits: threshold at 0
-        k = round(data.shape[1] / 2)
-        mse += float(torch.sum(torch.mean((img[:, :-k] - data[:, :-k]) ** 2, dim=1)))
+        with span("mcpc.mse_rec.score"):
+            img = decode_from_deepest_latent(gen)
+            if loss_fn is bernoulli_fn:
+                img = (img > 0).to(img.dtype)  # logits: threshold at 0
+            k = round(data.shape[1] / 2)
+            mse += float(torch.sum(torch.mean((img[:, :-k] - data[:, :-k]) ** 2, dim=1)))
         n_data += data.shape[0]
     return mse / n_data
 

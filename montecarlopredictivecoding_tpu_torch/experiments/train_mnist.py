@@ -58,6 +58,7 @@ from ..ops.mcpc_chain import mcpc_chain
 from ..parallel.fused_dp import broadcast_params, make_dp_fused_chain, shard_rows
 from ..parallel.mesh import make_mesh, rank_device
 from ..utils.checkpoint import save_checkpoint, save_resnet9
+from ..utils.observability import span
 
 
 def _msgpack(out: str) -> str:
@@ -162,9 +163,10 @@ def one_batch(params, opt_state, latents, seed: int, data, *,
     gradients from ``latents`` (a tuple ``(x0, x1, x2)``) and the noise seed
     ``seed``, then the Monte-Carlo Adam update.  Returns ``(params',
     opt_state')``."""
-    _, pgrads = mcpc_chain(params, latents, data, seed,
-                           **chain_options(config, langevin_var))
-    return param_step(params, opt_state, pgrads, data.shape[0], config=config)
+    with span("mcpc.one_batch"):
+        _, pgrads = mcpc_chain(params, latents, data, seed,
+                               **chain_options(config, langevin_var))
+        return param_step(params, opt_state, pgrads, data.shape[0], config=config)
 
 
 def one_batch_dp(params, opt_state, latents, seed: int, data, *,

@@ -98,6 +98,7 @@ import torch
 
 from ..core.model import PCModel
 from ..core.modules import PC, Activation, activation_fn, gaussian_energy
+from ..utils.observability import span
 
 Tensor = torch.Tensor
 
@@ -574,10 +575,11 @@ def traj_scalar_rows(traj: Tensor, params, target, c: _Chain,
     ``_traj_scalar_rows``), in chunks of ``_SCALAR_RECOMPUTE_ROWS`` rows."""
     n_cap, B = traj.shape[0], traj.shape[1]
     chunk = max(1, _SCALAR_RECOMPUTE_ROWS // B)
-    parts = [_traj_scalar_block(traj[i : i + chunk], params, target, c,
-                                None if traj3 is None else traj3[i : i + chunk])
-             for i in range(0, n_cap, chunk)]
-    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+    with span("mcpc.capture_rows"):
+        parts = [_traj_scalar_block(traj[i : i + chunk], params, target, c,
+                                    None if traj3 is None else traj3[i : i + chunk])
+                 for i in range(0, n_cap, chunk)]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
 
 
 def _traj_scalar_block(traj: Tensor, params, target, c: _Chain, traj3=None):
@@ -1652,14 +1654,15 @@ def mcpc_chain(params, latents, target, seed, **options):
     ``launches_bf16`` / ``launches_unpacked_bf16`` those of their bf16
     builds.
     """
-    c = _chain_args(params, latents, target, seed, **options)
-    device = latents[0].device
-    moments = options.get("warm_mu"), options.get("warm_nu")
-    if device.type == "cpu":
-        return _reference(c, params, latents, target, *moments)
-    if device.type == "cuda":
-        return _kernel(c, params, latents, target, None, None, *moments)
-    raise ValueError(f"mcpc_chain runs on cpu or cuda, not {device.type}")
+    with span("mcpc.chain"):
+        c = _chain_args(params, latents, target, seed, **options)
+        device = latents[0].device
+        moments = options.get("warm_mu"), options.get("warm_nu")
+        if device.type == "cpu":
+            return _reference(c, params, latents, target, *moments)
+        if device.type == "cuda":
+            return _kernel(c, params, latents, target, None, None, *moments)
+        raise ValueError(f"mcpc_chain runs on cpu or cuda, not {device.type}")
 
 
 mcpc_chain.launches = 0

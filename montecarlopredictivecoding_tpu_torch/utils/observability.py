@@ -1,12 +1,14 @@
 """Observability: progress logging, the plot-progress diagnostic, a profiler
-context and the warning that an option sends work down a slower path.
+context, the program's spans and the warning that an option sends work down
+a slower path.
 
 Reference counterparts: tqdm postfix logging, the plot-progress subsystem
 rendering energy/loss/overall against t per batch with its "loss absorbed
 into hidden-layer energy" health check, and the "this will slow down
 training" warnings.  :func:`profile_trace` records a ``torch.profiler``
 trace (host and, on a card, device activity) where the JAX package records
-a ``jax.profiler`` one.
+a ``jax.profiler`` one; :func:`span` marks the port's layer boundaries in
+that trace.
 """
 
 from __future__ import annotations
@@ -20,6 +22,20 @@ import warnings
 
 import numpy as np
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named host span at one of the port's layer boundaries
+    (``mcpc.*``): ``torch.profiler.record_function(name)`` while a profiler
+    records, so the span lands in its trace on the clock of the card's
+    kernels and copies; otherwise one shared no-op context, which costs a
+    check of the profiler's state and makes nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def slow_down_warning(caller: str, option: str, suggestion: str) -> None:
@@ -42,7 +58,9 @@ def _host(values) -> np.ndarray:
 class ProgressLogger:
     """Lightweight per-batch progress reporting (the tqdm-postfix role):
     call with each ``train_on_batch`` results dict; prints loss/energy/overall
-    and steps/sec."""
+    and steps/sec.  A row's ``seconds`` runs from the previous row's end to
+    the end of this row's reads of ``results``, which wait for the batch's
+    device work."""
 
     def __init__(self, every: int = 1, prefix: str = ""):
         self.every = every
@@ -52,16 +70,17 @@ class ProgressLogger:
         self._t_last = time.perf_counter()
 
     def __call__(self, results: dict, T: tp.Optional[int] = None) -> None:
-        now = time.perf_counter()
-        dt = now - self._t_last
-        self._t_last = now
         row = {
             "h": self.h,
             "loss": float(_host(results["loss"])[-1]),
             "energy": float(_host(results["energy"])[-1]),
             "overall": float(_host(results["overall"])[-1]),
-            "seconds": dt,
         }
+        # after the reads, which wait for this batch's device work
+        now = time.perf_counter()
+        dt = now - self._t_last
+        self._t_last = now
+        row["seconds"] = dt
         if T:
             row["steps_per_sec"] = T / dt
         self.history.append(row)

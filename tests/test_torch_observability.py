@@ -1,11 +1,13 @@
 """The port's observability kit (``utils/observability.py``) against the JAX
-package's: ``ProgressLogger``'s history and ``energy_absorption_report`` on
-the same results (exact: both read the same float32 numbers, the report
-sums in float64), ``plot_progress`` writes a PNG, ``profile_trace`` writes
-a trace, and ``utils`` exports what the JAX ``utils`` exports."""
+package's: ``ProgressLogger``'s history (each row's time its own batch's)
+and ``energy_absorption_report`` on the same results (exact: both read the
+same float32 numbers, the report sums in float64), ``plot_progress`` writes
+a PNG, ``profile_trace`` writes a trace, and ``utils`` exports what the JAX
+``utils`` exports."""
 
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +56,30 @@ def test_progress_logger_history_matches_jax(results, capsys):
     assert [{k: row[k] for k in keep} for row in log.history] == \
         [{k: row[k] for k in keep} for row in jlog.history]
     assert all(row["steps_per_sec"] > 0 for row in log.history)
+
+
+class _SlowRead:
+    """A results entry whose host read takes ``delay`` seconds, as a read
+    that waits for the card's work."""
+
+    def __init__(self, delay):
+        self.delay = delay
+
+    def __array__(self, dtype=None, copy=None):
+        time.sleep(self.delay)
+        return np.zeros(3, np.float32)
+
+
+def test_progress_logger_charges_a_slow_read_to_its_own_row():
+    log = obs.ProgressLogger(every=1000)
+    fast = {k: torch.zeros(3) for k in ("loss", "energy", "overall")}
+    slow = dict(fast, loss=_SlowRead(0.3))
+    for r in (fast, slow, fast):
+        log(r, T=10)
+    seconds = [row["seconds"] for row in log.history]
+    assert seconds[1] >= 0.3 and seconds[2] < 0.3
+    assert log.history[1]["steps_per_sec"] <= 10 / 0.3
+    assert list(log.history[0]) == ["h", "loss", "energy", "overall", "seconds", "steps_per_sec"]
 
 
 def test_energy_absorption_report_matches_jax(results):
