@@ -64,11 +64,24 @@ def random_tensor(kind: str, shape, generator: tp.Optional[torch.Generator],
                   dtype: torch.dtype, device) -> Tensor:
     """``torch.rand``/``torch.randn`` drawn on the generator's own device and
     moved to ``device``: the same generator state gives the same numbers
-    whichever device the result lives on."""
+    whichever device the result lives on.
+
+    A CPU generator's draw for a CUDA device is made in pinned host memory
+    and copied on the current stream without a host wait: the caching host
+    allocator hands the block out again only after that copy has run.
+    ``random_tensor.staged`` counts those draws; assign 0 to reset it."""
     gen_device = generator.device if generator is not None else device
     fn = torch.rand if kind == "uniform" else torch.randn
+    if (generator is not None and gen_device.type == "cpu"
+            and torch.device(device).type == "cuda"):
+        out = fn(tuple(shape), generator=generator, dtype=dtype, pin_memory=True)
+        random_tensor.staged += 1
+        return out.to(device, non_blocking=True)
     out = fn(tuple(shape), generator=generator, dtype=dtype, device=gen_device)
     return out.to(device)
+
+
+random_tensor.staged = 0
 
 
 def forward_init(inputs: dict) -> Tensor:
