@@ -161,7 +161,8 @@ class PCTrainer:
     products (``mcpc_chain(..., bf16_matmul=True)``: bf16 operands, f32
     sums, f32 state); ``"auto"`` (default) and ``False`` keep f32, as the
     JAX trainer's ``use_pallas_bf16`` does.  ``kernel_calls`` and
-    ``engine_calls`` count the ``train_on_batch`` calls each path took.
+    ``engine_calls`` count the ``train_on_batch`` calls each path took, and
+    ``kernel_param_updates`` the parameter updates the chain's path took.
     """
 
     def __init__(
@@ -234,6 +235,7 @@ class PCTrainer:
         self.use_kernel_bf16: tp.Union[str, bool] = "auto"
         self.kernel_calls = 0
         self.engine_calls = 0
+        self.kernel_param_updates = 0
         # why the last dispatch that could have used the chain fell back to
         # the engine; warned once per reason
         self._kernel_fallback_reason: tp.Optional[tp.Tuple[str, str]] = None
@@ -616,15 +618,6 @@ class PCTrainer:
                     blocks += (tail[:, :D_out].contiguous(),)
                 return blocks
 
-            # init through the spec so the state matches what the engine's
-            # optimizer expects, then graft the chain's final moments into
-            # its (unique) Adam state
-            count = self.T + (warm_cont[2] if warm_cont is not None else 0)
-            grafted = ScaleByAdamState(
-                count,
-                {"latents": split(warm_mv[0], warm_mv[2] if output_pc else None)},
-                {"latents": split(warm_mv[1], warm_mv[3] if output_pc else None)})
-
             def graft(s):
                 if isinstance(s, ScaleByAdamState):
                     return grafted
@@ -632,16 +625,27 @@ class PCTrainer:
                     return tuple(graft(x) for x in s)
                 return s
 
-            self._opt_x_state = graft(
-                self.opt_x_spec.make().init({"latents": gen.latents}))
+            # init through the spec so the state matches what the engine's
+            # optimizer expects, then graft the chain's final moments into
+            # its (unique) Adam state
+            with span("mcpc.trainer.warm_state"):
+                count = self.T + (warm_cont[2] if warm_cont is not None else 0)
+                grafted = ScaleByAdamState(
+                    count,
+                    {"latents": split(warm_mv[0], warm_mv[2] if output_pc else None)},
+                    {"latents": split(warm_mv[1], warm_mv[3] if output_pc else None)})
+                self._opt_x_state = graft(
+                    self.opt_x_spec.make().init({"latents": gen.latents}))
         if dispatch["with_pgrads"] and self.opt_p_spec is not None:
-            opt_p = self.opt_p_spec.make()
-            if self._opt_p_state is None:
-                self._opt_p_state = opt_p.init(gen.params)
-            divisor = float(cfg.plan.p_divisor_steps * inputs.shape[0])
-            updates, self._opt_p_state = opt_p.update(
-                tree_scale(pgrads, 1.0 / divisor), self._opt_p_state, gen.params)
-            gen.params = apply_updates(gen.params, updates)
+            with span("mcpc.trainer.param_update"):
+                opt_p = self.opt_p_spec.make()
+                if self._opt_p_state is None:
+                    self._opt_p_state = opt_p.init(gen.params)
+                divisor = float(cfg.plan.p_divisor_steps * inputs.shape[0])
+                updates, self._opt_p_state = opt_p.update(
+                    tree_scale(pgrads, 1.0 / divisor), self._opt_p_state, gen.params)
+                gen.params = apply_updates(gen.params, updates)
+            self.kernel_param_updates += 1
         # pre-update scalars per step: the captured steps (or slots), then
         # the final step
         loss_rows, energy_rows = scalars["loss"], scalars["energy"]

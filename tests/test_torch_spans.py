@@ -192,13 +192,16 @@ def test_get_mse_rec_one_score_span_a_batch(k, tmp_path):
 
 def test_pc_trainer_warm_start_spans(tmp_path):
     """The PC trainer's Adam warm start takes the chain too: one
-    ``mcpc.chain`` inside its ``mcpc.train_on_batch``, no capture rows
-    without captures."""
+    ``mcpc.chain`` inside its ``mcpc.train_on_batch``, then the graft of
+    the chain's Adam moments (``mcpc.trainer.warm_state``) inside it; no
+    capture rows without captures and no parameter update."""
     gen = mt.GenerativeModel(mt.make_mlp_model(*DIMS), 8, device="cpu")
     tr = get_pc_trainer(gen, CONFIG, is_mcpc=True, training=False)
     with obs.profile_trace(str(tmp_path)) as prof:
         tr.train_on_batch(torch.zeros(B, DIMS[0]), loss_fn=mt.bernoulli_fn,
                           loss_fn_kwargs={"_target": batch(9)}, is_return_results_every_t=False)
     spans = recorded(prof)
-    assert names(spans) == ["mcpc.train_on_batch", "mcpc.init_latents", "mcpc.chain"]
+    assert names(spans) == ["mcpc.train_on_batch", "mcpc.init_latents", "mcpc.chain",
+                            "mcpc.trainer.warm_state"]
     assert tr.kernel_calls == 1 and inside(spans, "mcpc.chain", "mcpc.train_on_batch")
+    assert inside(spans, "mcpc.trainer.warm_state", "mcpc.train_on_batch")
