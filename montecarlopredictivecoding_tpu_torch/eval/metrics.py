@@ -57,7 +57,8 @@ def get_mse_rec(
 ) -> float:
     """Masked-reconstruction MSE: MAP inference with only the last half of
     the pixels clamped (``T_pc`` steps of the config's PC optimizer), then
-    the MSE over the hidden half, averaged over images.  ``trainer_factory(gen,
+    the MSE over the hidden half, averaged over images.  The batches' sums
+    are read back to the host once, after the last batch.  ``trainer_factory(gen,
     config)`` replaces the default PC trainer."""
     from ..models.factory import get_pc_trainer
 
@@ -69,7 +70,9 @@ def get_mse_rec(
         else get_pc_trainer(gen, config, is_mcpc=True, training=False)
     )
 
-    mse, n_data = 0.0, 0
+    # each batch's squared-error sum stays on the device until the last batch
+    # is queued, so the next batch's latent draws overlap the chain
+    sums, n_data = [], 0
     for data, _ in batches:
         pseudo = torch.zeros((data.shape[0], config["input_size"]), dtype=data.dtype,
                              device=data.device)
@@ -84,8 +87,14 @@ def get_mse_rec(
             if loss_fn is bernoulli_fn:
                 img = (img > 0).to(img.dtype)  # logits: threshold at 0
             k = round(data.shape[1] / 2)
-            mse += float(torch.sum(torch.mean((img[:, :-k] - data[:, :-k]) ** 2, dim=1)))
+            sums.append(torch.sum(torch.mean((img[:, :-k] - data[:, :-k]) ** 2, dim=1)))
         n_data += data.shape[0]
+    mse = 0.0
+    if sums:
+        with span("mcpc.mse_rec.readback"):
+            values = torch.stack(sums).tolist()
+        for value in values:  # in batch order, in float64, as one float() a batch
+            mse += value
     return mse / n_data
 
 

@@ -171,8 +171,9 @@ def test_train_on_batch_engine_path_has_no_span_inside_its_steps(tmp_path):
 @pytest.mark.parametrize("k", [1, 3])
 def test_get_mse_rec_one_score_span_a_batch(k, tmp_path):
     """``get_mse_rec`` over k batches: k ``mcpc.mse_rec.score`` spans, each
-    after its batch's ``mcpc.train_on_batch``; the MSE and latents as
-    untraced."""
+    after its batch's ``mcpc.train_on_batch``, then one
+    ``mcpc.mse_rec.readback`` after the last of them and inside no
+    ``mcpc.train_on_batch``; the MSE and latents as untraced."""
     config = dict(CONFIG, T_pc=4, optimizer_x_kwargs_pc={"lr": 0.1})
     batches = [(batch(20 + i), None) for i in range(k)]
 
@@ -184,9 +185,13 @@ def test_get_mse_rec_one_score_span_a_batch(k, tmp_path):
     with obs.profile_trace(str(tmp_path)) as prof:
         t_mse, t_latents = score()
     spans = recorded(prof)
-    top = [n for n in names(spans) if n in ("mcpc.train_on_batch", "mcpc.mse_rec.score")]
-    assert top == ["mcpc.train_on_batch", "mcpc.mse_rec.score"] * k
+    top = [n for n in names(spans)
+           if n in ("mcpc.train_on_batch", "mcpc.mse_rec.score", "mcpc.mse_rec.readback")]
+    assert top == ["mcpc.train_on_batch", "mcpc.mse_rec.score"] * k + ["mcpc.mse_rec.readback"]
     assert not inside(spans, "mcpc.mse_rec.score", "mcpc.train_on_batch")
+    assert not inside(spans, "mcpc.mse_rec.readback", "mcpc.train_on_batch")
+    (readback,) = [s for s in spans if s[0] == "mcpc.mse_rec.readback"]
+    assert readback[1] >= max(e for n, _, e in spans if n == "mcpc.mse_rec.score")
     assert mse == t_mse and same(latents, t_latents)
 
 
