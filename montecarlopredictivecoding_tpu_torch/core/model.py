@@ -17,6 +17,7 @@ import typing as tp
 import torch
 
 from .modules import PC, Activation, Linear, random_tensor, uniform_init
+from ..utils.observability import span
 
 Tensor = torch.Tensor
 Params = tp.Tuple[dict, ...]
@@ -153,9 +154,6 @@ class PCModel:
         """Sample fresh latents via each PC site's ``sample_x_fn`` during a
         forward pass: later predictions are computed from the freshly sampled
         latents.  The sites draw from ``generator`` in order."""
-        # imported here: utils imports this module
-        from ..utils.observability import span
-
         out: list = []
 
         def on_pc(pi: int, spec: PC, mu: Tensor) -> Tensor:

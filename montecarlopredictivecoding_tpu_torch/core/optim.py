@@ -7,7 +7,10 @@ a :class:`Transform` with ``init(tree)`` and ``update(grads, state, tree) ->
 ``adam`` (``scale_by_adam`` then ``-lr``), ``adamw``, and torch's
 ``weight_decay`` as ``add_decayed_weights`` in front.  The engine uses them
 for the latents and the parameters, ``train_mcpc`` for its parameter step.
-A tree is a tensor, or a dict, tuple or list of trees.
+A tree is a tensor, or a dict, tuple or list of trees.  The layout of an
+``adam`` state is known here only: :func:`adam_moments` reads its moments and
+count, :func:`adam_state` builds one from them (the trainer's warm chain
+resumes and hands back the latents' Adam state through the two).
 
 Adam is optax's:
 
@@ -161,6 +164,33 @@ def _scale_by_adam(b1: float, b2: float, eps: float) -> Transform:
 
 def apply_updates(tree, updates):
     return _foreach(torch._foreach_add, tree, updates)
+
+
+def adam_state(mu, nu, count: int) -> tuple:
+    """The state ``OptimizerSpec("adam").make().init(tree)`` gives, holding
+    the moments ``mu`` and ``nu`` (trees shaped like ``tree``) and ``count``
+    in place of zeros and 0."""
+    return (ScaleByAdamState(count, mu, nu), ())
+
+
+def adam_moments(state, tree) -> tp.Optional[tuple]:
+    """``(mu, nu, count)`` of ``state`` when it is a state of
+    ``OptimizerSpec("adam").make()`` (no weight decay) over a tree shaped
+    like ``tree``, else None."""
+    if not (isinstance(state, tuple) and len(state) == 2
+            and isinstance(state[0], ScaleByAdamState) and state[1] == ()):
+        return None
+    s = state[0]
+
+    def same_shape(x, m, v):
+        if not all(isinstance(t, torch.Tensor) and t.shape == x.shape for t in (m, v)):
+            raise ValueError("the moments are not shaped like the tree")
+
+    try:
+        tree_map(same_shape, tree, s.mu, s.nu)
+    except ValueError:
+        return None
+    return s.mu, s.nu, s.count
 
 
 @dataclasses.dataclass(frozen=True)

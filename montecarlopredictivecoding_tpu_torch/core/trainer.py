@@ -21,19 +21,15 @@ import warnings
 
 import torch
 
+from . import losses as L
 from .engine import EngineConfig, EngineState, build_train_on_batch, tree_scale
 from .model import PCModel
-from .modules import Activation, activation_fn, gaussian_energy
-from .optim import OptimizerSpec, ScaleByAdamState, apply_updates
+from .modules import activation_fn
+from .optim import OptimizerSpec, adam_moments, adam_state, apply_updates
 from .schedule import build_plan
 from ..utils.observability import slow_down_warning, span
 
 Tensor = torch.Tensor
-
-_CANONICAL_KINDS = [
-    "Linear", "PC", "Activation", "Linear", "PC", "Activation",
-    "Linear", "PC", "Activation", "Linear",
-]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,27 +122,6 @@ def _last_only_results(results: dict) -> dict:
     return results
 
 
-def _kernel_family(model: PCModel):
-    """``(activation, output_var)`` when the model is in the JAX kernel's
-    family (the canonical relu/tanh MLP with Gaussian energies and no S/M
-    masks, optionally with a trailing Gaussian PC site), else None."""
-    names = {m.name for m in model.modules if isinstance(m, Activation)}
-    activation = names.pop() if len(names) == 1 else None
-    if activation not in ("relu", "tanh"):
-        return None
-    kinds = [type(m).__name__ for m in model.modules]
-    pcs = model.pc_layers
-    plain = lambda m: m.energy_fn is gaussian_energy and m.S is None and m.M is None
-    if kinds == _CANONICAL_KINDS:
-        return (activation, None) if all(plain(m) for m in pcs) else None
-    if kinds == _CANONICAL_KINDS + ["PC"] and all(plain(m) for m in pcs[:-1]):
-        tail = pcs[-1]
-        var = getattr(tail.energy_fn, "gaussian_var", None)
-        if var is not None and tail.S is None and tail.M is None:
-            return activation, float(var)
-    return None
-
-
 class PCTrainer:
     """Inference-learning trainer.
 
@@ -156,11 +131,10 @@ class PCTrainer:
 
     ``use_kernel``: ``"auto"`` (default) sends every configuration the fused
     chain covers to ``ops.mcpc_chain``, whatever the device; ``False`` sends
-    everything to the engine.  ``use_kernel_capture=False`` keeps captures
-    in the engine.  ``use_kernel_bf16=True`` runs the chain with bf16
-    products (``mcpc_chain(..., bf16_matmul=True)``: bf16 operands, f32
-    sums, f32 state); ``"auto"`` (default) and ``False`` keep f32, as the
-    JAX trainer's ``use_pallas_bf16`` does.  ``kernel_calls`` and
+    everything to the engine.  ``use_kernel_bf16=True`` runs the chain with
+    bf16 products (``mcpc_chain(..., bf16_matmul=True)``: bf16 operands,
+    f32 sums, f32 state); ``"auto"`` (default) and ``False`` keep f32, as
+    the JAX trainer's ``use_pallas_bf16`` does.  ``kernel_calls`` and
     ``engine_calls`` count the ``train_on_batch`` calls each path took, and
     ``kernel_param_updates`` the parameter updates the chain's path took.
     """
@@ -231,7 +205,6 @@ class PCTrainer:
         self._lr_scale_host: tp.Optional[float] = 1.0
         self._fns: dict = {}
         self.use_kernel: tp.Union[str, bool] = "auto"
-        self.use_kernel_capture: bool = True
         self.use_kernel_bf16: tp.Union[str, bool] = "auto"
         self.kernel_calls = 0
         self.engine_calls = 0
@@ -313,6 +286,7 @@ class PCTrainer:
 
     def _latent_layout(self):
         """Latent dims and their aligned packed layout ``(pads, offs, XW)``."""
+        # imported here: ops' coverage rule reads core's module classes
         from ..ops.mcpc_chain import aligned_layout
 
         dims = [
@@ -361,19 +335,23 @@ class PCTrainer:
 
         Returns the dispatch dict, or None (the reason in
         ``_kernel_fallback_reason``)."""
-        from . import losses as L
-        from ..ops.mcpc_chain import _pick_batch_tile
+        # imported here: ops' coverage rule reads core's module classes
+        from ..ops.mcpc_chain import (
+            _pick_batch_tile, model_activation, output_pc_var, supports_model)
 
         self._kernel_fallback_reason = None
         if self.use_kernel is False:
             return None
-        family = _kernel_family(self.gen.model)
-        if family is None:
-            return self._no_kernel(
-                "a model topology outside the fused-kernel family",
-                "a relu/tanh Linear+PC stack (optional trailing PC)",
-            )
-        activation, output_var = family
+        model = self.gen.model
+        activation = model_activation(model)
+        output_var = None
+        if activation is None or not supports_model(model, activation):
+            output_var = output_pc_var(model)
+            if activation is None or output_var is None:
+                return self._no_kernel(
+                    "a model topology outside the fused-kernel family",
+                    "a relu/tanh Linear+PC stack (optional trailing PC)",
+                )
         if batch_size > 1024 and _pick_batch_tile(batch_size) < 128:
             # no tile divisor: the noise seeds of such a batch cannot be cut
             # into tiles; the engine handles it in one pass
@@ -417,8 +395,6 @@ class PCTrainer:
         )
         if cfg.capture_overall_elementwise:
             return self._no_kernel("is_return_batchelement_loss", "False")
-        if wants_traj and not self.use_kernel_capture:
-            return None  # the caller routed captures to the engine
         scalar_stride = 0
         if cfg.capture_every_t and not wants_traj:
             # per-step loss/energy curves without trajectory captures: the
@@ -434,7 +410,7 @@ class PCTrainer:
             if self._opt_x_state is not None:
                 # continuation call (no resample): the chain resumes the live
                 # Adam moments and count
-                if self._adam_moments(self._opt_x_state) is None:
+                if self._warm_moments() is None:
                     return self._no_kernel(
                         "a continuation with a non-plain-Adam optimizer-x "
                         "state",
@@ -512,34 +488,15 @@ class PCTrainer:
             mixing = plan.T - 1
         return {**base, "with_pgrads": True, "mixing": mixing, **cap}
 
-    def _adam_moments(self, opt_state):
-        """``(mu, nu, count)`` of the latents from a live optimizer-x state,
-        or None unless the state holds a single Adam state over exactly the
+    def _warm_moments(self):
+        """``(mu, nu, count)`` of the latents from the live optimizer-x
+        state, or None unless it is a plain Adam state over exactly the
         current latents."""
-        found = []
-
-        def walk(s):
-            if isinstance(s, ScaleByAdamState):
-                found.append(s)
-            elif isinstance(s, (tuple, list)):
-                for x in s:
-                    walk(x)
-
-        walk(opt_state)
-        if len(found) != 1:
+        found = adam_moments(self._opt_x_state, {"latents": self.gen.latents})
+        if found is None:
             return None
-        st = found[0]
-        mu, nu = st.mu, st.nu
-        if not (isinstance(mu, dict) and set(mu) == {"latents"}
-                and isinstance(nu, dict) and set(nu) == {"latents"}):
-            return None
-        lat = self.gen.latents
-        mu_t, nu_t = tuple(mu["latents"]), tuple(nu["latents"])
-        if len(mu_t) != len(lat) or any(
-            m.shape != x.shape for m, x in zip(mu_t, lat)
-        ):
-            return None
-        return mu_t, nu_t, st.count
+        mu, nu, count = found
+        return mu["latents"], nu["latents"], count
 
     def _chain_seed(self, generator: torch.Generator) -> int:
         """The chain's noise seed, drawn from ``generator``."""
@@ -547,6 +504,7 @@ class PCTrainer:
 
     def _run_kernel(self, dispatch, cfg, inputs, loss_fn_kwargs, langevin_var,
                     generator, chain_seed=None):
+        # imported here: ops' coverage rule reads core's module classes
         from ..ops.mcpc_chain import mcpc_chain
 
         gen = self.gen
@@ -575,7 +533,7 @@ class PCTrainer:
                 emit_warm_opt_state=True,
             )
             if dispatch.get("warm_cont"):
-                warm_cont = self._adam_moments(self._opt_x_state)
+                warm_cont = self._warm_moments()
                 phase.update(warm_mu=warm_cont[0], warm_nu=warm_cont[1],
                              warm_count=warm_cont[2])
         else:
@@ -618,24 +576,14 @@ class PCTrainer:
                     blocks += (tail[:, :D_out].contiguous(),)
                 return blocks
 
-            def graft(s):
-                if isinstance(s, ScaleByAdamState):
-                    return grafted
-                if isinstance(s, tuple):
-                    return tuple(graft(x) for x in s)
-                return s
-
-            # init through the spec so the state matches what the engine's
-            # optimizer expects, then graft the chain's final moments into
-            # its (unique) Adam state
+            # the chain's final moments, as the Adam state the engine's
+            # optimizer-x would hold after these steps
             with span("mcpc.trainer.warm_state"):
                 count = self.T + (warm_cont[2] if warm_cont is not None else 0)
-                grafted = ScaleByAdamState(
-                    count,
+                self._opt_x_state = adam_state(
                     {"latents": split(warm_mv[0], warm_mv[2] if output_pc else None)},
-                    {"latents": split(warm_mv[1], warm_mv[3] if output_pc else None)})
-                self._opt_x_state = graft(
-                    self.opt_x_spec.make().init({"latents": gen.latents}))
+                    {"latents": split(warm_mv[1], warm_mv[3] if output_pc else None)},
+                    count)
         if dispatch["with_pgrads"] and self.opt_p_spec is not None:
             with span("mcpc.trainer.param_update"):
                 opt_p = self.opt_p_spec.make()

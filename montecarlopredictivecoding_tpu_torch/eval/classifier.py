@@ -150,8 +150,6 @@ def get_representations(
     if rep_type not in ("full", "expectation") or len(trainers) != 2:
         raise NotImplementedError(rep_type)
     pc_trainer, mcpc_trainer = trainers
-    # trajectory consumers take the fused chain
-    mcpc_trainer.use_kernel_capture = True
 
     mixing, sampling = config["mixing"], config["sampling"]
     stride = 1

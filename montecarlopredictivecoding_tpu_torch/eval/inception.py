@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.mcpc_chain import full_f32_conv
+from ..utils.precision import full_f32_conv
 
 _BN_EPS = 1e-3  # torchvision BasicConv2d: BatchNorm2d(eps=0.001)
 

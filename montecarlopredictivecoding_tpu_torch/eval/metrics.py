@@ -24,8 +24,8 @@ import torch
 from ..core.losses import bernoulli_fn, bernoulli_fn_mask, fe_fn, fe_fn_mask
 from ..core.modules import PC, Linear
 from ..core.trainer import GenerativeModel
-from ..ops.mcpc_chain import full_f32_matmul
 from ..utils.observability import span
+from ..utils.precision import full_f32_matmul
 from .sampling import sample_pc
 
 

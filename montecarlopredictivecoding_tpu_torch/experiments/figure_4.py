@@ -35,8 +35,8 @@ from ..eval.metrics import decode_from_deepest_latent
 from ..eval.sampling import sample_pc
 from ..models.dlgm import generative_forward, recognition_forward
 from ..models.factory import get_mcpc_trainer, get_pc_trainer
-from ..ops.mcpc_chain import full_f32_matmul
 from ..utils.plotting import pyplot, setup_fig
+from ..utils.precision import full_f32_matmul
 from .common import ExperimentContext, context_from_args, load_generative_checkpoint, standard_parser
 from .table_1 import _load_dlgm
 

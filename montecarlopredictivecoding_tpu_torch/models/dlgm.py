@@ -32,7 +32,7 @@ import torch
 
 from ..core.modules import random_tensor
 from ..core.optim import OptimizerSpec, apply_updates, tree_leaves, tree_unflatten
-from ..ops.mcpc_chain import full_f32_matmul
+from ..utils.precision import full_f32_matmul
 from .cholesky import RankOneFactor
 
 Tensor = torch.Tensor

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core.modules import random_tensor
-from ..ops.mcpc_chain import full_f32_matmul
+from ..utils.precision import full_f32_matmul
 from .cholesky import CholeskyFactor
 from .dlgm import (
     _apply,

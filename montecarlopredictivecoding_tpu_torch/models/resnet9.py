@@ -28,7 +28,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.optim import OptimizerSpec, Transform, apply_updates
-from ..ops.mcpc_chain import full_f32_conv
+from ..utils.precision import full_f32_conv
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

@@ -99,6 +99,7 @@ import torch
 from ..core.model import PCModel
 from ..core.modules import PC, Activation, activation_fn, gaussian_energy
 from ..utils.observability import span
+from ..utils.precision import full_f32_matmul
 
 Tensor = torch.Tensor
 
@@ -536,35 +537,6 @@ def _pack_aligned(parts, dims) -> Tensor:
 # of this many rows, as the JAX wrapper does, so the forward's intermediates
 # stay near 200 MB at 20-128-128-784 whatever the chain's length.
 _SCALAR_RECOMPUTE_ROWS = 16384
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """TF32 off for the products inside (the recomputed scalars are held to
-    the kernel's f32 ones; the metrics' products sum hundreds of terms)."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
-@contextlib.contextmanager
-def full_f32_conv():
-    """TF32 off for the cuDNN convolutions and the matrix products inside,
-    restored on the way out.  ``torch.backends.cudnn.allow_tf32`` is True by
-    default, so a convolution on the card would otherwise run in TF32 (10
-    mantissa bits, about 1e-3 relative after ResNet-9's eight layers) where
-    the JAX package computes f32.  The ResNet-9 and Inception functions run
-    inside it; nothing else of the port changes."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with full_f32_matmul():
-            yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
 
 
 def traj_scalar_rows(traj: Tensor, params, target, c: _Chain,

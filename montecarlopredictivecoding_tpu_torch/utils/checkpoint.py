@@ -29,7 +29,8 @@ import typing as tp
 import numpy as np
 import torch
 
-from ..core.model import PCModel
+if tp.TYPE_CHECKING:  # annotations only: utils imports nothing of the package
+    from ..core.model import PCModel
 
 _EXT_NDARRAY = 1
 # the array types a params pytree holds

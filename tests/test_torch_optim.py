@@ -83,3 +83,43 @@ def test_adam_step_refuses_mismatched_grads():
     tx = optim.OptimizerSpec("adam", lr=0.01).make()
     with pytest.raises(ValueError, match="structure"):
         tx.update(({"w": torch.zeros(3)},), tx.init(p), p)
+
+
+def test_adam_state_is_init_with_moments_and_reads_back():
+    """``adam_state`` builds what an ``adam`` spec's ``init`` gives with its
+    moments and count replaced, leaf for leaf and in structure, and steps
+    alike under ``update``; ``adam_moments`` reads back what was built and
+    reads None from any other state or from moments of another shape."""
+    gen = torch.Generator().manual_seed(0)
+    tree = {"latents": tuple(torch.randn((4, d), generator=gen) for d in (3, 5, 2))}
+    mu = {"latents": tuple(torch.randn(x.shape, generator=gen) for x in tree["latents"])}
+    nu = {"latents": tuple(torch.rand(x.shape, generator=gen) for x in tree["latents"])}
+    tx = optim.OptimizerSpec("adam", lr=0.05).make()
+    init = tx.init(tree)
+    want = (optim.ScaleByAdamState(7, mu, nu),) + init[1:]
+    built = optim.adam_state(mu, nu, 7)
+    assert type(built) is type(init) and len(built) == len(init) == 2
+    assert type(built[0]) is type(init[0]) and built[1] == init[1] == ()
+    assert built[0].count == 7 and type(built[0].count) is type(init[0].count)
+    for side in ("mu", "nu"):
+        got, ref = getattr(built[0], side), getattr(want[0], side)
+        optim.tree_map(lambda a, b: None, got, getattr(init[0], side))  # same structure
+        assert type(got["latents"]) is type(init[0].mu["latents"])
+        assert all(torch.equal(a, b) for a, b in zip(optim.tree_leaves(got),
+                                                     optim.tree_leaves(ref)))
+    g = {"latents": tuple(torch.randn(x.shape, generator=gen) for x in tree["latents"])}
+    (u1, s1), (u2, s2) = tx.update(g, built, tree), tx.update(g, want, tree)
+    assert all(torch.equal(a, b) for a, b in zip(
+        optim.tree_leaves((u1, s1[0].mu, s1[0].nu)), optim.tree_leaves((u2, s2[0].mu, s2[0].nu))))
+    assert s1[0].count == s2[0].count == 8
+
+    got = optim.adam_moments(built, tree)
+    assert got[0] is mu and got[1] is nu and got[2] == 7
+    assert optim.adam_moments(init, tree)[2] == 0
+    assert optim.adam_moments(built, {"latents": tree["latents"][:2]}) is None
+    assert optim.adam_moments(built, {"latents": tuple(x[:2] for x in tree["latents"])}) is None
+    assert optim.adam_moments(None, tree) is None
+    for spec in (optim.OptimizerSpec("sgd"), optim.OptimizerSpec("sgd", momentum=0.9),
+                 optim.OptimizerSpec("adamw", weight_decay=0.01),
+                 optim.OptimizerSpec("adam", weight_decay=0.01)):
+        assert optim.adam_moments(spec.make().init(tree), tree) is None, spec

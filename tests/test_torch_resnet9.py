@@ -17,7 +17,7 @@ from flax import serialization
 from montecarlopredictivecoding_tpu.models import resnet9 as jr
 from montecarlopredictivecoding_tpu.utils import checkpoint as jckpt
 from montecarlopredictivecoding_tpu_torch.models import resnet9 as tr
-from montecarlopredictivecoding_tpu_torch.ops.mcpc_chain import full_f32_conv
+from montecarlopredictivecoding_tpu_torch.utils.precision import full_f32_conv
 from montecarlopredictivecoding_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(1)

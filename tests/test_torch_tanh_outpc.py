@@ -22,6 +22,7 @@ import montecarlopredictivecoding_tpu as mcpc
 import montecarlopredictivecoding_tpu_torch as mt
 from montecarlopredictivecoding_tpu.ops import mcpc_chain_pallas
 from montecarlopredictivecoding_tpu.ops import pallas_mcpc as jops
+from montecarlopredictivecoding_tpu_torch.core import optim
 from montecarlopredictivecoding_tpu_torch.utils import (
     latents_from_numpy,
     params_from_numpy,
@@ -322,9 +323,15 @@ def _assert_results(tres, jres):
             _close(tres[k], v, k)
 
 
+def _torch_adam_moments(tr):
+    """``(mu, nu, count)`` of the port trainer's Adam state over the latents."""
+    mu, nu, count = optim.adam_moments(tr._opt_x_state, {"latents": tr.gen.latents})
+    return mu["latents"], nu["latents"], count
+
+
 def _assert_adam_moments(tr, jtr):
     """The grafted Adam moments over the latents, atol 1e-6 of the largest."""
-    tm = tr._adam_moments(tr._opt_x_state)
+    tm = _torch_adam_moments(tr)
     jm = jtr._adam_moments(jtr._opt_x_state)
     assert int(tm[2]) == int(jm[2])
     for a_s, b_s in zip(tm[:2], jm[:2]):
@@ -381,7 +388,7 @@ def test_trainer_output_pc_warm_start_then_joint_sampler():
     pair.assert_state()
     _assert_results(tres, jres)
     _assert_adam_moments(pair.ttr, pair.jtr)
-    assert len(pair.ttr._adam_moments(pair.ttr._opt_x_state)[0]) == 4
+    assert len(_torch_adam_moments(pair.ttr)[0]) == 4
 
     sampler = Pair(dict(SGD, update_p_at="never", optimizer_p_fn=None, accumulate_p_at="never"),
                    output_var=OUT_VAR)
