@@ -62,8 +62,9 @@
 // KB, latents and target) are negligible next to that.  The f32 build's
 // products are FMAs on the CUDA cores: no TF32, no tensor cores.  Neither
 // build uses --use_fast_math (tanhf, logf, log1pf, expf and sqrtf stay
-// IEEE).  A step is a few hundred small dependent products and two cluster
-// barriers, so what sets the pace is latency, not either peak.
+// IEEE).  A step is a few hundred small dependent products and two
+// hand-offs between the blocks, so what sets the pace is latency, not
+// either peak.
 //
 // Design.  The chain is thousands of small dependent steps, so what it needs
 // from the card is every SM at work and no trip to L2 inside a step.
@@ -87,17 +88,63 @@
 //    weights.
 //  * Backward: err_{l+1} W_{l+1}^T splits over the out-columns.  Block k
 //    computes the partial sum over its own columns for ALL latent columns
-//    and writes it into the shared memory of the block that owns each latent
-//    column (distributed shared memory, map_shared_rank).  After a cluster
-//    barrier the owner adds the 8 partials in rank order (a fixed order: two
-//    runs give the same bits), takes the Adam or Langevin step on its own
-//    columns of X (the Box-Muller work and the Adam moments split 8 ways
-//    too) and writes its slice of the new act(X) into every block's H.  A
-//    second cluster barrier ends the step.  Per step: two cluster barriers
-//    and one __syncthreads (between forward and backward).
-//  * A cluster barrier costs over a thousand clocks (its release is a
-//    device-wide fence), and the noise needs no memory: each barrier is split
-//    into arrive and wait, and the step's normals are drawn in between.
+//    and pushes it into the shared memory of the block that owns each latent
+//    column (distributed shared memory).  Once all are in, the owner adds
+//    the 8 partials in rank order (a fixed order: two runs give the same
+//    bits), takes the Adam or Langevin step on its own columns of X (the
+//    Box-Muller work and the Adam moments split 8 ways too) and pushes its
+//    slice of the new act(X) into every block's H.
+//  * The f32 build hands these over with no cluster barrier inside a step
+//    (one costs over a thousand clocks: its release is a device-wide fence,
+//    and every block waits for all eight where it reads some).  Each block
+//    holds two mbarriers (Layout::MB), whose phase s is step s's:
+//    - P_bar, the partials are in.  A partial is pushed by st.async
+//      (mbarrier::complete_tx::bytes) into the owner's P, its bytes counted
+//      on the owner's P_bar.  After a __syncthreads that ends the backward,
+//      one thread a peer makes one remote arrive.release.cluster on that
+//      peer's P_bar.  A phase takes CS arrivals, the block's own arming it
+//      with the bytes the eight ranks push into it (CS x its own columns
+//      with partials x R floats), and completes when all have landed.
+//    - H_bar, act(x) is in.  The owner pushes each new act(x) into every
+//      block's H by st.async, counted on that block's H_bar, whose one
+//      arrival is the block's own, armed with n x R floats.
+//    A block waits (try_wait.parity.acquire.cluster) on its P_bar before
+//    the update reads P and, after a __syncthreads, on its H_bar before the
+//    next forward reads H.  The hazards the barriers covered:
+//    - write after read on H: a peer's update(s) writes this block's H only
+//      after its P_bar(s) completes, which takes this block's arrival, made
+//      after the __syncthreads behind this block's forward, Hebbian and
+//      backward reads of H (a warp may push no partial to a given owner,
+//      so the pushes alone would not order its reads);
+//    - write after read on P: a peer pushes P(s+1) after its forward(s+1),
+//      so after its H_bar(s) completes, which takes every act(x) this block
+//      pushes in update(s), each pushed by its thread after that thread's
+//      last read of P;
+//    - phase aliasing: no step s+1 byte can land in a step s phase.  P(s+1)
+//      takes H(s), which this block pushes only after its P_bar(s)
+//      completed; H(s+1) takes the owner's P_bar(s+1), which takes this
+//      block's arrival of step s+1, made after its H_bar(s) wait.  A block
+//      arms both phases of step s before the __syncthreads that precedes
+//      its arrivals, so before any peer can push it act(x); partials may
+//      land before the arm (a transaction count may go below zero), and
+//      the phase still waits for the arm, an arrival;
+//    - inside the block, the __syncthreads before the H_bar wait orders the
+//      update's and the x3 step's reads and writes (X, E, S, X3, P) before
+//      the next step's forward.
+//    So P and H keep one buffer each.  Per f32 step: three __syncthreads
+//    and two mbarrier waits; the prologue's cluster.sync and one cluster
+//    barrier before the epilogue (no peer may write into a block that has
+//    exited) are the kernel's only cluster barriers.  A wait that lasts
+//    HANDOFF_TRAP_CLOCKS traps: a byte count that does not match the
+//    pushes fails the launch instead of hanging the card.
+//  * The bf16 build keeps the cluster barriers: its act(x) copies (H16) are
+//    2-byte stores, and st.async has no 16-bit form.  A cluster barrier
+//    after the backward's remote stores, a second one after the update ends
+//    the step; each is split into arrive and wait.
+//  * The noise needs no memory: the step's normals are drawn between the
+//    backward's last push and the P_bar wait (bf16: between the first
+//    barrier's arrive and wait), the next step's first ones before the
+//    H_bar wait (bf16: inside the second barrier).
 //  * The f32 build's products wait on the SM's shared-memory loads, not on
 //    the FMA pipe, so a lane keeps a register tile of 4 neighbouring columns
 //    by half of the rows (forward) or 4 columns by all the rows (backward,
@@ -133,8 +180,8 @@
 //    the warm phase when T == 0) with t % cap_stride == 0, before the update,
 //    each block stores its own columns of X for its valid rows into
 //    traj[t / cap_stride][row][padded column], the JAX layout; the wrapper
-//    zeroes the pad lanes.  X is stable there (the last barrier of the step
-//    before has passed, and this block writes X only after the next one).
+//    zeroes the pad lanes.  X is stable there (the step before has ended,
+//    and this block writes X only in this step's update).
 //  * Per-step scalars: on a slot step (t % scal_stride == 0 in the same
 //    phase) and on the last step, every block sums the loss and energy of its
 //    own columns and valid rows in double, warps by shuffle, then thread 0
@@ -149,8 +196,9 @@
 //  * Output-PC site (x3 not null): the owner of output column j keeps x3[:, j]
 //    (and in the warm phase its Adam moments) in shared memory beside its
 //    S.  Nothing else reads them, so its update needs no exchange: it runs
-//    between the arrive and the wait of the step's first cluster barrier,
-//    from the S of this step, as the latents' noise does.  Captures go to
+//    between the backward's last push and the P_bar wait (bf16: between
+//    the arrive and the wait of the step's first cluster barrier), from the
+//    S of this step, as the latents' noise does.  Captures go to
 //    traj3 [n_cap, B, pD], the moments to m3 / v3 [B, pD], pad lanes zeroed
 //    by the wrapper; the loss is "none" and no mask applies.
 //  Every block reaches every barrier as before: none of these adds a
@@ -376,6 +424,7 @@ struct Layout {
   size_t W1, W2, W3, BI;        // weight slices, own biases [OWN + ND]
   size_t OT;                    // owner and own-column index of every latent column [n]
   size_t G1, G2, G3, GB;        // gradient slices, own bias gradients
+  size_t MB;                    // f32 only: the hand-offs' barriers P_bar, H_bar (at 0)
   size_t total;
   // BF16 only (bf16 arrays; their offsets in floats, the rest in bf16):
   int HP;                  // pitch of H16 and E16: bf16_pitch(R)
@@ -401,6 +450,9 @@ __host__ __device__ inline Layout make_layout(int d0, int d1, int d2, int D,
   const size_t n = (size_t)d0 + d1 + d2;
   const size_t RP = row_pitch(R);
   size_t o = 0;
+  if constexpr (!BF16) {   // the step's two mbarriers (8 bytes each) first: their
+    L.MB = 0; o = 4;         // address is the array's, a constant
+  }
   if constexpr (BF16) {
     L.HP = bf16_pitch(R);
     L.HB1 = up16(d0); L.HB2 = L.HB1 + up16(d1);
@@ -473,6 +525,74 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
+// The f32 build's hand-offs ("Design" in the header): an mbarrier in each
+// block's shared memory, 32-bit shared-window addresses.  `mapa` gives the
+// address of the same place in the block of cluster rank `k`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int k) {
+  uint32_t out;   // not volatile: a pure function of its operands, which
+                  // the compiler may hoist out of a loop or share
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local), "r"(k));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(arrivals)
+               : "memory");
+}
+// this block's arrival on its own barrier, which also expects `bytes` more
+// in the current phase
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// an arrival on a peer's barrier (`bar` from peer_addr) that releases this
+// thread's earlier reads and writes to the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" :: "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+// A wait longer than this many SM clocks (about 2 s) is a hand-off that
+// will never complete (a byte count that does not match the pushes): the
+// kernel traps, and the launch fails instead of hanging the card.  The
+// clock is read only while the block already waits.
+constexpr long long HANDOFF_TRAP_CLOCKS = 1ll << 32;
+// until the phase of parity `parity` of this block's barrier `bar` is
+// complete: every arrival made and every byte expected landed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > HANDOFF_TRAP_CLOCKS) __trap();
+}
+// st.async: v into the shared memory of a peer at `dst`, its bytes counted
+// on that block's barrier `bar` (both from peer_addr)
+__device__ __forceinline__ void push(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void push(uint32_t dst, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+      :: "r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void push(uint32_t dst, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];"
+      :: "r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+         "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
 // ------------------------------------------------------------ products
 //
 // The f32 build's products (the bf16 build's: "tensor-core tiles" below).
@@ -533,6 +653,22 @@ __device__ __forceinline__ void store_positions(float* feature, const float (&v)
 #pragma unroll
   for (int p = 4 * F4; p < R; p += 2)
     reinterpret_cast<float2*>(feature)[p / 2] = make_float2(v[p], v[p + 1]);
+}
+
+// store_positions into a block of the cluster by st.async: `feature` and
+// `bar` are shared-window addresses in that block (peer_addr), and the
+// block's barrier counts the 4 R bytes
+template <int R>
+__device__ __forceinline__ void push_positions(uint32_t feature, const float (&v)[R],
+                                               uint32_t bar) {
+  constexpr int F4 = row_pitch(R) % 4 == 0 ? R / 4 : 0;
+#pragma unroll
+  for (int i = 0; i < F4; ++i)
+    push(feature + 16u * i, make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]),
+         bar);
+#pragma unroll
+  for (int p = 4 * F4; p < R; p += 2)
+    push(feature + 4u * p, make_float2(v[p], v[p + 1]), bar);
 }
 
 // v = the rows of half g of the feature at `feature`
@@ -1049,7 +1185,20 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
     zero_slice(G2, ldg2, d1, n2);
     zero_slice(G3, ldg3, d2, nD);
   }
-  // every block of the cluster is running before a peer writes into it
+  // f32: the hand-offs' barriers ("Design" in the header).  P_bar takes an
+  // arrival from every rank and the bytes of the partials they push into
+  // this block's P; H_bar this block's own arrival and the bytes of act(x)
+  // the owners push into its H: n * R floats
+  const uint32_t p_bar = shared_addr(smem), h_bar = p_bar + 8u;   // f32: L.MB = 0
+  if constexpr (!BF16) {
+    if (tid == 0) {
+      mbar_init(p_bar, CS);
+      mbar_init(h_bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  // every block of the cluster is running, its barriers set, before a peer
+  // writes into it
   cluster.sync();
 
   long long spent[N_PHASE] = {0, 0, 0, 0, 0, 0};
@@ -1127,8 +1276,8 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
   };
   const int slots = (L.OWN * R + NTB - 1) / NTB;
   // The noise of a step touches registers only, so it is drawn while the
-  // cluster's barriers complete: slots [0, NOISE_EARLY) behind the barrier
-  // that ends the step before, the rest behind the one in the step.
+  // hand-offs complete: slots [0, NOISE_EARLY) before the wait that ends the
+  // step before, the rest before the one in the step.
   float z[NOISE_SLOTS] = {0.f, 0.f, 0.f, 0.f};
   auto draw = [&](int t, int p) {
     int j, r, layer, col;
@@ -1342,7 +1491,8 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
     }
     __syncthreads();
     if (OPT && sums_now && tid == 0) {
-      // red is written again only on a later step, behind two cluster barriers
+      // red is written again only on a later step, behind the step's
+      // barriers (f32: its two __syncthreads after this one)
       double l = 0.0, en = 0.0;
       for (int w = 0; w < NWB; ++w) {
         l += red[0][w];
@@ -1367,8 +1517,9 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
     lap(0);
 
     // ---- sampling step: Hebbian gradients of the own columns from H, E and
-    // S of the state before the update.  Nothing below writes H, E or S
-    // before the next cluster barrier, so no barrier is needed after it.
+    // S of the state before the update.  Nothing writes H, E or S before
+    // the step's first hand-off (bf16: cluster barrier), so no barrier is
+    // needed after it.
     if (with_pg && (warm ? (a.pg_warm && s == a.warm_T - 1) : t >= a.mixing)) {
       if constexpr (BF16) {
         // a warp the 16 x (own columns) tile of 16 input features of gW3,
@@ -1557,14 +1708,26 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
         const int i = q + part * NQ;   // this lane's column after the reduce
         if (c < 0 || i >= ncols) continue;
         const int home = OT[cbase + i];   // owner << 16 | its own-column index
-        float* dst = cluster.map_shared_rank(P, home >> 16) +
-                     ((size_t)rank * L.OWN + (home & 0xffff)) * RP;
-        store_positions<R>(dst, out);
+        const uint32_t at = shared_addr(P + ((size_t)rank * L.OWN + (home & 0xffff)) * RP);
+        push_positions<R>(peer_addr(at, home >> 16), out, peer_addr(p_bar, home >> 16));
       }
       if constexpr (WC) wclk[2] += clock64() - w_first;
     }
     lap(2);
-    cluster_arrive();
+    if constexpr (BF16) {
+      cluster_arrive();
+    } else {
+      // this block's own arrivals, which arm this step's phases with the
+      // bytes they expect; then, every warp's partials pushed and its reads
+      // of H done, one arrival on each peer's P_bar, releasing the block's
+      // reads and writes to the cluster
+      if (tid == 0) {   // the x2 columns' partials only where there is an S
+        mbar_arrive_expect(p_bar, (uint32_t)(CS * (n0 + n1 + (has_s ? n2 : 0)) * R * 4));
+        mbar_arrive_expect(h_bar, (uint32_t)(n * R * 4));
+      }
+      __syncthreads();
+      if (tid < CS && tid != rank) mbar_arrive_remote(peer_addr(p_bar, tid));
+    }
     const bool noisy = !warm && a.noise_std > 0.f;
     if (noisy) {
 #pragma unroll
@@ -1596,7 +1759,8 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
         X3[j * RP + r] = x;
       }
     }
-    cluster_wait();
+    if constexpr (BF16) cluster_wait();
+    else mbar_wait(p_bar, (uint32_t)s & 1u);   // every rank's partials are in P
     lap(3);
 
     // ---- the own latent columns: add the partials in rank order, update,
@@ -1645,27 +1809,39 @@ __global__ void __launch_bounds__(BF16 ? NT : NT_F32, 1) mcpc_chain_kernel(const
       } else {
         const float h = activate<ACT>(x);
         const int c = (layer == 0 ? 0 : layer == 1 ? c1 : c2) + col;
+        const uint32_t at = shared_addr(H + c * RP + r);
 #pragma unroll
-        for (int k = 0; k < CS; ++k) cluster.map_shared_rank(H, k)[c * RP + r] = h;
+        for (int k = 0; k < CS; ++k) push(peer_addr(at, k), h, peer_addr(h_bar, k));
       }
     };
 #pragma unroll
     for (int p = 0; p < NOISE_SLOTS; ++p) update(p, z[p], true);
     for (int p = NOISE_SLOTS; p < slots; ++p) update(p, 0.f, false);
     lap(4);
-    // also the last barrier before exit: no peer touches this block's
+    // bf16: also the last barrier before exit: no peer touches this block's
     // shared memory after it
-    cluster_arrive();
+    if constexpr (BF16) cluster_arrive();
     if (a.noise_std > 0.f && s + 1 >= a.warm_T && s + 1 < total) {
 #pragma unroll
       for (int p = 0; p < NOISE_EARLY; ++p) z[p] = draw(t + 1, p);
     }
-    cluster_wait();
+    if constexpr (BF16) {
+      cluster_wait();
+    } else {
+      __syncthreads();   // the block's update and x3 step done
+      mbar_wait(h_bar, (uint32_t)s & 1u);   // every owner's act(x) is in H
+    }
     lap(5);
     if (warm) {
       b1p *= a.wb1;
       b2p *= a.wb2;
     }
+  }
+
+  // f32: no peer touches this block's shared memory after this barrier
+  if constexpr (!BF16) {
+    cluster_arrive();
+    cluster_wait();
   }
 
   // ---- epilogue: own latent columns, gradient slice, scalars

@@ -1113,9 +1113,10 @@ def chain_smem_bytes(dims, rows: int, warm: bool, grads: int,
         + (own + nD if grads else 0)
     )
     if not bf16:
-        # act(X) with the arrays above; the weight slices start at a whole float4
+        # the step's two mbarriers (4 floats) first, then act(X) with the
+        # arrays above; the weight slices start at a whole float4
         by_row += (d0 + d1 + d2) * pitch
-        return 4 * (-(-by_row // 4) * 4 + weights + floats)
+        return 4 * (4 + -(-by_row // 4) * 4 + weights + floats)
 
     def up16(d):
         return -(-d // 16) * 16

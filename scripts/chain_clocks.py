@@ -8,7 +8,12 @@ Langevin chain, an Adam warm phase alone, a Langevin chain that takes the
 parameter gradients on every step) it runs ``chain_phase_clocks`` and prints
 the plan, the time per step (CUDA events around the call, median of 3 after
 a warm-up) and the clocks per step that thread 0 of a block spends in each
-phase, barrier waits included, averaged over the blocks.  ``--rows`` forces
+phase, averaged over the blocks.  The two wait phases hold the step's
+hand-offs: "wait for partials" runs from the end of the backward through the
+block's arrivals and the noise draws to the end of the wait until every
+rank's partials are in, "wait for relu(x)" from the end of the update to the
+end of the wait until every owner's act(x) is in (the f32 build waits on
+mbarriers there, the bf16 build at its two cluster barriers).  ``--rows`` forces
 the rows a cluster (one of the wrapper's ``CLUSTER_ROWS``) instead of the
 plan's own choice: this is how the plan's rule for the rows was measured.
 ``--bf16`` times the bf16 build (``bf16_matmul=True``: the tensor-core

@@ -107,38 +107,39 @@ def test_plan_fills_the_card_at_the_main_path_batch():
 # The f32 build's layout (make_layout<false>): the f32 arrays of the bf16
 # layout, with act(X) at the row pitch (20 at 18 rows, 12 at 10, 4 at 4) and
 # the weight slices at their 8 * odd strides (20 x 24 + 128 x 24 + 128 x
-# 104 = 16864 at FID).  At FID, 18 rows:
+# 104 = 16864 at FID), and before them all the step's two mbarriers, 4
+# floats.  At FID, 18 rows:
 #   X, E 2 x 35 x 20 = 1400; S 98 x 20 = 1960; P 8 x 35 x 20 = 5600;
 #   biases 133; owners 276; act(X) 276 x 20 = 5520; weights 16864 -> 31753
-#   floats, 127012 B; warm: M, V 2 x 35 x 20 = 1400; gradients resident:
-#   16864 + 133 -> 50150 floats, 200600 B; an output-PC site adds X3, M3, V3
-#   3 x 98 x 20 = 5880 -> 56030 floats, 224120 B (no gradients: 39033,
-#   156132 B).
+#   floats, 31757 with the barriers, 127028 B; warm: M, V 2 x 35 x 20 =
+#   1400; gradients resident: 16864 + 133 -> 50150 floats + 4, 200616 B; an
+#   output-PC site adds X3, M3, V3 3 x 98 x 20 = 5880 -> 56030 + 4, 224136 B
+#   (no gradients: 39033 + 4, 156148 B).
 #   10 rows: 2 x 35 x 12 + 98 x 12 + 8 x 35 x 12 + 133 + 276 + 276 x 12 +
-#   16864 = 25961 floats, 103844 B; warm, gradients resident: + 2 x 420 +
-#   16864 + 133 -> 43798, 175192 B.
+#   16864 = 25961 floats + 4, 103860 B; warm, gradients resident: + 2 x 420
+#   + 16864 + 133 -> 43798 + 4, 175208 B.
 #   4 rows, warm, bias gradients only: 4 x 35 x 4 + 98 x 4 + 8 x 35 x 4 +
-#   133 + 276 + 133 + 276 x 4 + 16864 = 20582 floats, 82328 B.
+#   133 + 276 + 133 + 276 x 4 + 16864 = 20582 floats + 4, 82344 B.
 #   MSE, 10 rows, warm, bias gradients only: X, E, M, V 4 x 66 x 12 = 3168;
 #   S 98 x 12 = 1176; P 8 x 66 x 12 = 6336; biases 164; owners 522; bias
 #   gradients 164; act(X) 522 x 12 = 6264; weights 10 x 40 + 256 x 40 + 256
-#   x 104 = 37264 -> 55058 floats, 220232 B.
+#   x 104 = 37264 -> 55058 floats + 4, 220248 B.
 #   The tanh mse preset 30-256-256-784, 10 rows, warm: X, E, M, V 4 x 68 x
 #   12 = 3264; S 1176; P 8 x 68 x 12 = 6528; biases 166; owners 542; act(X)
 #   542 x 12 = 6504; weights 30 x 40 + 256 x 40 + 256 x 104 = 38064 -> 56244
-#   floats, 224976 B.
+#   floats + 4, 224992 B.
 @pytest.mark.parametrize("dims,rows,warm,grads,output_pc,bf16,expect", [
     # as the kernel's own layout function gave them on the card
-    (FID, 18, False, 0, False, False, 127012),
-    (FID, 18, True, 2, False, False, 200600),
+    (FID, 18, False, 0, False, False, 127028),
+    (FID, 18, True, 2, False, False, 200616),
     # worked out above from the kernel's layout function
-    (FID, 18, True, 2, True, False, 224120),
-    (FID, 18, True, 0, True, False, 156132),
-    (FID, 10, False, 0, False, False, 103844),
-    (FID, 10, True, 2, False, False, 175192),
-    (FID, 4, True, 1, False, False, 82328),
-    (MSE, 10, True, 1, False, False, 220232),
-    ((30, 256, 256, 784), 10, True, 0, False, False, 224976),
+    (FID, 18, True, 2, True, False, 224136),
+    (FID, 18, True, 0, True, False, 156148),
+    (FID, 10, False, 0, False, False, 103860),
+    (FID, 10, True, 2, False, False, 175208),
+    (FID, 4, True, 1, False, False, 82344),
+    (MSE, 10, True, 1, False, False, 220248),
+    ((30, 256, 256, 784), 10, True, 0, False, False, 224992),
     (FID, 18, False, 0, False, True, 96612),
     (FID, 18, False, 0, True, True, 104452),
     (FID, 18, False, 1, False, True, 97144),
@@ -211,13 +212,43 @@ def test_f32_plan_keeps_the_main_path_on_one_wave_with_resident_gradients():
     # a cluster (7 waves)
     plan = _plan(FID, 256, True, True)
     assert (plan.rows, plan.clusters, plan.grads_resident) == (18, 15, True)
-    assert plan.smem_bytes == 200600
+    assert plan.smem_bytes == 200616
     wide = _plan(MSE, 1024, True, True)
     assert (wide.rows, wide.clusters, wide.grads_resident) == (10, 103, False)
-    assert wide.smem_bytes == 220232
+    assert wide.smem_bytes == 220248
     # and the tanh one's table-1 batch, 10 rows in 7 waves too
     tanh_wide = _plan((30, 256, 256, 784), 1024, True, False)
     assert (tanh_wide.rows, tanh_wide.clusters) == (10, 103)
+
+
+@pytest.mark.parametrize("dims,B,warm,with_pgrads,expect", [
+    # the training chain: 15 clusters of 18 rows, the gradient slice resident
+    (FID, 256, True, True, (18, 15, True)),
+    # figure 5b's posterior chain: its warm start, then its Langevin phase
+    (FID, 256, True, False, (18, 15, False)),
+    (FID, 256, False, False, (18, 15, False)),
+    # table 1's MSE column: 10 rows a cluster in waves
+    (MSE, 1024, True, False, (10, 103, False)),
+    # the PC reconstruction model's training: the plan nearest the budget
+    ((30, 256, 256, 784), 128, True, True, (10, 13, False)),
+])
+def test_step_barriers_leave_the_cells_plans_as_they_were(dims, B, warm, with_pgrads,
+                                                          expect):
+    """The f32 layout's two mbarriers (the step's hand-offs) cost a block 16
+    bytes: every call the benchmark's cells make keeps its rows,
+    clusters and resident gradients, and its blocks fit the f32 library's
+    budget, the most crowded (30-256-256-784 at 10 rows) with room to spare."""
+    plan = _plan(dims, B, warm, with_pgrads)
+    assert (plan.rows, plan.clusters, plan.grads_resident) == expect
+    grads = (2 if plan.grads_resident else 1) if with_pgrads else 0
+    need = chain_mod.chain_smem_bytes(dims, plan.rows, warm, grads)
+    assert plan.smem_bytes == need <= BUDGET
+    # every option the plan turns down for want of room (more rows, the
+    # gradient slice resident) would not fit without the barriers either
+    for rows in chain_mod.CLUSTER_ROWS:
+        for g in ((2, 1) if with_pgrads else (0,)):
+            other = chain_mod.chain_smem_bytes(dims, rows, warm, g)
+            assert other <= BUDGET or other - 16 > BUDGET
 
 
 def test_slice_bounds_are_what_the_kernel_takes():

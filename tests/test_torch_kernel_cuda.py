@@ -800,6 +800,83 @@ def test_f32_chains_repeat_bit_for_bit_at_every_built_row_count(cuda_device, row
     _assert_same_outputs(first, want)
 
 
+# The f32 build hands the partials and act(x) from block to block through
+# mbarriers (st.async pushes, each block waiting for the bytes it reads; no
+# cluster barrier inside a step).  A hazard the hand-offs leave open (a peer
+# overwriting H or P before this block has read it, a push counted in the
+# wrong phase) shows as a bit that differs between two runs of one chain, or
+# as a chain that leaves the plain version.  So each case runs a long chain
+# twice: 500 Adam steps, then 3000 Langevin steps with noise, gradients over
+# the last 500.  Over such chains the plain f32 version stays within 1.4e-6
+# of float64 in the latents and 2.3e-6 relative in the gradients (on the CPU:
+# 37 rows of 20-128-128-784 relu and of the tanh output-PC model, 128 rows
+# of 30-256-256-784 tanh), so this file's tolerances hold.
+LONG_CHAIN = dict(warm_T=500, warm_lr=0.1, T=3000, lr=0.03, mixing=2500, with_pgrads=True,
+                  return_scalars=True)
+HANDOFF_CASES = {   # dims, B, the rows forced (None: the plan's), options
+    "relu_rows18": (FID, 37, 18, {}),
+    "relu_rows10": (FID, 37, 10, {}),
+    "relu_rows4": (FID, 37, 4, {}),
+    "relu_rows2": (FID, 37, 2, {}),
+    "tanh_output_pc": (FID, 37, None, dict(activation="tanh", output_var=0.5, loss="none",
+                                          capture_stride=500)),
+    # the PC reconstruction model's training plan: 13 clusters of 10 rows,
+    # the gradient slice in device memory
+    "tanh_30_256_256_784_b128": ((30, 256, 256, 784), 128, None, dict(activation="tanh")),
+    # chain (c), the unpacked kernel: Langevin steps only, no scalars
+    "unpacked": (FID, 37, None, dict(packed=False, warm_T=0, return_scalars=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HANDOFF_CASES))
+def test_f32_handoffs_repeat_bit_for_bit_over_long_chains(cuda_device, case):
+    dims, B, rows, options = HANDOFF_CASES[case]
+    kw = dict(LONG_CHAIN, **options)
+    if "output_var" in options:
+        params, latents = _output_pc_case(dims, B, cuda_device)
+        target = None
+    else:
+        params, latents, target = _case(dims, B, cuda_device)
+    c = chain_mod._chain_args(params, latents, target, 9, **kw)
+    plan = chain_mod.device_plan(c, B, cuda_device,
+                                 chain_mod.CLUSTER_ROWS if rows is None else (rows,))
+    if rows is not None:
+        assert plan.rows == rows
+    if dims[1] == 256:
+        assert (plan.rows, plan.clusters, plan.grads_resident) == (10, 13, False)
+    count = "launches" if kw.get("packed", True) else "launches_unpacked"
+    before = getattr(chain_mod.mcpc_chain, count)
+    runs = [chain_mod._kernel(c, params, latents, target, plan=plan) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert getattr(chain_mod.mcpc_chain, count) == before + 2
+    first, second = runs
+    for u, v in zip(first[0], second[0]):
+        assert torch.equal(u, v)
+    for g, h in zip(first[1], second[1]):
+        assert torch.equal(g["w"], h["w"]) and torch.equal(g["b"], h["b"])
+    for a, b in zip(first[2:], second[2:]):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in ("loss", "energy"))
+        elif a is not None:
+            assert torch.equal(a, b)
+    want = chain_mod.mcpc_chain_reference(params, latents, target, 9, **kw)
+    if "capture_stride" in options:
+        # The first capture is the warm phase's end state.  There Adam's
+        # steps on gradients at rounding size (lr * sign) follow the
+        # rounding: the plain f32 version itself sits 8.7e-3 (x) and 1.2e-3
+        # (x3) from float64 in a few elements (CPU, this case), and within
+        # 1e-5 again from the next capture on.  So the plain version holds
+        # the captures, and the loss and energy of each captured step, from
+        # the second on; the runs above repeat all of them.
+        def later(e):
+            if isinstance(e, dict):
+                return {k: v[1:] for k, v in e.items()}
+            return e[1:] if torch.is_tensor(e) else e
+        first, want = (tuple(later(e) for e in out) for out in (first, want))
+    _assert_same_outputs(first, want)
+
+
 # ------------------------------- the unpacked chain on the cluster plan
 #
 # packed=False runs the cluster kernel with the unpacked noise indexing

@@ -145,7 +145,7 @@ def _make_layout_floats(dims, R, grads):
     ld1, ld2, ld3 = slice_stride(N1), slice_stride(N2), slice_stride(ND)
     n = d0 + d1 + d2
     rp = (R + 3) // 4 * 4 if R // 2 // 4 > 0 else R
-    o = 0
+    o = 4                  # MB, the step's two mbarriers
     o += n * rp            # H
     o += own * rp          # X
     o += own * rp          # E
