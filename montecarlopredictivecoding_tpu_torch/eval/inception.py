@@ -306,16 +306,38 @@ def load_torch_state_dict(state: tp.Union[str, os.PathLike, tp.Mapping], device=
 
 
 WEIGHTS_ENV = "MCPC_INCEPTION_WEIGHTS"
+DIGEST_CHARS = 12
+
+
+def params_digest(params: dict) -> str:
+    """The first ``DIGEST_CHARS`` hex digits of the sha256 of every
+    parameter's float32 bytes, in :func:`conv_spec` order: the weights'
+    name in the FID statistics' cache files."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path, *_ in conv_spec():
+        leaf = params
+        for k in path.split("."):
+            leaf = leaf[k]
+        for k in ("w", "bn_w", "bn_b", "bn_m", "bn_v"):
+            h.update(leaf[k].detach().to("cpu", torch.float32).contiguous().numpy().tobytes())
+    return h.hexdigest()[:DIGEST_CHARS]
 
 
 def make_inception_features(weights: tp.Union[str, tp.Mapping, None] = None,
                             batch_size: int = 64, device="cuda"):
     """FID feature extractor: ``[N, 28, 28]`` images in [0, 1] -> ``[N,
-    2048]`` numpy features, computed on ``device`` in batches.
+    2048]`` numpy features, computed on ``device`` in batches, each read
+    back as it ends.
 
     ``weights``: a torch InceptionV3 state dict or its file; defaults to
     ``$MCPC_INCEPTION_WEIGHTS``.  Raises ``FileNotFoundError`` when there are
-    none; it never downloads."""
+    none; it never downloads.  The function's ``tag`` is ``"inception-"``
+    and the weights' :func:`params_digest`, so statistics cached for one
+    set of weights are never read for another; its ``device`` tells
+    ``eval/fid.py`` where to compute the moments; ``batches`` counts the
+    batches it ran (assign 0 to reset it)."""
     if weights is None:
         weights = os.environ.get(WEIGHTS_ENV)
     if weights is None:
@@ -335,7 +357,10 @@ def make_inception_features(weights: tp.Union[str, tp.Mapping, None] = None,
             for s in range(0, len(x), batch_size):
                 xb = x[s : s + batch_size].to(device).expand(-1, 3, -1, -1)  # grey -> RGB
                 out.append(inception_pool3_features(params, xb).cpu().numpy())
+                fn.batches += 1
         return np.concatenate(out, axis=0)
 
-    fn.tag = "inception"
+    fn.tag = "inception-" + params_digest(params)
+    fn.device = torch.device(device)
+    fn.batches = 0
     return fn

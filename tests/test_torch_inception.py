@@ -144,7 +144,8 @@ def test_full_graph_at_batch_one_matches_jax():
     sd = random_state_dict(7)
     x = np.random.default_rng(8).random((1, 28, 28), dtype=np.float32)
     fn = ti.make_inception_features(weights=sd, device="cpu")
-    assert fn.tag == "inception"
+    # the cache tag names the weights (the JAX package's stays "inception")
+    assert fn.tag == "inception-" + ti.params_digest(ti.load_torch_state_dict(sd, device="cpu"))
     got = fn(x)
     assert got.shape == (1, 2048) and np.isfinite(got).all()
     close(got, ji.make_inception_features(weights=sd)(x), 1e-5)
