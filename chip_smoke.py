@@ -6,7 +6,8 @@ Phase 0  prints the card and its power limit, turns TF32 off (so every f32
          matrix product of the plain versions is full f32) and builds every
          CUDA kernel of the port from the sources in this checkout, one
          ``nvcc`` per library (each chain source for f32 and for bf16
-         products, the per-op probe's for f32), all started together, and
+         products, the per-op probe's and InceptionV3's convolution
+         kernel's for f32), all started together, and
          prints each instantiation's registers and spills as ptxas reports
          them; it fails if a chain instantiation spills or holds more
          registers than its build's launch bound allows
@@ -256,6 +257,17 @@ Phase 10 the per-op probe (``benchmarks/vpu_op_bench.py`` of the port, the
          needs (``STEP_OPS``; the pipe that sets it), with ``bm_poly``
          beside ``bm_hw`` and ``sigmoid_tanh`` beside ``sigmoid``.
 
+Phase 11 InceptionV3's BasicConv2d kernel (``ops/inception_conv.py``,
+(FID     ``scripts/inception_conv_layers.py``): each of the 94 layers on the
+convs)   input it gets in a forward of INCEPTION_BATCH images (the benchmark's
+         seeded weights) against a float64 convolution, BatchNorm and relu:
+         the kernel's worst-row gap at most INCEPTION_GAP, beside the FMA
+         route's (cuDNN, TF32 off) and a planted single-pass TF32 variant's,
+         which must read at least INCEPTION_PLANTED times the kernel's; a
+         forward's 94 launches counted; the kernel's time a forward beside
+         its bound, its plain version's and the library's (cuDNN's
+         convolution, PyTorch's BatchNorm and relu).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 either is printed.  There is no CPU fallback: without a CUDA device the
@@ -480,6 +492,16 @@ DP_QUANTILE = (5e-4, 0.01, 0.02)
 DP_RANK_TIMEOUT_S = 300
 LOADER_ROWS = 60000
 OBS_BATCHES = 3
+# phase 11: InceptionV3's convolution kernel at the extractor's batch; a
+# layer's kernel gap from float64 at most INCEPTION_GAP (the card read at
+# most 8.8e-7 over the 94 layers at B = 64 and 8, the FMA route 2.9e-6),
+# and the planted single-pass TF32 variant at least INCEPTION_PLANTED times
+# the kernel's gap on every layer (it read 466 times or more)
+INCEPTION_BATCH = 64
+INCEPTION_SEED = 7
+INCEPTION_GAP = 2e-6
+INCEPTION_PLANTED = 30
+
 # phase 10: the per-op probe held at each batch its entry point runs, from
 # 0.3 over 64 steps (the unrolled loop alone) and from the signed start over
 # 5 (the remainder alone) and 13 steps (both), where the start still shows;
@@ -1891,6 +1913,62 @@ def run_phase9(torch, here: str, dev, tag: str, zero_counts, read_counts, ranks,
     return counts9
 
 
+def run_phase11(torch, here: str, tag: str) -> dict:
+    """Phase 11: InceptionV3's BasicConv2d kernel on each of the 94 layers
+    against float64, a forward's launches, and its times; returns its entry
+    of the kernels line (ms a forward of INCEPTION_BATCH images)."""
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    layers_mod = importlib.import_module("inception_conv_layers")
+    inc = importlib.import_module("montecarlopredictivecoding_tpu_torch.eval.inception")
+    ic = importlib.import_module("montecarlopredictivecoding_tpu_torch.ops.inception_conv")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = layers_mod.weights(INCEPTION_SEED, dev)
+    x = layers_mod.images(INCEPTION_BATCH, INCEPTION_SEED + 1, dev)
+    before = ic.conv_bn_relu.launches
+    layers = layers_mod.layer_inputs(params, x)
+    torch.cuda.synchronize()
+    forward_launches = ic.conv_bn_relu.launches - before
+    check(len(layers) == 94 and forward_launches == 94,
+          f"phase 11: a forward ran {len(layers)} layers and {forward_launches} launches, not 94")
+    with torch.no_grad():
+        rows = [layers_mod.gaps(L) for L in layers]
+    torch.cuda.synchronize()
+    for L, r in zip(layers, rows):
+        check(r["kernel"] <= INCEPTION_GAP,
+              f"phase 11: {L.name}: the kernel is {r['kernel']} from float64")
+        check(r["single_pass"] >= INCEPTION_PLANTED * r["kernel"],
+              f"phase 11: {L.name}: single-pass TF32 reads {r['single_pass']}, under "
+              f"{INCEPTION_PLANTED} times the kernel's {r['kernel']}")
+    worst = {k: max(r[k] for r in rows) for k in ("kernel", "fma", "single_pass")}
+    print(f"phase 11: the 94 layers at B={INCEPTION_BATCH} against float64, worst-row gap: "
+          f"kernel at most {worst['kernel']:.3e} (INCEPTION_GAP {INCEPTION_GAP}), FMA route "
+          f"{worst['fma']:.3e}, single-pass TF32 {worst['single_pass']:.3e} (at least "
+          f"{min(r['single_pass'] / r['kernel'] for r in rows):.1f} times the kernel's on each "
+          f"layer); {time.perf_counter() - t0:.1f} s")
+    for L, r in zip(layers, rows):
+        print(f"  {L.name}: kernel {r['kernel']:.3e}, FMA {r['fma']:.3e}, "
+              f"single-pass {r['single_pass']:.3e}")
+    t = layers_mod.times(layers)
+    flops = sum(L.flops() for L in layers)
+    bound_ms = 1e3 * flops / layers_mod.PEAK_FLOPS
+    print(f"phase 11: a forward's 94 layers at B={INCEPTION_BATCH}: kernel {t['kernel_ms']:.3f} ms "
+          f"({flops / t['kernel_ms'] / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms (FLOPs at "
+          f"165 TFLOP/s; {100 * bound_ms / t['kernel_ms']:.1f}%), plain version "
+          f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms {tag}")
+    return {
+        "name": "inception_conv", "route": "cuda",
+        "source": "montecarlopredictivecoding_tpu_torch/ops/csrc/inception_conv.cu",
+        "replaces": None, "launches": forward_launches,
+        "max_abs_err": worst["kernel"], "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": "operations", "library_ms": t["library_ms"],
+        # a forward of the 94 layers at INCEPTION_BATCH images; max_abs_err is
+        # the worst layer's worst-row gap from float64 (relative)
+        "per": f"forward, B={INCEPTION_BATCH}", "fma_gap": worst["fma"],
+        "single_pass_gap": worst["single_pass"],
+    }
+
+
 def run_phase10(torch, tag: str) -> dict:
     """Phase 10: the per-op probe held against its plain version on the
     card, then driven through its entry point; returns its entry of the
@@ -2033,9 +2111,10 @@ def main() -> int:
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     # each chain source twice, f32 and bf16 products, and the per-op probe
-    # once (f32): five nvcc started together
+    # once (f32), InceptionV3's convolution kernel once: six nvcc started
+    # together
     libraries = [(name, bf16) for name in ("mcpc_chain", "mcpc_chain_unpacked")
-                 for bf16 in (False, True)] + [("op_probe", False)]
+                 for bf16 in (False, True)] + [("op_probe", False), ("inception_conv", False)]
     # phase 9's ranks start now, and the synthetic MNIST set (numpy on the
     # host) is made, while nvcc runs
     ranks9, tmp9 = start_phase9_ranks(here)
@@ -2228,7 +2307,7 @@ def main() -> int:
     sass_pool = ThreadPoolExecutor(max_workers=4)
     sass_jobs = [sass_pool.submit(_build.sass_counts, lib_path, "HMMA")
                  for (source, _), lib_path in zip(libraries, lib_paths)
-                 if source != "op_probe"]
+                 if source.startswith("mcpc_chain")]
 
     # the chain's options, against the plain version in f32 and float64: each
     # part may sit at most its allowance further from float64 than the plain
@@ -3069,7 +3148,7 @@ def main() -> int:
         job.result()
     sass_pool.shutdown()
     for (source, bf16), lib_path in zip(libraries, lib_paths):
-        if source == "op_probe":
+        if not source.startswith("mcpc_chain"):
             continue
         forms = ("HMMA.16816.F32.BF16", "HMMA.1688.F32.BF16")
         counts = {op: _build.sass_counts(lib_path, op) for op in ("HMMA",) + forms}
@@ -3881,12 +3960,15 @@ def main() -> int:
     # --------------------------------------------------------- phase 10
     probe_entry = run_phase10(torch, tag)
     print(f"phase 10 ends at {time.perf_counter() - t_start:.1f} s")
+    # --------------------------------------------------------- phase 11
+    inception_entry = run_phase11(torch, here, tag)
+    print(f"phase 11 ends at {time.perf_counter() - t_start:.1f} s")
     launches = [sum(run) for run in zip(serve_counts, train_counts, mse_counts, fig_counts,
                                         counts5, counts6, counts_tp, counts7, counts8, counts9)]
     pallas = "montecarlopredictivecoding_tpu/ops/pallas_mcpc.py"
     csrc = "montecarlopredictivecoding_tpu_torch/ops/csrc/"
     print(f"chip_smoke: wall time {time.perf_counter() - t_main:.1f} s from the start of main, "
-          f"of which nvcc (the five libraries built in parallel) {t_built:.1f} s {tag}")
+          f"of which nvcc (the six libraries built in parallel) {t_built:.1f} s {tag}")
     print(json.dumps({"kernels": [
         {
             "name": "mcpc_chain", "route": "cuda", "source": csrc + "mcpc_chain.cu",
@@ -3944,6 +4026,7 @@ def main() -> int:
             "bound_f32_ms": chains16["c, unpacked"][4], "steps": bf16_c["T"],
         },
         probe_entry,
+        inception_entry,
     ]}))
     print(f"chain (a): {plan_text(FID, BATCH, CHAIN_A)} {tag}")
     print(f"chain (c): {plan_text(FID, BATCH, CHAIN_C)} {tag}")

@@ -17,6 +17,14 @@ Input pipeline (pytorch_fid/inception.py): images in [0, 1], grey to RGB,
 bilinear resize to 299x299 (half-pixel centres, no antialias), scaled to
 [-1, 1].  Output: the 2048 pool3 features.  The convolutions run in full f32
 (``full_f32_conv``), as the JAX package's run at ``Precision.HIGHEST``.
+
+On the card every BasicConv2d (convolution, BatchNorm, relu) is one launch
+of the hand-written kernel of ``ops/inception_conv.py`` (split-TF32 products
+with f32 sums, the BatchNorm and relu in its epilogue), on channels-last
+activations from the resize on, each branch stored straight into its
+channel slice of the block's output.  On the CPU the graph runs the
+primitives below (``conv2d``, ``batch_norm``) in the JAX package's layout;
+the concatenations are the same copies into a block's output.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.inception_conv import ConvLayer, bn_vectors, conv_bn_relu, conv_layer, kernel_layout
 from ..utils.precision import full_f32_conv
 
 _BN_EPS = 1e-3  # torchvision BasicConv2d: BatchNorm2d(eps=0.001)
@@ -44,15 +53,26 @@ def conv2d(x, w, stride=1, padding=(0, 0)):
 
 def batch_norm(x, p):
     """Eval-mode BatchNorm2d with running statistics."""
-    inv = torch.rsqrt(p["bn_v"] + _BN_EPS)
-    scale = (p["bn_w"] * inv)[None, :, None, None]
-    shift = (p["bn_b"] - p["bn_m"] * p["bn_w"] * inv)[None, :, None, None]
-    return x * scale + shift
+    scale, shift = bn_vectors(p["bn_w"], p["bn_b"], p["bn_m"], p["bn_v"], _BN_EPS)
+    return x * scale[None, :, None, None] + shift[None, :, None, None]
 
 
-def basic_conv(x, p, stride=1, padding=(0, 0)):
-    """torchvision's BasicConv2d: bias-free conv -> BN(eps 1e-3) -> relu."""
-    return torch.relu(batch_norm(conv2d(x, p["w"], stride, padding), p))
+def layer_of(p) -> ConvLayer:
+    """A BasicConv2d's parameters as the kernel takes them (prepared once at
+    load; a tree made some other way is prepared at each call)."""
+    layer = p.get("layer")
+    if layer is None:
+        layer = conv_layer(p["w"], p["bn_w"], p["bn_b"], p["bn_m"], p["bn_v"], _BN_EPS)
+    return layer
+
+
+def basic_conv(x, p, stride=1, padding=(0, 0), out=None):
+    """torchvision's BasicConv2d: bias-free conv -> BN(eps 1e-3) -> relu,
+    into ``out`` (a channel slice of a block's output) where given."""
+    if x.is_cuda:
+        return conv_bn_relu(x, layer_of(p), stride, padding, out)
+    y = torch.relu(batch_norm(conv2d(x, p["w"], stride, padding), p))
+    return y if out is None else out.copy_(y)
 
 
 def max_pool(x, k=3, stride=2, padding=0):
@@ -73,69 +93,108 @@ def resize_bilinear(x, size):
 # -- the blocks ----------------------------------------------------------------
 
 
+def _width(p, name) -> int:
+    return p[name]["w"].shape[0]
+
+
+def _block_output(x, widths, size=None):
+    """A block's output of ``x``'s batch, type, device and layout
+    (channels-last on the card), ``size`` (H, W) or ``x``'s, uninitialised,
+    and its channel slices of ``widths``: the branches' outputs, which
+    together are their concatenation."""
+    n, _, h, w = x.shape
+    h, w = size or (h, w)
+    out = torch.empty((n, sum(widths), h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last if x.is_cuda else torch.contiguous_format)
+    starts = np.cumsum((0,) + tuple(widths))
+    return out, [out[:, a:b] for a, b in zip(starts[:-1], starts[1:])]
+
+
+def _halved(x):
+    """The size a 3x3 stride-2 convolution or pool without padding gives."""
+    return (x.shape[2] - 3) // 2 + 1, (x.shape[3] - 3) // 2 + 1
+
+
 def inception_a(x, p):
-    b1 = basic_conv(x, p["branch1x1"])
+    out, (o1, o5, o3, op) = _block_output(x, [_width(p, "branch1x1"), _width(p, "branch5x5_2"),
+                                              _width(p, "branch3x3dbl_3"),
+                                              _width(p, "branch_pool")])
+    basic_conv(x, p["branch1x1"], out=o1)
     b5 = basic_conv(x, p["branch5x5_1"])
-    b5 = basic_conv(b5, p["branch5x5_2"], padding=(2, 2))
+    basic_conv(b5, p["branch5x5_2"], padding=(2, 2), out=o5)
     b3 = basic_conv(x, p["branch3x3dbl_1"])
     b3 = basic_conv(b3, p["branch3x3dbl_2"], padding=(1, 1))
-    b3 = basic_conv(b3, p["branch3x3dbl_3"], padding=(1, 1))
-    bp = basic_conv(avg_pool_excl(x), p["branch_pool"])
-    return torch.cat([b1, b5, b3, bp], dim=1)
+    basic_conv(b3, p["branch3x3dbl_3"], padding=(1, 1), out=o3)
+    basic_conv(avg_pool_excl(x), p["branch_pool"], out=op)
+    return out
 
 
 def inception_b(x, p):
-    b3 = basic_conv(x, p["branch3x3"], stride=2)
+    out, (o3, od, op) = _block_output(x, [_width(p, "branch3x3"), _width(p, "branch3x3dbl_3"),
+                                          x.shape[1]], _halved(x))
+    basic_conv(x, p["branch3x3"], stride=2, out=o3)
     bd = basic_conv(x, p["branch3x3dbl_1"])
     bd = basic_conv(bd, p["branch3x3dbl_2"], padding=(1, 1))
-    bd = basic_conv(bd, p["branch3x3dbl_3"], stride=2)
-    return torch.cat([b3, bd, max_pool(x)], dim=1)
+    basic_conv(bd, p["branch3x3dbl_3"], stride=2, out=od)
+    op.copy_(max_pool(x))
+    return out
 
 
 def inception_c(x, p):
-    b1 = basic_conv(x, p["branch1x1"])
+    out, (o1, o7, od, op) = _block_output(x, [_width(p, "branch1x1"), _width(p, "branch7x7_3"),
+                                              _width(p, "branch7x7dbl_5"),
+                                              _width(p, "branch_pool")])
+    basic_conv(x, p["branch1x1"], out=o1)
     b7 = basic_conv(x, p["branch7x7_1"])
     b7 = basic_conv(b7, p["branch7x7_2"], padding=(0, 3))
-    b7 = basic_conv(b7, p["branch7x7_3"], padding=(3, 0))
+    basic_conv(b7, p["branch7x7_3"], padding=(3, 0), out=o7)
     bd = basic_conv(x, p["branch7x7dbl_1"])
     bd = basic_conv(bd, p["branch7x7dbl_2"], padding=(3, 0))
     bd = basic_conv(bd, p["branch7x7dbl_3"], padding=(0, 3))
     bd = basic_conv(bd, p["branch7x7dbl_4"], padding=(3, 0))
-    bd = basic_conv(bd, p["branch7x7dbl_5"], padding=(0, 3))
-    bp = basic_conv(avg_pool_excl(x), p["branch_pool"])
-    return torch.cat([b1, b7, bd, bp], dim=1)
+    basic_conv(bd, p["branch7x7dbl_5"], padding=(0, 3), out=od)
+    basic_conv(avg_pool_excl(x), p["branch_pool"], out=op)
+    return out
 
 
 def inception_d(x, p):
+    out, (o3, o7, op) = _block_output(x, [_width(p, "branch3x3_2"), _width(p, "branch7x7x3_4"),
+                                          x.shape[1]], _halved(x))
     b3 = basic_conv(x, p["branch3x3_1"])
-    b3 = basic_conv(b3, p["branch3x3_2"], stride=2)
+    basic_conv(b3, p["branch3x3_2"], stride=2, out=o3)
     b7 = basic_conv(x, p["branch7x7x3_1"])
     b7 = basic_conv(b7, p["branch7x7x3_2"], padding=(0, 3))
     b7 = basic_conv(b7, p["branch7x7x3_3"], padding=(3, 0))
-    b7 = basic_conv(b7, p["branch7x7x3_4"], stride=2)
-    return torch.cat([b3, b7, max_pool(x)], dim=1)
+    basic_conv(b7, p["branch7x7x3_4"], stride=2, out=o7)
+    op.copy_(max_pool(x))
+    return out
 
 
 def inception_e(x, p, pool: str):
     """``pool='avg'``: FIDInceptionE_1 (Mixed_7b); ``'max'``:
     FIDInceptionE_2 (Mixed_7c), whose max pool matches the TF FID graph."""
-    b1 = basic_conv(x, p["branch1x1"])
+    out, (o1, o3a, o3b, oda, odb, op) = _block_output(x, [
+        _width(p, name) for name in ("branch1x1", "branch3x3_2a", "branch3x3_2b",
+                                     "branch3x3dbl_3a", "branch3x3dbl_3b", "branch_pool")])
+    basic_conv(x, p["branch1x1"], out=o1)
     b3 = basic_conv(x, p["branch3x3_1"])
-    b3 = torch.cat([basic_conv(b3, p["branch3x3_2a"], padding=(0, 1)),
-                    basic_conv(b3, p["branch3x3_2b"], padding=(1, 0))], dim=1)
+    basic_conv(b3, p["branch3x3_2a"], padding=(0, 1), out=o3a)
+    basic_conv(b3, p["branch3x3_2b"], padding=(1, 0), out=o3b)
     bd = basic_conv(x, p["branch3x3dbl_1"])
     bd = basic_conv(bd, p["branch3x3dbl_2"], padding=(1, 1))
-    bd = torch.cat([basic_conv(bd, p["branch3x3dbl_3a"], padding=(0, 1)),
-                    basic_conv(bd, p["branch3x3dbl_3b"], padding=(1, 0))], dim=1)
+    basic_conv(bd, p["branch3x3dbl_3a"], padding=(0, 1), out=oda)
+    basic_conv(bd, p["branch3x3dbl_3b"], padding=(1, 0), out=odb)
     bp = avg_pool_excl(x) if pool == "avg" else max_pool(x, k=3, stride=1, padding=1)
-    bp = basic_conv(bp, p["branch_pool"])
-    return torch.cat([b1, b3, bd, bp], dim=1)
+    basic_conv(bp, p["branch_pool"], out=op)
+    return out
 
 
 def inception_pool3_features(params, x):
     """``x`` ``[N, 3, H, W]`` in [0, 1] -> the 2048 pool3 features ``[N,
     2048]``, resize and input normalisation included."""
     x = 2.0 * resize_bilinear(x, 299) - 1.0
+    if x.is_cuda:
+        x = kernel_layout(x)
     x = basic_conv(x, params["Conv2d_1a_3x3"], stride=2)
     x = basic_conv(x, params["Conv2d_2a_3x3"])
     x = basic_conv(x, params["Conv2d_2b_3x3"], padding=(1, 1))
@@ -260,8 +319,10 @@ def init_inception_params(generator: tp.Optional[torch.Generator] = None,
         w = w * (1.0 / np.sqrt(c_in * k[0] * k[1]))
         ones = torch.ones((c_out,), dtype=dtype, device=device)
         zeros = torch.zeros((c_out,), dtype=dtype, device=device)
-        _set_nested(params, path, {"w": w.to(device), "bn_w": ones, "bn_b": zeros,
-                                   "bn_m": zeros.clone(), "bn_v": ones.clone()})
+        leaf = {"w": w.to(device), "bn_w": ones, "bn_b": zeros, "bn_m": zeros.clone(),
+                "bn_v": ones.clone()}
+        leaf["layer"] = layer_of(leaf)
+        _set_nested(params, path, leaf)
     return params
 
 
@@ -301,6 +362,7 @@ def load_torch_state_dict(state: tp.Union[str, os.PathLike, tp.Mapping], device=
                 f"{path}.conv.weight has shape {tuple(leaf['w'].shape)}, expected "
                 f"{(c_out, c_in) + k}"
             )
+        leaf["layer"] = layer_of(leaf)
         _set_nested(params, path, leaf)
     return params
 

@@ -2,14 +2,15 @@
 
 Each kernel source under ``csrc/`` (``mcpc_chain.cu`` and
 ``mcpc_chain_unpacked.cu``, which both instantiate the cluster kernel of
-``mcpc_cluster.cuh``, and ``op_probe.cu``, the per-op probe) has a plain
+``mcpc_cluster.cuh``, ``op_probe.cu``, the per-op probe, and
+``inception_conv.cu``, InceptionV3's convolution kernel) has a plain
 ``extern "C"`` interface and is compiled by ``nvcc`` into its own shared
 library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  A chain source is built twice: once for f32 products and once
 with ``-DMCPC_BF16`` for bf16 ones, into a library of its own
 (``<name>_bf16``), so each library holds only the instantiations of its
-kind and the two compile side by side.  The probe has no bf16 variant and
-is built once.  Libraries go
+kind and the two compile side by side.  The probe and the convolution
+kernel have no bf16 variant and are built once.  Libraries go
 to ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of the source, the shared headers and the flags, so an
 edited source or header rebuilds and an unchanged one is reused.  The first
@@ -128,12 +129,18 @@ def build_all(libraries: tp.Sequence[tp.Tuple]) -> tp.List[Path]:
 
 
 _CHAIN_KERNEL = re.compile(r"mcpc_chain_kernelILi(\d+)ELb(\d)ELi(\d)ELb(\d)ELi(\d)E")
+_CONV_KERNEL = re.compile(r"inception_conv_kernelILi(\d+)ELi(\d+)E")
 
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled function of these libraries: the chain
-    kernel's template arguments (rows a cluster, OPT, ACT, BF16, NOISE)
-    spelled out, anything else as it is."""
+    kernel's template arguments (rows a cluster, OPT, ACT, BF16, NOISE) and
+    the convolution kernel's (columns, warpgroups) spelled out, anything
+    else as it is."""
+    conv = _CONV_KERNEL.search(mangled)
+    if conv is not None:
+        bn, wgs = (int(g) for g in conv.groups())
+        return f"inception_conv_kernel<{64 * wgs} x {bn}>"
     m = _CHAIN_KERNEL.search(mangled)
     if m is None:
         for code, kind in (("IdE", "double"), ("IfE", "float"), ("I6float4E", "float4")):

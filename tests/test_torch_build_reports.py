@@ -58,6 +58,8 @@ def test_kernel_names_spell_out_the_template_arguments():
         "mcpc_chain_kernel<rows 2, OPT, tanh, f32, unpacked>")
     assert _build.kernel_name(SUM_F4) == "sum_partials_kernel<float4>"
     assert _build.kernel_name("_Z5otherv") == "_Z5otherv"
+    assert (_build.kernel_name("_ZN12_GLOBAL__N_121inception_conv_kernelILi96ELi2EEEvNS_4ConvE")
+            == "inception_conv_kernel<128 x 96>")
 
 
 def test_ptxas_resources_reads_registers_and_spills(tmp_path):
